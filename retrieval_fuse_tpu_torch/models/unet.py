@@ -1,0 +1,200 @@
+"""3D U-Net blocks, as in the JAX package's models/unet.py.
+
+The modules here take and return NCDHW tensors (PyTorch's own idiom); the
+public refinement stacks (models/refinement.py) take channels-last
+(B, D, H, W, C) tensors and permute once at entry and exit, which is a view.
+Submodule names equal the flax module names, so a flax param tree maps onto
+these state_dicts key for key (utils/flax_import.py).
+
+Ported: the 'c', 'g', 'r', 'l', 'e' layer orders, DoubleConv,
+StepDownDoubleConv, max-pool Encoder, nearest-upsample + concat Decoder,
+DecoderNoJoining and UNet3D with `remove_n_final_layers`. BatchNorm ('b'),
+ExtResNetBlock / ResidualUNet3D and the final 1x1 conv are not on the
+serving path and are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def number_of_features_per_level(init_channel_number: int, num_levels: int) -> list[int]:
+    return [init_channel_number * 2 ** k for k in range(num_levels)]
+
+
+def _adapt_num_groups(num_channels: int, num_groups: int) -> int:
+    if num_channels < num_groups:
+        return 1
+    if num_channels % num_groups:
+        raise ValueError(f"channels ({num_channels}) must divide num_groups ({num_groups})")
+    return num_groups
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x on (B, C, D, H, W)."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+class SingleConv(nn.Module):
+    """One conv with norm / non-linearity in configurable order: 'c' conv
+    (bias only without norm), 'g' GroupNorm (eps 1e-5, on the channels at
+    its position), 'r' ReLU, 'l' LeakyReLU(0.1), 'e' ELU."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 order: str = "crg", num_groups: int = 8, padding: int = 1):
+        super().__init__()
+        if "c" not in order:
+            raise ValueError("Conv layer MUST be present")
+        if order[0] in "rle":
+            raise ValueError("Non-linearity cannot be the first operation in the layer")
+        self.order = order
+        ch = in_channels
+        for char in order:
+            if char == "c":
+                self.conv = nn.Conv3d(in_channels, out_channels, kernel_size,
+                                      padding=padding, bias="g" not in order)
+                ch = out_channels
+            elif char == "g":
+                self.groupnorm = nn.GroupNorm(_adapt_num_groups(ch, num_groups), ch, eps=1e-5)
+            elif char not in "rle":
+                raise NotImplementedError(f"layer type '{char}' is not ported")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for char in self.order:
+            if char == "r":
+                x = F.relu(x)
+            elif char == "l":
+                x = F.leaky_relu(x, 0.1)
+            elif char == "e":
+                x = F.elu(x)
+            elif char == "c":
+                x = self.conv(x)
+            else:
+                x = self.groupnorm(x)
+        return x
+
+
+class DoubleConv(nn.Module):
+    """Two SingleConvs; an encoder halves-then-doubles channels."""
+
+    def __init__(self, in_channels: int, out_channels: int, encoder: bool,
+                 kernel_size: int = 3, order: str = "crg", num_groups: int = 8):
+        super().__init__()
+        conv1_out = max(out_channels // 2, in_channels) if encoder else out_channels
+        self.SingleConv1 = SingleConv(in_channels, conv1_out, kernel_size, order, num_groups)
+        self.SingleConv2 = SingleConv(conv1_out, out_channels, kernel_size, order, num_groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.SingleConv2(self.SingleConv1(x))
+
+
+class StepDownDoubleConv(nn.Module):
+    """Two SingleConvs stepping through (in + out) // 2 channels."""
+
+    def __init__(self, in_channels: int, out_channels: int, encoder: bool = False,
+                 kernel_size: int = 3, order: str = "crg", num_groups: int = 8):
+        super().__init__()
+        mid = (in_channels + out_channels) // 2
+        self.SingleConv1 = SingleConv(in_channels, mid, kernel_size, order, num_groups)
+        self.SingleConv2 = SingleConv(mid, out_channels, kernel_size, order, num_groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.SingleConv2(self.SingleConv1(x))
+
+
+_BASIC_MODULES = {"DoubleConv": DoubleConv, "StepDownDoubleConv": StepDownDoubleConv}
+
+
+class Encoder(nn.Module):
+    """Optional 2³ max-pool + basic module."""
+
+    def __init__(self, in_channels: int, out_channels: int, apply_pooling: bool = True,
+                 basic_module: str = "DoubleConv", conv_layer_order: str = "crg",
+                 num_groups: int = 8):
+        super().__init__()
+        self.apply_pooling = apply_pooling
+        self.basic_module = _BASIC_MODULES[basic_module](
+            in_channels, out_channels, encoder=True, order=conv_layer_order,
+            num_groups=num_groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.apply_pooling:
+            x = F.max_pool3d(x, kernel_size=2, stride=2)
+        return self.basic_module(x)
+
+
+class Decoder(nn.Module):
+    """Nearest-upsample + concat([skip, x]) + basic module."""
+
+    def __init__(self, skip_channels: int, in_channels: int, out_channels: int,
+                 basic_module: str = "DoubleConv", conv_layer_order: str = "crg",
+                 num_groups: int = 8):
+        super().__init__()
+        self.basic_module = _BASIC_MODULES[basic_module](
+            skip_channels + in_channels, out_channels, encoder=False,
+            order=conv_layer_order, num_groups=num_groups)
+
+    def forward(self, encoder_features: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([encoder_features, upsample_nearest_2x(x)], dim=1)
+        return self.basic_module(x)
+
+
+class DecoderNoJoining(nn.Module):
+    """Upsample 2x + basic module, no skip connection."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 basic_module: str = "DoubleConv", conv_layer_order: str = "crg",
+                 num_groups: int = 8):
+        super().__init__()
+        self.basic_module = _BASIC_MODULES[basic_module](
+            in_channels, out_channels, encoder=False, order=conv_layer_order,
+            num_groups=num_groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.basic_module(upsample_nearest_2x(x))
+
+
+class UNet3D(nn.Module):
+    """Encoder path + truncatable decoder path (final_conv=False, the only
+    setting the refinement stacks use: `out_channels` is written into the
+    last kept decoder, which becomes a StepDownDoubleConv when truncated)."""
+
+    def __init__(self, in_channels: int, out_channels: int, f_maps=64,
+                 layer_order: str = "gcr", num_groups: int = 8, num_levels: int = 4,
+                 remove_n_final_layers: int = 0):
+        super().__init__()
+        if isinstance(f_maps, int):
+            f_maps = number_of_features_per_level(f_maps, num_levels)
+        ch = in_channels
+        for i, out_feature_num in enumerate(f_maps):
+            self.add_module(f"encoders_{i}", Encoder(
+                ch, out_feature_num, apply_pooling=i != 0,
+                conv_layer_order=layer_order, num_groups=num_groups))
+            ch = out_feature_num
+        reversed_f_maps = list(reversed(f_maps))
+        if remove_n_final_layers > 0:
+            reversed_f_maps = reversed_f_maps[:-remove_n_final_layers]
+        modified = list(reversed_f_maps)
+        modified[-1] = out_channels
+        skips = list(reversed(f_maps))[1:]
+        self.n_decoders = len(reversed_f_maps) - 1
+        self.n_encoders = len(f_maps)
+        for i in range(self.n_decoders):
+            last_truncated = i == self.n_decoders - 1 and remove_n_final_layers > 0
+            self.add_module(f"decoders_{i}", Decoder(
+                skips[i], ch, modified[i + 1],
+                basic_module="StepDownDoubleConv" if last_truncated else "DoubleConv",
+                conv_layer_order=layer_order, num_groups=num_groups))
+            ch = modified[i + 1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        features = []
+        for i in range(self.n_encoders):
+            x = getattr(self, f"encoders_{i}")(x)
+            features.insert(0, x)
+        features = features[1:]
+        for i in range(self.n_decoders):
+            x = getattr(self, f"decoders_{i}")(features[i], x)
+        return x

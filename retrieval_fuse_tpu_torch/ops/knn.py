@@ -1,0 +1,69 @@
+"""Exact k-nearest-neighbour search over L2-normalised patch embeddings, as
+in the JAX package's ops/knn.py: squared-L2 neighbours are the top cosine
+similarities, d² = 2 - 2·(q·x).
+
+The crossover constants keep their JAX names and values. They were tuned on
+a TPU v5e; they stay until the H100 measures its own (ROADMAP "Speed").
+The TPU tile sizes (SERVING_KNN_TILES) have no counterpart: the CUDA kernel
+(ops/streaming_knn.py) fixes its own tiling.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+PALLAS_KNN_MIN_ROWS = int(os.environ.get("RF_PALLAS_KNN_MIN_ROWS", 1_000_000))
+PALLAS_KNN_MIN_QUERIES = int(os.environ.get("RF_PALLAS_KNN_MIN_QUERIES", 8192))
+PALLAS_KNN_MIN_ROWS_BATCHED = int(os.environ.get("RF_PALLAS_KNN_MIN_ROWS_BATCHED", 16384))
+
+
+def iterative_topk(sims: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over the last axis by k rounds of max + mask.
+
+    Equal values are taken in ascending index order (the jax.lax.top_k
+    rule), written out because torch.topk does not promise it. Returns
+    (values, int32 indices), best first. NaN-free input is assumed."""
+    n = sims.shape[-1]
+    ids = torch.arange(n, device=sims.device, dtype=torch.int32).expand(sims.shape)
+    s = sims
+    vals, idxs = [], []
+    for _ in range(k):
+        m = torch.amax(s, dim=-1, keepdim=True)
+        sel = torch.where(s == m, ids, n).amin(dim=-1, keepdim=True)
+        vals.append(m)
+        idxs.append(sel)
+        s = s.scatter(-1, sel.long(), float("-inf"))
+    return torch.cat(vals, dim=-1), torch.cat(idxs, dim=-1)
+
+
+def exact_knn(queries: torch.Tensor, database: torch.Tensor, k: int):
+    """Top-k rows of `database` for each query (both L2-normalised), dense:
+    one float32 score matrix, then the tie-exact select. Returns
+    (int32 indices, sq_dists = max(2 - 2·cos, 0))."""
+    sims = queries.float() @ database.float().T
+    top_sims, top_idx = iterative_topk(sims, k)
+    return top_idx, torch.clamp(2.0 - 2.0 * top_sims, min=0.0)
+
+
+def use_streaming_knn(n_rows: int, min_rows: int | None = None,
+                      n_queries: int | None = None) -> bool:
+    """True where the streaming kernel is the selected search: the database
+    alone crosses the row threshold, or the query batch and the database
+    both cross the batched thresholds (the serving regime)."""
+    if n_rows >= (PALLAS_KNN_MIN_ROWS if min_rows is None else min_rows):
+        return True
+    return (n_queries is not None and n_queries >= PALLAS_KNN_MIN_QUERIES
+            and n_rows >= PALLAS_KNN_MIN_ROWS_BATCHED)
+
+
+def auto_exact_knn(queries: torch.Tensor, database: torch.Tensor, k: int,
+                   min_rows: int | None = None):
+    """Exact kNN with the engine chosen by use_streaming_knn: the streaming
+    kernel at or above the crossovers, the dense path below. The same
+    indices either way, up to float32 summation order on near-ties."""
+    if use_streaming_knn(database.shape[0], min_rows, n_queries=queries.shape[0]):
+        from retrieval_fuse_tpu_torch.ops.streaming_knn import streaming_knn
+        return streaming_knn(queries, database, k)
+    return exact_knn(queries, database, k)

@@ -1,0 +1,54 @@
+"""Weight bridge: flax-layout param trees -> the port's state_dicts.
+
+The inverse of the JAX package's utils/torch_import.py layout maps. The
+port's modules carry the flax module names, so the nested-dict path of each
+leaf is its state_dict key; only the leaf names and layouts change:
+
+  Conv   kernel (kD, kH, kW, I, O) -> weight (O, I, kD, kH, kW)
+  Dense  kernel (I, O)             -> weight (O, I)
+  GroupNorm scale                  -> weight
+  bias, sig_scale, sig_shift       -> unchanged
+
+The port keeps the JAX channels-last flatten order wherever a Dense layer
+reads a flattened patch (patch encoder, attention MLPs), so no channel
+permutation is needed here.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+
+def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """Nested mapping of arrays (flax params of one module) -> flat
+    float32 state_dict for the port's module of the same structure."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping, prefix: str) -> None:
+        for name, leaf in tree.items():
+            if isinstance(leaf, Mapping):
+                walk(leaf, f"{prefix}{name}.")
+                continue
+            a = np.asarray(leaf).astype(np.float32)
+            if name == "kernel":
+                if a.ndim == 5:
+                    a, name = a.transpose(4, 3, 0, 1, 2), "weight"
+                elif a.ndim == 2:
+                    a, name = a.T, "weight"
+                else:
+                    raise ValueError(f"{prefix}{name}: unexpected kernel rank {a.ndim}")
+            elif name == "scale":
+                name = "weight"
+            out[prefix + name] = torch.from_numpy(np.ascontiguousarray(a))
+
+    walk(params, "")
+    return out
+
+
+def flax_engine_params(params: Mapping) -> dict[str, dict[str, torch.Tensor]]:
+    """The JAX engine's params {'fenc_input', 'unet_backbone', ...} -> one
+    state_dict per module, keyed the same."""
+    return {name: flax_to_state_dict(tree) for name, tree in params.items()}

@@ -1,0 +1,112 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a CUDA
+card (skipped elsewhere: the kernels have no CPU mode). This file imports
+neither JAX nor the JAX package, so it runs where only PyTorch is:
+
+    python -m pytest --noconftest tests/test_torch_port_cuda.py
+
+(--noconftest: tests/conftest.py sets up JAX). chip_smoke.py holds the same
+kernels against the same plain versions at the serving shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from retrieval_fuse_tpu_torch.models.attention import AttentionFeatureEncoder
+from retrieval_fuse_tpu_torch.ops import patch_attention as pa
+from retrieval_fuse_tpu_torch.ops.streaming_knn import streaming_knn_sims, streaming_knn_sims_plain
+from retrieval_fuse_tpu_torch.ops.topk import topk, topk_plain
+
+
+@pytest.fixture
+def cuda():
+    """A CUDA device, or a skip."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from retrieval_fuse_tpu_torch.device import resolve_device
+    return resolve_device("cuda")
+
+
+def tied_scores(rng, q, n):
+    sims = rng.standard_normal((q, n)).astype(np.float32)
+    sims[:, 400] = sims[:, 7]   # exact duplicates across tiles
+    sims[13, :] = 0.5           # a row of ties
+    sims[20, -3:] = 9.0         # ties at the ragged right edge
+    return sims
+
+
+def attention_inputs(rng, q, n, t, f, k, c=32):
+    xt = rng.standard_normal((q, t, f)).astype(np.float32)
+    bank = rng.standard_normal((n, t, f)).astype(np.float32)
+    idx = rng.integers(0, n, (q, k)).astype(np.int32)
+    theta, phi = AttentionFeatureEncoder(f, c), AttentionFeatureEncoder(f, c)
+    g = np.random.default_rng(7)
+    for m in (theta, phi):
+        for p in m.parameters():
+            bound = 1.0 / np.sqrt(p.shape[-1]) if p.dim() == 2 else 0.1
+            p.data = torch.from_numpy(g.uniform(-bound, bound, tuple(p.shape)).astype(np.float32))
+    return xt, bank, idx, theta, phi
+
+
+def test_topk_kernel_matches_plain(cuda):
+    sims = torch.from_numpy(tied_scores(np.random.default_rng(5), 300, 4099)).to(cuda)
+    for s in (sims, sims[:, :4096].contiguous(), sims.bfloat16().float()):
+        before = topk.launches
+        v, i = topk(s, 4)
+        torch.cuda.synchronize()
+        assert topk.launches == before + 1
+        pv, pi = topk_plain(s, 4)
+        assert torch.equal(i, pi) and torch.equal(v, pv)
+
+
+def test_knn_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(6)
+    q = torch.nn.functional.normalize(torch.from_numpy(
+        rng.standard_normal((200, 64)).astype(np.float32)), dim=1).to(cuda)
+    db = torch.nn.functional.normalize(torch.from_numpy(
+        rng.standard_normal((3001, 64)).astype(np.float32)), dim=1).to(cuda)
+    before = streaming_knn_sims.launches
+    v, i = streaming_knn_sims(q, db, 4)
+    torch.cuda.synchronize()
+    assert streaming_knn_sims.launches == before + 1
+    pv, pi = streaming_knn_sims_plain(q, db, 5)
+    clear = (pv[:, 3] - pv[:, 4]) > 1e-5  # float32 sums differ in order
+    assert float(clear.float().mean()) > 0.9
+    assert torch.equal(i[clear], pi[clear, :4])
+    assert float((v - pv[:, :4]).abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("retrieval_mode", [True, False], ids=["hard", "softmax"])
+def test_gathered_attention_kernel_matches_plain(cuda, retrieval_mode):
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(8), 37, 50, 64, 128, 4)
+    args = [torch.from_numpy(a).to(cuda) for a in (xt, bank, idx)]
+    theta, phi = theta.to(cuda), phi.to(cuda)
+    with torch.no_grad():
+        before = pa.gathered_patch_attention.launches
+        out, sel = pa.gathered_patch_attention(*args, theta, phi, 4, retrieval_mode,
+                                               return_selection=True)
+        torch.cuda.synchronize()
+        assert pa.gathered_patch_attention.launches == before + 1
+        want, want_sel = pa.gathered_patch_attention_plain(*args, theta, phi, 4,
+                                                           retrieval_mode)
+    agree = sel.long() == want_sel
+    assert float(agree.float().mean()) >= 0.999
+    assert float((out - want).abs()[agree].max()) <= 1e-4
+
+
+def test_gathered_attention_kernel_bf16(cuda):
+    """bf16, the serving dtype: the kernel and the plain version round at
+    the same places, so they differ only where float32 sums taken in
+    another order round to another bf16 value."""
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(9), 37, 50, 64, 128, 4)
+    args = [torch.from_numpy(a).to(cuda) for a in (xt, bank)]
+    args = [a.bfloat16() for a in args] + [torch.from_numpy(idx).to(cuda)]
+    theta, phi = theta.to(cuda).bfloat16(), phi.to(cuda).bfloat16()
+    with torch.no_grad():
+        out, sel = pa.gathered_patch_attention(*args, theta, phi, 4, return_selection=True)
+        want, want_sel = pa.gathered_patch_attention_plain(*args, theta, phi, 4)
+    agree = sel.long() == want_sel
+    assert out.dtype == torch.bfloat16
+    assert float(agree.float().mean()) >= 0.99
+    diff = (out.float() - want.float()).abs()[agree]
+    assert float(diff.max()) <= 0.04 and float(diff.mean()) <= 1e-3

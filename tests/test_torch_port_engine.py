@@ -1,0 +1,154 @@
+"""The port's serving engine, end to end, against the JAX engine.
+
+Same param tree (numpy values, through the weight bridge), database, patch
+bank and inputs for both, at the tiny geometry of tests/test_inference.py.
+The JAX side runs its Pallas kernels with interpret=True, as its own tests
+do. float32: retrieved indices equal, TSDF atol 1e-4; bf16: MAE < 1e-3
+against float32 (the budget of test_bf16_engine_accuracy_within_budget).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from retrieval_fuse_tpu.inference import (
+    RetrieveRefineEngine as JaxEngine, variant_engine_kwargs as jax_variant_kwargs)
+from retrieval_fuse_tpu.models import (
+    get_retrieval_networks, get_unet_backbone, get_decoder, get_retrieval_backbone,
+    get_attention_block)
+from retrieval_fuse_tpu.ops.knn import exact_knn as jax_exact_knn
+from retrieval_fuse_tpu_torch.inference import (
+    FAST_VARIANT, RetrieveRefineEngine, variant_engine_kwargs)
+from retrieval_fuse_tpu_torch.serve import serve_directory
+from retrieval_fuse_tpu_torch.utils.flax_import import flax_engine_params
+from test_torch_port_models import CFG, flax_params
+
+
+def make_setup():
+    nf, k = CFG["nf"], CFG["K"]
+    z = np.zeros
+    params = {
+        "fenc_input": flax_params(get_retrieval_networks(CFG["retrieval_model"])[0],
+                                  z((1, 4, 4, 4, 1), np.float32), seed=1),
+        "unet_backbone": flax_params(get_unet_backbone(CFG), z((1, 8, 8, 8, 1), np.float32),
+                                     seed=2),
+        "decoder": flax_params(get_decoder(CFG), z((1, 32, 32, 32, nf), np.float32), seed=3),
+        "retrieval_backbone": flax_params(get_retrieval_backbone(CFG),
+                                          z((1, 16, 16, 16, 1), np.float32), seed=4),
+        "patched_attention_block": flax_params(
+            get_attention_block(CFG, deterministic_selection=True),
+            z((1, 32, 32, 32, nf), np.float32), z((k, 32, 32, 32, nf), np.float32), seed=5),
+    }
+    rng = np.random.default_rng(0)
+    n = 300
+    db = rng.standard_normal((n, 16)).astype(np.float32)
+    db /= np.linalg.norm(db, axis=1, keepdims=True)
+    bank = rng.random((n, 16, 16, 16)).astype(np.float32) * 0.0625
+    x = rng.random((2, 8, 8, 8, 1)).astype(np.float32) * 0.5
+    return params, db, bank, x
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return make_setup()
+
+
+@pytest.fixture(scope="module")
+def jax_ref(setup):
+    """The JAX FAST_VARIANT engine's retrieved indices, feature bank and
+    TSDF. One JAX engine serves as the reference of every port variant:
+    the JAX tests pin its variants equal to each other (test_inference.py).
+    Its feature bank is the JAX retrieval backbone on the normalised tiles,
+    passed in, which skips the engine's 4096-row padded precompute."""
+    params, db, bank, x = setup
+    dtr = CFG["dataset_train"]
+    tiles = (bank - dtr["target_mean"]) / dtr["target_std"]
+    fb = jax.jit(get_retrieval_backbone(CFG).apply)(
+        {"params": params["retrieval_backbone"]}, jnp.asarray(tiles[..., None]))
+    eng = JaxEngine(CFG, params, db, None, compute_dtype=jnp.float32, feature_bank=fb,
+                    **jax_variant_kwargs(FAST_VARIANT))
+    # the engine's retrieval step (its pipeline lines 343-346) + exact kNN
+    q = eng.fenc_input.apply({"params": eng.params["fenc_input"]},
+                             eng._unfold_input_patches(jnp.asarray(x)))
+    q = q.reshape(q.shape[0], -1)
+    q = q / jnp.maximum(jnp.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    top_idx = np.asarray(jax_exact_knn(q, jnp.asarray(db), CFG["K"])[0])
+    return top_idx, np.asarray(fb), np.asarray(eng(x))
+
+
+def _port_engine(setup, variant, dtype=torch.float32):
+    params, db, bank, _ = setup
+    return RetrieveRefineEngine(CFG, flax_engine_params(params), db, bank, compute_dtype=dtype,
+                                device="cpu", **variant_engine_kwargs(variant))
+
+
+@pytest.mark.parametrize("variant", [FAST_VARIANT, FAST_VARIANT + "+streamknn",
+                                     FAST_VARIANT + "+denseknn", "base"])
+def test_engine_matches_jax(setup, jax_ref, variant):
+    _, _, _, x = setup
+    want_idx, want_bank, want = jax_ref
+    port = _port_engine(setup, variant)
+    if variant == "base":  # the feature bank before the attention-row repack
+        np.testing.assert_allclose(port.feature_bank.numpy(), want_bank, atol=1e-4)
+    top_idx = port.retrieve(torch.from_numpy(x))
+    assert top_idx.dtype == torch.int32
+    np.testing.assert_array_equal(top_idx.numpy(), want_idx)
+    got = port(x).numpy()
+    assert got.shape == want.shape == (2, 64, 64, 64, 1)
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_attention_switch_opens_on_engine_features(setup):
+    """The fixture's weights give the attention something to do: the fused
+    rows differ from the backbone rows, so the selection is exercised."""
+    _, _, _, x = setup
+    eng = _port_engine(setup, FAST_VARIANT)
+    xx = torch.from_numpy(x)
+    x_back = eng.unet_backbone((xx - eng.in_mean) / eng.in_std)
+    fused = eng.refine(xx, eng.retrieve(xx))
+    plain = eng.decoder(x_back)
+    assert float((fused - (plain.float() + 1.0) * eng.target_trunc / 2.0).abs().max()) > 1e-4
+
+
+def test_bf16_engine_within_budget(setup):
+    """The port's bf16 FAST_VARIANT engine vs its float32 base engine."""
+    _, _, _, x = setup
+    o32 = _port_engine(setup, "base")(x)
+    o16 = _port_engine(setup, FAST_VARIANT, torch.bfloat16)(x)
+    mae = float((o16 - o32).abs().mean())
+    assert mae < 1e-3, f"bf16 MAE {mae} blows the 1e-3 TSDF budget"
+
+
+@pytest.mark.parametrize("token", ["pallas", "pallasp", "pallasg", "cdec", "dconv", "fbb",
+                                   "flatg", "phib", "packed", "approxk"])
+def test_unported_variant_tokens_raise(token):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        variant_engine_kwargs(f"fused+{token}")
+
+
+def test_variant_tokens():
+    assert variant_engine_kwargs(FAST_VARIANT) == {"gathered_attention": True,
+                                                   "topk_impl": "single_pass"}
+    assert variant_engine_kwargs("base+streamknn") == {"streaming_knn": True}
+    assert variant_engine_kwargs("denseknn") == {"streaming_knn": False}
+    with pytest.raises(ValueError, match="unknown"):
+        variant_engine_kwargs("fused+nosuchtoken")
+
+
+def test_serve_directory_pads_tail_batch(setup, tmp_path):
+    _, _, _, x = setup
+    rng = np.random.default_rng(9)
+    vols = rng.random((3, 8, 8, 8)).astype(np.float32) * 0.5
+    vols[:2] = x[..., 0]
+    for i, v in enumerate(vols):
+        np.savez_compressed(tmp_path / f"scene{i}.npz", arr=v)
+    eng = _port_engine(setup, FAST_VARIANT)
+    done = serve_directory(eng, tmp_path, tmp_path / "out", batch_size=2)
+    assert done == ["scene0", "scene1", "scene2"]
+    direct = eng(vols[..., None]).numpy()[..., 0]
+    for i in range(3):
+        pred = np.load(tmp_path / "out" / f"scene{i}_pred.npz")["arr"]
+        assert pred.dtype == np.float16 and pred.shape == (64, 64, 64)
+        np.testing.assert_allclose(pred.astype(np.float32), direct[i], atol=1e-4)
