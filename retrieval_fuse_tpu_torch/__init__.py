@@ -5,9 +5,11 @@ same module names so each counterpart is easy to find:
 
   device.py      device resolution: CUDA unless the CPU is asked for
   models/        patch encoder, 3D U-Net, refinement stacks, attention
-  ops/           fold/unfold, kNN selection, and the three hand-written
-                 Hopper kernels (topk, streaming_knn, patch_attention)
-                 with their plain PyTorch versions; csrc/ holds the CUDA
+  ops/           fold/unfold, kNN selection, the coarse-grid decoders and
+                 backbone, and the six hand-written Hopper kernels (topk,
+                 streaming_knn, three patch attentions, decoder_tail) with
+                 their plain PyTorch versions
+  csrc/          the kernels' CUDA sources
   utils/         flax-params -> state_dict weight bridge
   inference.py   RetrieveRefineEngine (the serving path)
   serve.py       directory-of-chunks serving loop

@@ -1,0 +1,76 @@
+// K-way patch attention over pre-gathered candidate rows.
+//
+// Replaces the Pallas kernel `_attention_kernel` / `pallas_patch_attention`
+// of retrieval_fuse_tpu/ops/pallas_attention.py:46 and :87 (the serving
+// engine's `pallas`, `pallasp` and `flatg` tokens). Python side:
+// ops/patch_attention.py. The same MLP, score, switch, select and blend as
+// gathered_attention.cu (the body is attention.cuh's); only the source of
+// the candidate rows differs: candidate k of row i is p[i, k, :], so a
+// block's candidate-k rows lie K*F elements apart.
+//
+// A block owns 64 consecutive rows of x; N need not be a multiple of 64:
+// the last block's missing rows are zero in the activations and never
+// written. The TPU version's padding of N to 512-row tiles is not carried
+// over.
+//
+// Bound on the H100 at `pallasp` batch 128 (N = 524,288 rows, K=4, bf16):
+// N (1 + K) rows x 106,496 MLP flops = 279 GFLOP, ~0.28 ms at the
+// 989 TFLOP/s bf16 tensor-core rate; x, p and out are 805 MB, ~0.24 ms at
+// 3.35 TB/s. Like gathered_attention.cu this first version multiplies with
+// float32 FMAs (>= 4.2 ms at 67 TFLOP/s); tensor cores are later work.
+
+#include "attention.cuh"
+
+namespace {
+
+using namespace rf_attention;
+
+template <typename T, bool kHard>
+__global__ void __launch_bounds__(kThreads, 2)
+patch_attention(const T* __restrict__ x, const T* __restrict__ p, int n, int K,
+                const T* __restrict__ w_theta, const float* __restrict__ b_theta,
+                const T* __restrict__ w_phi, const float* __restrict__ b_phi,
+                float sharpness, T* __restrict__ out, int* __restrict__ sel_out) {
+  extern __shared__ __align__(16) float smem[];
+  const size_t r0 = static_cast<size_t>(blockIdx.x) * kT;
+  const size_t stride = static_cast<size_t>(K) * kF;
+  const StridedRows<T> r{x + r0 * kF, p + r0 * stride, kF, stride,
+                         min(kT, static_cast<int>(n - r0)), K};
+  attend_tile<T, kHard>(r, smem, w_theta, b_theta, w_phi, b_phi, sharpness, out + r0 * kF,
+                        sel_out == nullptr ? nullptr : sel_out + r0, NoWait{});
+}
+
+template <typename T, bool kHard>
+int launch(const void* x, const void* p, int n, int k, const void* w_theta,
+           const float* b_theta, const void* w_phi, const float* b_phi, float sharpness,
+           void* out, int* sel, cudaStream_t s) {
+  return launch_blocks(patch_attention<T, kHard>, (n + kT - 1) / kT, kSmemBytes, s,
+                       static_cast<const T*>(x), static_cast<const T*>(p), n, k,
+                       static_cast<const T*>(w_theta), b_theta,
+                       static_cast<const T*>(w_phi), b_phi, sharpness, static_cast<T*>(out),
+                       sel);
+}
+
+}  // namespace
+
+// dtype 0: float32, 1: bfloat16 (x, p, out, packed weights).
+// x (n, 128), p (n, k, 128), w_* packed (128*128*3 + 128*32) in (in, out)
+// layout, b_* (128*3 + 32) float32; sel (n,) int32 or null (argmax
+// candidate of each row). 1 <= k <= 8, n >= 1. Returns a cudaError_t value.
+extern "C" int rf_patch_attention(int dtype, const void* x, const void* p, int n, int k,
+                                  const void* w_theta, const float* b_theta,
+                                  const void* w_phi, const float* b_phi, int hard,
+                                  float sharpness, void* out, int* sel,
+                                  cudaStream_t stream) {
+  if (k < 1 || k > kMaxK || n < 1 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return hard ? launch<float, true>(x, p, n, k, w_theta, b_theta, w_phi, b_phi, sharpness,
+                                      out, sel, stream)
+                : launch<float, false>(x, p, n, k, w_theta, b_theta, w_phi, b_phi,
+                                       sharpness, out, sel, stream);
+  return hard ? launch<__nv_bfloat16, true>(x, p, n, k, w_theta, b_theta, w_phi, b_phi,
+                                            sharpness, out, sel, stream)
+              : launch<__nv_bfloat16, false>(x, p, n, k, w_theta, b_theta, w_phi, b_phi,
+                                             sharpness, out, sel, stream);
+}

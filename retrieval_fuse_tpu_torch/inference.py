@@ -2,21 +2,21 @@
 
   input chunk -> unfold into retrieval patches -> Patch04 encoder -> exact
   kNN against the device-resident embedding database -> U-Net backbone ->
-  K-way patch attention over the feature-bank rows of the top-k tiles ->
-  final decoder -> 64³ TSDF
+  K-way patch attention over the retrieved tiles' features -> final
+  decoder -> 64³ TSDF
 
-The feature bank holds the retrieval backbone's features of every bank
-tile, computed once at engine build (or passed in), so serving gathers
-features by index instead of re-encoding tiles.
+By default the feature bank holds the retrieval backbone's features of
+every bank tile, computed once at engine build (or passed in), so serving
+gathers features by index; with use_feature_bank=False the engine keeps the
+raw tiles and re-encodes the retrieved ones on every call, as the training
+forward does.
 
-Ported variant tokens: `base` (the plain modules), `fused` (accepted; the
-plain decoder computes the same function), `pallasg2` (the gathered
-attention kernel), `topk1p` (the single-pass top-k kernel), `streamknn` /
-`denseknn` (force the kNN path). The streaming kNN kernel is auto-selected
-at Q >= 8192 queries and N >= 16384 rows. The other JAX tokens raise
-NotImplementedError. Not ported yet: the re-encode path (no feature bank),
-multi-device serving (`mesh`), and the phibank / packed-row / decoder /
-backbone variants.
+Every variant token of the JAX engine is ported (`variant_engine_kwargs`):
+the attention paths `pallas`, `pallasp` (+ `flatg`), `pallasg`, `pallasg2`
+and `phib`, the decoders `fused`, `packed`, `dconv` and `cdec`, the fused
+backbone `fbb`, and the selects `topk1p`, `approxk`, `streamknn`,
+`denseknn`. The streaming kNN kernel is auto-selected at Q >= 8192 queries
+and N >= 16384 rows. Not ported yet: multi-device serving (`mesh`).
 """
 
 from __future__ import annotations
@@ -26,12 +26,24 @@ import torch
 
 from retrieval_fuse_tpu_torch.device import resolve_device
 from retrieval_fuse_tpu_torch.models import build_modules
-from retrieval_fuse_tpu_torch.ops.fold3d import fold3d
+from retrieval_fuse_tpu_torch.ops import patch_attention as pa
+from retrieval_fuse_tpu_torch.ops.decoder_tail import CompactPackedDecoder
+from retrieval_fuse_tpu_torch.ops.fold3d import fold3d, unfold3d
+from retrieval_fuse_tpu_torch.ops.fused_backbone import FusedSuperres08Backbone
+from retrieval_fuse_tpu_torch.ops.fused_decoder import (
+    DecomposedPackedDecoder, FusedFinalDecoder, PackedFinalDecoder)
 from retrieval_fuse_tpu_torch.ops.knn import iterative_topk, use_streaming_knn
-from retrieval_fuse_tpu_torch.ops.patch_attention import (
-    gathered_patch_attention, pack_tile_rows)
 from retrieval_fuse_tpu_torch.ops.streaming_knn import streaming_knn_sims
 from retrieval_fuse_tpu_torch.ops.topk import topk
+
+#: attention paths: the plain modules, then the kernels' feeds
+ATTENTIONS = ("modules", "patches", "packedrows", "gathered", "gathered2", "phibank")
+#: decoders: the plain module, then the coarse-grid ones
+DECODERS = {"modules": None, "fused": FusedFinalDecoder, "packed": PackedFinalDecoder,
+            "decomposed": DecomposedPackedDecoder, "compact": CompactPackedDecoder}
+#: dense-path selects; 'approx' (lax.approx_max_k at recall 1.0, exact) and
+#: 'top_k' (lax.top_k) of the JAX engine are the plain tie-exact select here
+TOPK_IMPLS = ("iterative", "single_pass", "approx", "top_k")
 
 
 def _tensor(x, device, dtype) -> torch.Tensor:
@@ -43,7 +55,9 @@ class RetrieveRefineEngine:
 
     def __init__(self, config: dict, params: dict, database, patch_bank=None,
                  compute_dtype: torch.dtype = torch.bfloat16, device=None,
-                 feature_bank=None, gathered_attention: bool = False,
+                 feature_bank=None, use_feature_bank: bool = True,
+                 attention: str = "modules", flat_gather: bool = False,
+                 decoder: str = "modules", fused_backbone: bool = False,
                  streaming_knn: bool | None = None, topk_impl: str = "iterative"):
         """
         params: {'fenc_input', 'unet_backbone', 'decoder', 'retrieval_backbone',
@@ -52,16 +66,25 @@ class RetrieveRefineEngine:
         database: (N, latent) L2-normalised embeddings, row i pairing with
                  bank tile i.
         patch_bank: (N, 16, 16, 16) raw df tiles; encoded once into the
-                 feature bank unless `feature_bank` (N, 8, 8, 8, nf) is given.
+                 feature bank unless `feature_bank` (N, 8, 8, 8, nf) is given
+                 or use_feature_bank is False (then kept and re-encoded per call).
         device: None or "cuda" -> the card (raises without CUDA); "cpu" only
                  when asked for.
-        gathered_attention: run the attention as the gathered-row kernel
-                 (ops/patch_attention) instead of the plain modules.
+        attention: 'modules' (the plain PatchedAttentionBlock), 'patches'
+                 (patch_attention over gathered (N, K, F) patches; JAX
+                 `pallas`), 'packedrows' (patch_attention over gathered
+                 pre-packed bank rows; `pallasp`, with flat_gather `flatg`),
+                 'gathered' / 'gathered2' (the fused-gather kernels v1 / v2;
+                 `pallasg` / `pallasg2`), 'phibank' (no kernel: phi over the
+                 bank precomputed, hard selection only; `phib`).
+        decoder: 'modules', 'fused', 'packed', 'decomposed' (`dconv`) or
+                 'compact' (the decoder-tail kernel; `cdec`).
+        fused_backbone: the coarse-grid backbone (`fbb`; 'gcr', 8³ input).
         streaming_knn: None auto-selects the streaming kNN kernel by query
                  count and database size (ops/knn.use_streaming_knn);
                  True/False forces it on/off.
-        topk_impl: dense-path select: 'iterative' (plain k rounds of max +
-                 mask) or 'single_pass' (the topk kernel).
+        topk_impl: dense-path select: 'iterative', 'approx' or 'top_k' (the
+                 plain tie-exact select) or 'single_pass' (the topk kernel).
         """
         self.device = resolve_device(device)
         self.compute_dtype = cd = compute_dtype
@@ -69,8 +92,8 @@ class RetrieveRefineEngine:
         dtr = config["dataset_train"]
         # target tiles per chunk axis: dictionary rows tile the target chunk
         # at the retrieval target patch size (16 in every shipped config)
-        self.n_fold = dtr["target_chunk_size"] // int(
-            config.get("retrieval_patch_size_target", 16))
+        self.t_patch_size = int(config.get("retrieval_patch_size_target", 16))
+        self.n_fold = dtr["target_chunk_size"] // self.t_patch_size
         self.r_patch_size = config.get("retrieval_patch_size_input", 2)
         self.r_ctx = config.get("retrieval_patch_context_input", 1)
         self.attn_extent = config.get("attn_patch_extent", 4) // 2
@@ -89,14 +112,31 @@ class RetrieveRefineEngine:
         self.attention = modules["patched_attention_block"]
         self.sharpness = self.attention.attention_blocks_layer.sharpness
 
-        self.gathered_attention = bool(gathered_attention)
-        if self.gathered_attention and not (
+        if attention not in ATTENTIONS:
+            raise ValueError(f"attention {attention!r}: one of {ATTENTIONS}")
+        if attention != "modules" and not (
                 config.get("attn_normalize", True) and config.get("attn_no_output_mapping", True)
                 and config.get("attn_blend", True)):
-            raise ValueError("the gathered attention kernel covers the shipped config "
+            raise ValueError("the attention kernels cover the shipped config "
                              "(normalize + no_output_mapping + blend)")
-        if topk_impl not in ("iterative", "single_pass"):
-            raise ValueError(f"topk_impl {topk_impl!r}: 'iterative' or 'single_pass'")
+        if attention == "phibank" and not self.attn_retrieval_mode:
+            raise ValueError("phibank serving implements hard selection; the sharp-softmax "
+                             "variant blends all K candidate rows")
+        self.attention_path = attention
+        self.flat_gather = bool(flat_gather)
+        if decoder not in DECODERS:
+            raise ValueError(f"decoder {decoder!r}: one of {tuple(DECODERS)}")
+        self.fused_decoder = None if DECODERS[decoder] is None else DECODERS[decoder](
+            self.decoder.state_dict(), self.nf, cd).to(self.device)
+        self.fused_backbone = None
+        if fused_backbone:
+            if dtr["input_chunk_size"] != 8 or config.get("layer_order", "gcr") != "gcr":
+                raise ValueError("the fused backbone covers the 08-superresolution 'gcr' "
+                                 "geometry")
+            self.fused_backbone = FusedSuperres08Backbone(
+                self.unet_backbone, self.nf, config.get("layer_order", "gcr"), cd).to(self.device)
+        if topk_impl not in TOPK_IMPLS:
+            raise ValueError(f"topk_impl {topk_impl!r}: one of {TOPK_IMPLS}")
         self.topk_impl = topk_impl
         self.streaming_knn = streaming_knn
 
@@ -113,16 +153,21 @@ class RetrieveRefineEngine:
         self.input_trunc = float(np.float16(dtr["voxel_size_input"] * 3).astype(np.float32))
         self.target_trunc = float(np.float16(dtr["voxel_size_target"] * 3).astype(np.float32))
 
+        self.feature_bank = self.patch_bank = None
         if feature_bank is not None:
             self.feature_bank = _tensor(feature_bank, self.device, cd)
-        elif patch_bank is not None:
+        elif patch_bank is None:
+            raise ValueError("pass patch_bank or feature_bank")
+        elif use_feature_bank:
             self.feature_bank = self._precompute_feature_bank(patch_bank)
         else:
-            raise ValueError("pass patch_bank or feature_bank (the re-encode path "
-                             "without a feature bank is not ported)")
-        if self.gathered_attention:
+            self.patch_bank = _tensor(patch_bank, self.device, cd)
+        if attention in ("packedrows", "gathered", "gathered2", "phibank"):
+            if self.feature_bank is None:
+                raise ValueError(f"attention {attention!r} requires the feature bank")
             # one-time repack: bank rows become ready attention-patch rows
-            self.feature_bank = pack_tile_rows(self.feature_bank, self.attn_extent).contiguous()
+            self.feature_bank = pa.pack_tile_rows(self.feature_bank, self.attn_extent).contiguous()
+        self.phi_bank = self._precompute_phi_bank() if attention == "phibank" else None
 
     @torch.inference_mode()
     def _precompute_feature_bank(self, patch_bank, batch: int = 4096) -> torch.Tensor:
@@ -134,6 +179,17 @@ class RetrieveRefineEngine:
             chunk = ((chunk.float() - self.tgt_mean) / self.tgt_std).to(self.compute_dtype)
             outs.append(self.retrieval_backbone(chunk[..., None]))
         return torch.cat(outs)
+
+    @torch.inference_mode()
+    def _precompute_phi_bank(self, batch: int = 131072) -> torch.Tensor:
+        """Normalised phi features of every bank attention patch: (N, T, F)
+        packed rows -> (N, T, C) float32, with the attention kernels' math
+        (ops/patch_attention._mlp), so that serving scores match them."""
+        n, t, f = self.feature_bank.shape
+        rows = self.feature_bank.reshape(n * t, f)
+        phi = self.attention.attention_blocks_layer.phi
+        return torch.cat([pa.embed(rows[s:s + batch], phi)
+                          for s in range(0, n * t, batch)]).reshape(n, t, -1)
 
     def _unfold_input_patches(self, raw_input: torch.Tensor) -> torch.Tensor:
         """(B, ics, ics, ics, 1) raw df -> (B*R³, p, p, p, 1) retrieval-normalised
@@ -181,26 +237,128 @@ class RetrieveRefineEngine:
     @torch.inference_mode()
     def refine(self, raw_input: torch.Tensor, top_idx: torch.Tensor) -> torch.Tensor:
         """Raw input + its (B·R³, K) bank rows -> (B, tcs, tcs, tcs, 1) TSDF."""
-        cd, b, k = self.compute_dtype, raw_input.shape[0], self.K
-        x_in = ((raw_input.float() - self.in_mean) / self.in_std).to(cd)
-        x_back = self.unet_backbone(x_in)
-        if self.gathered_attention:
-            blk = self.attention.attention_blocks_layer
-            rows = gathered_patch_attention(
-                self._tile_major_rows(x_back).contiguous(), self.feature_bank, top_idx,
-                blk.theta, blk.phi, k, retrieval_mode=self.attn_retrieval_mode,
-                sharpness=self.sharpness)
-            fused = self._rows_to_volume(rows, b)
-        else:
+        b = raw_input.shape[0]
+        x_in = ((raw_input.float() - self.in_mean) / self.in_std).to(self.compute_dtype)
+        backbone = self.unet_backbone if self.fused_backbone is None else self.fused_backbone
+        decoder = self.decoder if self.fused_decoder is None else self.fused_decoder
+        pred = decoder(self._attend(backbone(x_in), top_idx, b))
+        return (pred.float() + 1.0) * self.target_trunc / 2.0
+
+    def _attend(self, x_back: torch.Tensor, top_idx: torch.Tensor, b: int) -> torch.Tensor:
+        """Backbone features (B, S, S, S, nf) + retrievals -> fused features,
+        through the engine's attention path."""
+        path, k = self.attention_path, self.K
+        blk = self.attention.attention_blocks_layer
+        kw = dict(retrieval_mode=self.attn_retrieval_mode, sharpness=self.sharpness)
+        if path == "phibank":
+            return self._phibank_attention(x_back, top_idx)
+        if path in ("gathered", "gathered2"):
+            kernel = (pa.gathered_patch_attention if path == "gathered2"
+                      else pa.gathered_patch_attention_v1)
+            rows = kernel(self._tile_major_rows(x_back).contiguous(), self.feature_bank,
+                          top_idx, blk.theta, blk.phi, k, **kw)
+            return self._rows_to_volume(rows, b)
+        if path == "packedrows":
+            return self._packedrows_attention(x_back, top_idx)
+        if path == "patches":
+            if self.feature_bank is not None:
+                attn_patches = self._pack_feats_for_attention(
+                    self.feature_bank[top_idx.long()], b)
+            else:
+                attn_patches = self._pack_volumes_for_attention(self._reencode(top_idx, b))
+            e, nf = self.attn_extent, self.nf
+            xp = unfold3d(x_back, e).reshape(-1, nf * e ** 3)
+            out = pa.patch_attention(xp.contiguous(), attn_patches.contiguous(), blk.theta,
+                                     blk.phi, k, **kw)
+            return fold3d(out.reshape(-1, e, e, e, nf), self.attn_num_patch, e)
+        if self.feature_bank is not None:
             bank = self.feature_bank
             feats = bank[top_idx.long()]                        # (B·R³, K, s, s, s, nf)
             feats = feats.transpose(0, 1).reshape(-1, *bank.shape[1:])
-            volumes = fold3d(feats, self.n_fold, bank.shape[1])  # (K·B, S, S, S, nf), k-major
-            x_retrieval = volumes.reshape(k, b, *volumes.shape[1:]).transpose(0, 1).reshape(
-                b * k, *volumes.shape[1:])
-            fused = self.attention(x_back, x_retrieval)
-        pred = self.decoder(fused)
-        return (pred.float() + 1.0) * self.target_trunc / 2.0
+            x_retrieval = self._regroup(fold3d(feats, self.n_fold, bank.shape[1]), b)
+        else:
+            x_retrieval = self._reencode(top_idx, b)
+        return self.attention(x_back, x_retrieval)
+
+    def _regroup(self, volumes: torch.Tensor, b: int) -> torch.Tensor:
+        """(K·B, S, S, S, C) k-major -> (B·K, ...) k-fastest."""
+        k = self.K
+        return volumes.reshape(k, b, *volumes.shape[1:]).transpose(0, 1).reshape(
+            b * k, *volumes.shape[1:])
+
+    def _reencode(self, top_idx: torch.Tensor, b: int) -> torch.Tensor:
+        """The path without a feature bank: gather the retrieved raw tiles,
+        compose K volumes, normalise and re-encode -> (B·K, S, S, S, nf)."""
+        tps, r, cd = self.t_patch_size, self.n_fold, self.compute_dtype
+        tiles = self.patch_bank[top_idx.long()]                 # (B·R³, K, tps³)
+        tiles = tiles.transpose(0, 1).reshape(-1, tps, tps, tps, 1)
+        volumes = fold3d(tiles, r, tps)                         # (K·B, tcs³, 1)
+        retrievals = self._regroup(
+            ((volumes.float() - self.tgt_mean) / self.tgt_std).to(cd), b)
+        feats = self.retrieval_backbone(unfold3d(retrievals, tps))
+        return fold3d(feats, r, tps // 2)
+
+    def _pack_feats_for_attention(self, feats: torch.Tensor, b: int) -> torch.Tensor:
+        """(B·Rin³, K, s, s, s, nf) gathered feature tiles -> (B·R³, K, nf·e³)
+        attention patches in unfold3d row order, one permute. Attention
+        patch i per axis lives in fold tile i // t at within-tile patch
+        i % t, t = s // e patches per tile axis; Rin·t must equal
+        attn_num_patch (4 tiles x 4 in the shipped geometry)."""
+        e, rin, k, nf = self.attn_extent, self.n_fold, self.K, self.nf
+        s = feats.shape[2]
+        t = s // e
+        if rin * t != self.attn_num_patch:
+            raise ValueError(f"fold tiles x patches per tile ({rin} x {t}) must equal "
+                             f"attn_num_patch ({self.attn_num_patch})")
+        f = feats.reshape(b, rin, rin, rin, k, t, e, t, e, t, e, nf)
+        f = f.permute(0, 1, 5, 2, 7, 3, 9, 4, 6, 8, 10, 11)
+        return f.reshape(b * (rin * t) ** 3, k, e ** 3 * nf)
+
+    def _pack_volumes_for_attention(self, x_retrieval: torch.Tensor) -> torch.Tensor:
+        """(B·K, S, S, S, nf) regrouped retrieval volumes -> (B·R³, K, nf·e³)
+        attention patches, as PatchedAttentionBlock regroups them."""
+        e, r, k, nf = self.attn_extent, self.attn_num_patch, self.K, self.nf
+        pp = unfold3d(x_retrieval, e).reshape(-1, k, r ** 3, e, e, e, nf)
+        return pp.permute(0, 2, 1, 3, 4, 5, 6).reshape(-1, k, nf * e ** 3)
+
+    def _packedrows_attention(self, x_back: torch.Tensor, top_idx: torch.Tensor) -> torch.Tensor:
+        """Gather pre-packed bank rows into the (Q·T, K, F) candidate layout
+        (by a swap of K and T, or with flat_gather by one flat take at
+        idx·T + t), then patch_attention over tile-major rows."""
+        bank, k = self.feature_bank, self.K
+        q, t_rows, f = top_idx.shape[0], bank.shape[1], bank.shape[2]
+        xt = self._tile_major_rows(x_back)                       # (Q, T, F)
+        if self.flat_gather:
+            idx2 = (top_idx.long()[:, None, :] * t_rows
+                    + torch.arange(t_rows, device=bank.device)[None, :, None])
+            pp = bank.reshape(-1, f)[idx2.reshape(q * t_rows, k)]
+        else:
+            pp = bank[top_idx.long()].transpose(1, 2).reshape(q * t_rows, k, f)
+        blk = self.attention.attention_blocks_layer
+        out = pa.patch_attention(xt.reshape(q * t_rows, f).contiguous(), pp.contiguous(),
+                                 blk.theta, blk.phi, k, retrieval_mode=self.attn_retrieval_mode,
+                                 sharpness=self.sharpness)
+        return self._rows_to_volume(out.reshape(q, t_rows, f), x_back.shape[0])
+
+    def _phibank_attention(self, x_back: torch.Tensor, top_idx: torch.Tensor) -> torch.Tensor:
+        """Attention with no serving-time kernel: theta embeds the backbone
+        rows, the scores read the precomputed phi bank's (Q, K, T, C) rows,
+        and the hard selection gathers exactly one candidate row per output
+        row."""
+        xt = self._tile_major_rows(x_back)                       # (Q, T, F)
+        q, t_rows, f = xt.shape
+        xf = pa.embed(xt.reshape(q * t_rows, f), self.attention.attention_blocks_layer.theta)
+        pf = self.phi_bank[top_idx.long()]                       # (Q, K, T, C)
+        s = torch.sum(xf.reshape(q, 1, t_rows, -1) * pf, dim=-1)  # (Q, K, T)
+        s = s.transpose(1, 2).reshape(q * t_rows, self.K)
+        switch = torch.relu(torch.amax(s, dim=1, keepdim=True))
+        sel = pa.hard_selection(s).reshape(q, t_rows)
+        src = torch.gather(top_idx.long(), 1, sel)               # (Q, T) bank rows
+        rows = (src * t_rows + torch.arange(t_rows, device=src.device)[None, :]).reshape(-1)
+        p_sel = self.feature_bank.reshape(-1, f)[rows]
+        fused = xt.reshape(q * t_rows, f).float() * (1.0 - switch) + p_sel.float() * switch
+        return self._rows_to_volume(fused.to(self.compute_dtype).reshape(q, t_rows, f),
+                                    x_back.shape[0])
 
     def _tile_major_rows(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, S, S, nf) feature volume -> (B·Rin³, t³, e³·nf) tile-major
@@ -231,39 +389,33 @@ class RetrieveRefineEngine:
 #: the shipped serving configuration of the JAX package (inference.py:685)
 FAST_VARIANT = "fused+pallasg2+topk1p"
 
-#: JAX variant tokens the port does not implement yet -> where that work is listed
-_NOT_PORTED = {
-    "pallas": "ROADMAP Queue 2 item 4 (pallas_patch_attention)",
-    "pallasp": "ROADMAP Queue 2 item 4 (pallas_patch_attention)",
-    "flatg": "ROADMAP Queue 2 item 4 (pallas_patch_attention)",
-    "pallasg": "ROADMAP Queue 2 item 5 (pallas_gathered_patch_attention)",
-    "cdec": "ROADMAP Queue 2 item 6 (packed_decoder_tail)",
-    "packed": "ROADMAP Queue 1 item 9 (packed decoders)",
-    "dconv": "ROADMAP Queue 1 item 9 (packed decoders)",
-    "fbb": "ROADMAP Queue 1 item 9 (fused backbone)",
-    "phib": "ROADMAP Queue 1 item 8 (phibank attention)",
-    "approxk": "ROADMAP Queue 1 item 8 (remaining variant tokens)",
-}
+#: every variant token of the JAX engine (inference.py:688-720)
+VARIANT_TOKENS = ("base", "fused", "packed", "cdec", "dconv", "fbb", "pallas", "pallasp",
+                  "pallasg", "pallasg2", "phib", "flatg", "topk1p", "approxk", "streamknn",
+                  "denseknn")
 
 
 def variant_engine_kwargs(variant: str) -> dict:
-    """Variant string (tokens joined by '+', as in the JAX bench ladder) ->
-    RetrieveRefineEngine keyword options. 'base' is all defaults; 'fused'
-    is accepted and needs no option (the plain decoder computes the same
-    function as the JAX FusedFinalDecoder)."""
-    kwargs = {}
-    for tok in variant.split("+"):
-        if tok in ("base", "fused"):
-            continue
-        if tok == "pallasg2":
-            kwargs["gathered_attention"] = True
-        elif tok == "topk1p":
-            kwargs["topk_impl"] = "single_pass"
-        elif tok in ("streamknn", "denseknn"):
-            kwargs["streaming_knn"] = tok == "streamknn"
-        elif tok in _NOT_PORTED:
-            raise NotImplementedError(
-                f"variant token {tok!r} is not ported yet: {_NOT_PORTED[tok]}")
-        else:
-            raise ValueError(f"unknown variant token {tok!r} in {variant!r}")
-    return kwargs
+    """Variant string (tokens joined by '+', as in the JAX bench ladder and
+    `serve --variant`) -> RetrieveRefineEngine keyword options, with the JAX
+    engine's precedence: phib > pallasg2 > pallasg > pallasp > pallas for
+    the attention, cdec > dconv > packed > fused for the decoder (packed
+    implies fused), streamknn > denseknn, approxk > topk1p. 'base' is all
+    defaults; an unknown token raises ValueError."""
+    toks = set(variant.split("+"))
+    unknown = toks - set(VARIANT_TOKENS)
+    if unknown:
+        raise ValueError(f"unknown variant token(s) {sorted(unknown)} in {variant!r}")
+
+    def first(table, default):
+        return next((value for tok, value in table if tok in toks), default)
+
+    return dict(
+        attention=first((("phib", "phibank"), ("pallasg2", "gathered2"), ("pallasg", "gathered"),
+                         ("pallasp", "packedrows"), ("pallas", "patches")), "modules"),
+        flat_gather="flatg" in toks,
+        decoder=first((("cdec", "compact"), ("dconv", "decomposed"), ("packed", "packed"),
+                       ("fused", "fused")), "modules"),
+        fused_backbone="fbb" in toks,
+        streaming_knn=first((("streamknn", True), ("denseknn", False)), None),
+        topk_impl=first((("approxk", "approx"), ("topk1p", "single_pass")), "iterative"))

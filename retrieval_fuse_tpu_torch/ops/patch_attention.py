@@ -1,24 +1,36 @@
-"""Fused gather + K-way patch attention over tile-major rows.
+"""K-way patch attention: the engine's three attention kernels.
 
-Kernel: csrc/gathered_attention.cu, replacing the Pallas
-`pallas_gathered_patch_attention_v2` (retrieval_fuse_tpu/ops/
-pallas_attention.py:249 `_gathered_kernel_v2`, :327). For each tile of
-T=64 attention patches it reads the tile's K bank rows by index, runs the
-theta MLP on x and the phi MLP on every candidate, scores, selects, blends,
-and writes only the (T, F) output rows.
+  patch_attention              over pre-gathered candidates: x (N, F), p
+                               (N, K, F). Kernel csrc/patch_attention.cu,
+                               replacing the Pallas `pallas_patch_attention`
+                               (retrieval_fuse_tpu/ops/pallas_attention.py:46
+                               `_attention_kernel`, :87); tokens `pallas`,
+                               `pallasp`, `flatg`.
+  gathered_patch_attention     fused gather over tile-major rows: xt (Q, T,
+                               F), bank rows (N, T, F), top_idx (Q, K).
+                               Kernel csrc/gathered_attention.cu, replacing
+                               `pallas_gathered_patch_attention_v2` (:249
+                               `_gathered_kernel_v2`, :327); token `pallasg2`.
+  gathered_patch_attention_v1  the same function; kernel
+                               csrc/gathered_attention_v1.cu, which stages a
+                               tile's K candidate tiles in shared memory,
+                               replacing `pallas_gathered_patch_attention`
+                               (:151 `_gathered_kernel`, :188); token `pallasg`.
 
-Bound on the H100: at batch 128 (Q=8192) 279 GFLOP of MLP GEMMs, ~0.28 ms
-at the bf16 tensor-core rate, and ~0.8 GB of bf16 rows, ~0.24 ms. The first
-kernel multiplies with float32 FMAs from shared memory, so its floor is the
-67 TFLOP/s FMA rate (>= 4.2 ms); tensor cores are later work. The TPU
-workarounds are not carried over: the index operand is read by each block
-as a (Q, K) array (no SMEM flattening), and Q needs no padding to a group
-multiple (no sublane / grid-step constraints).
+All three share one CUDA body (csrc/attention.cuh): theta MLP on x, phi MLP
+on every candidate, normalised scores, ReLU-of-max switch, hard argmax(25 s)
+or softmax(sharpness s) selection, blend; only the (T, F) output rows are
+written. Bound on the H100 at batch 128 (8192 tiles of 64 rows, K=4, bf16):
+279 GFLOP of MLP GEMMs, ~0.28 ms at the bf16 tensor-core rate, against
+~0.8 GB of rows, ~0.24 ms. The kernels multiply with float32 FMAs from
+shared memory (>= 4.2 ms at 67 TFLOP/s); tensor cores are later work. The
+TPU workarounds are not carried over: the 512-row padding of N, the
+flattened index operand, the padding of Q to a group multiple.
 
-`gathered_patch_attention` launches the kernel on CUDA tensors and runs
-`gathered_patch_attention_plain` on CPU tensors; it never falls back from
-one to the other. The kernel takes T=64, F=128, hidden 128, C=32 (the
-shipped geometry); the plain version takes any.
+Each wrapper launches its kernel on CUDA tensors and runs its plain
+PyTorch version on CPU tensors; it never falls back from one to the other.
+The kernels take F=128, hidden 128, C=32 (the shipped geometry), T=64 for
+the gathered ones; the plain versions take any.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ from torch import nn
 from retrieval_fuse_tpu_torch.ops import _build
 
 KERNEL_ROWS, KERNEL_FEATURES, KERNEL_EMBED = 64, 128, 32
+V1_STAGE_BYTES = 128 * 1024  # shared memory for gathered_patch_attention_v1's staging
 _LAYERS = ("fc0", "fc1", "fc2", "out")
 
 
@@ -53,6 +66,18 @@ def _l2n(v: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp(torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True)), min=1e-12)
 
 
+def embed(rows: torch.Tensor, w: nn.Module) -> torch.Tensor:
+    """L2-normalised MLP embedding of (R, F) rows -> (R, C) float32."""
+    return _l2n(_mlp(rows, w))
+
+
+def hard_selection(s: torch.Tensor) -> torch.Tensor:
+    """argmax over the last axis of 25·s, first maximum first: the JAX
+    paths scale the scores before the argmax, so two candidates whose
+    scores round to the same 25·s tie, and the lower one wins."""
+    return torch.argmax(s * 25.0, dim=-1)
+
+
 def pack_tile_rows(tile_feats: torch.Tensor, e: int) -> torch.Tensor:
     """(N, s, s, s, nf) feature tiles -> (N, (s//e)³, e³·nf) patch-major rows,
     as in the JAX package (pallas_attention.py:139). Run once on the bank."""
@@ -63,25 +88,39 @@ def pack_tile_rows(tile_feats: torch.Tensor, e: int) -> torch.Tensor:
     return v.reshape(n, t ** 3, e ** 3 * nf)
 
 
-def gathered_patch_attention_plain(xt, bank_rows, top_idx, theta, phi, K: int,
-                                   retrieval_mode: bool = True,
-                                   sharpness: float = 1024.0):
-    """The plain PyTorch version. Returns (out (Q, T, F) in xt's dtype,
-    selection (Q, T) int64: the argmax candidate of each row)."""
-    q, t, f = xt.shape
-    xf = _l2n(_mlp(xt.reshape(q * t, f), theta)).reshape(q, 1, t, -1)
-    p = bank_rows[top_idx.long()]                                   # (Q, K, T, F)
-    pf = _l2n(_mlp(p.reshape(q * K * t, f), phi)).reshape(q, K, t, -1)
-    s = torch.sum(xf * pf, dim=-1).permute(0, 2, 1)                 # (Q, T, K)
+def patch_attention_plain(x, p, theta, phi, K: int, retrieval_mode: bool = True,
+                          sharpness: float = 1024.0):
+    """The plain PyTorch version of patch_attention. Returns (out (N, F) in
+    x's dtype, selection (N,) int64: the argmax candidate of each row)."""
+    n, f = x.shape
+    xf = embed(x, theta)                                            # (N, C)
+    pf = embed(p.reshape(n * K, f), phi).reshape(n, K, -1)          # (N, K, C)
+    s = torch.sum(xf[:, None, :] * pf, dim=-1)                      # (N, K)
     switch = F.relu(torch.amax(s, dim=-1, keepdim=True))
-    sel = torch.argmax(s * 25.0, dim=-1)                            # first maximum
+    sel = hard_selection(s)
     if retrieval_mode:
         weights = F.one_hot(sel, K).float()
     else:
         weights = torch.softmax(sharpness * s, dim=-1)
-    weighted = sum(weights[..., k:k + 1] * p[:, k].float() for k in range(K))
-    out = xt.float() * (1.0 - switch) + weighted * switch
-    return out.to(xt.dtype), sel
+    weighted = sum(weights[:, k:k + 1] * p[:, k].float() for k in range(K))
+    out = x.float() * (1.0 - switch) + weighted * switch
+    return out.to(x.dtype), sel
+
+
+def gathered_patch_attention_plain(xt, bank_rows, top_idx, theta, phi, K: int,
+                                   retrieval_mode: bool = True,
+                                   sharpness: float = 1024.0):
+    """The plain PyTorch version of both gathered kernels. Returns (out
+    (Q, T, F) in xt's dtype, selection (Q, T) int64)."""
+    q, t, f = xt.shape
+    p = bank_rows[top_idx.long()].transpose(1, 2).reshape(q * t, K, f)   # (Q·T, K, F)
+    out, sel = patch_attention_plain(xt.reshape(q * t, f), p, theta, phi, K,
+                                     retrieval_mode, sharpness)
+    return out.reshape(q, t, f), sel.reshape(q, t)
+
+
+#: v1 computes v2's function; one plain version serves both
+gathered_patch_attention_v1_plain = gathered_patch_attention_plain
 
 
 def _pack(w: nn.Module, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
@@ -90,6 +129,90 @@ def _pack(w: nn.Module, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]
     weights = torch.cat([getattr(w, n).weight.T.reshape(-1) for n in _LAYERS])
     biases = torch.cat([getattr(w, n).bias.reshape(-1) for n in _LAYERS])
     return weights.to(dtype).contiguous(), biases.float().contiguous()
+
+
+def _check_kernel_operands(name: str, rows: torch.Tensor, cands: torch.Tensor, idx,
+                           theta: nn.Module, phi: nn.Module) -> None:
+    """Device, dtype, contiguity and MLP-shape checks shared by the wrappers."""
+    dev = rows.device
+    if dev.type != "cuda" or cands.device != dev or (idx is not None and idx.device != dev):
+        raise ValueError(f"{name}: the row, candidate and index tensors must be on one "
+                         f"CUDA device")
+    if rows.dtype not in (torch.float32, torch.bfloat16) or cands.dtype != rows.dtype:
+        raise ValueError(f"{name}: rows and candidates must share float32 or bfloat16, "
+                         f"got {rows.dtype}, {cands.dtype}")
+    if not (rows.is_contiguous() and cands.is_contiguous()
+            and (idx is None or idx.is_contiguous())):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    for w in (theta, phi):
+        if (tuple(w.fc0.weight.shape) != (128, KERNEL_FEATURES)
+                or tuple(w.fc1.weight.shape) != (128, 128)
+                or tuple(w.fc2.weight.shape) != (128, 128)
+                or tuple(w.out.weight.shape) != (KERNEL_EMBED, 128)):
+            raise ValueError(f"{name}: the kernel takes {KERNEL_FEATURES}->128->128->128->"
+                             f"{KERNEL_EMBED} MLPs")
+
+
+def _launch(kernel: str, rows: torch.Tensor, operands: tuple, theta, phi,
+            retrieval_mode: bool, sharpness: float, out: torch.Tensor, sel) -> None:
+    w_theta, b_theta = _pack(theta, rows.dtype)
+    w_phi, b_phi = _pack(phi, rows.dtype)
+    _build.launch(kernel, rows.device, 0 if rows.dtype == torch.float32 else 1, *operands,
+                  w_theta.data_ptr(), b_theta.data_ptr(), w_phi.data_ptr(), b_phi.data_ptr(),
+                  int(bool(retrieval_mode)), float(sharpness), out.data_ptr(),
+                  None if sel is None else sel.data_ptr())
+
+
+def patch_attention(x: torch.Tensor, p: torch.Tensor, theta: nn.Module, phi: nn.Module,
+                    K: int, retrieval_mode: bool = True, sharpness: float = 1024.0,
+                    return_selection: bool = False):
+    """K-way patch attention over pre-gathered candidates.
+
+    x: (N, F) patch rows; p: (N, K, F) their candidate rows (candidate k of
+    row i is p[i, k]); theta, phi: the AttentionFeatureEncoder MLPs. Returns
+    the fused rows (N, F) in x's dtype, and with `return_selection` also
+    the (N,) argmax candidate of each row."""
+    if x.device.type == "cpu" and p.device.type == "cpu":
+        out, sel = patch_attention_plain(x, p, theta, phi, K, retrieval_mode, sharpness)
+        return (out, sel) if return_selection else out
+    _check_kernel_operands("patch_attention", x, p, None, theta, phi)
+    n = x.shape[0]
+    if (x.dim() != 2 or x.shape[1] != KERNEL_FEATURES
+            or tuple(p.shape) != (n, K, KERNEL_FEATURES) or not 1 <= K <= 8):
+        raise ValueError(f"patch_attention: the kernel takes x (N, {KERNEL_FEATURES}) and p "
+                         f"(N, K, {KERNEL_FEATURES}) with 1 <= K <= 8, got {tuple(x.shape)} "
+                         f"and {tuple(p.shape)}")
+    out = torch.empty_like(x)
+    sel = torch.empty((n,), dtype=torch.int32, device=x.device) if return_selection else None
+    if n > 0:
+        _launch("patch_attention", x, (x.data_ptr(), p.data_ptr(), n, K), theta, phi,
+                retrieval_mode, sharpness, out, sel)
+        patch_attention.launches += 1
+    return (out, sel) if return_selection else out
+
+
+def _gathered(name: str, xt, bank_rows, top_idx, theta, phi, K, retrieval_mode, sharpness,
+              return_selection, max_stage_bytes=None):
+    """The checks and launch of the two gathered kernels (same operands)."""
+    _check_kernel_operands(name, xt, bank_rows, top_idx, theta, phi)
+    rows, feats = KERNEL_ROWS, KERNEL_FEATURES
+    q = xt.shape[0]
+    if (xt.dim() != 3 or tuple(xt.shape[1:]) != (rows, feats) or bank_rows.dim() != 3
+            or tuple(bank_rows.shape[1:]) != (rows, feats)):
+        raise ValueError(f"{name}: the kernel takes (·, {rows}, {feats}) rows, got "
+                         f"{tuple(xt.shape)} and {tuple(bank_rows.shape)}")
+    if top_idx.dtype != torch.int32 or tuple(top_idx.shape) != (q, K) or not 1 <= K <= 8:
+        raise ValueError(f"{name}: top_idx must be int32 ({q}, {K}) with 1 <= K <= 8, got "
+                         f"{top_idx.dtype} {tuple(top_idx.shape)}")
+    if max_stage_bytes is not None and K * rows * feats * xt.element_size() > max_stage_bytes:
+        raise ValueError(f"{name}: K={K} candidate tiles of {xt.dtype} exceed the "
+                         f"{max_stage_bytes}-byte staging area (K <= 4 in float32)")
+    out = torch.empty_like(xt)
+    sel = torch.empty((q, rows), dtype=torch.int32, device=xt.device) if return_selection else None
+    if q > 0:
+        _launch(name, xt, (xt.data_ptr(), bank_rows.data_ptr(), top_idx.data_ptr(), q, K),
+                theta, phi, retrieval_mode, sharpness, out, sel)
+    return (out, sel) if return_selection else out
 
 
 def gathered_patch_attention(xt: torch.Tensor, bank_rows: torch.Tensor,
@@ -107,43 +230,31 @@ def gathered_patch_attention(xt: torch.Tensor, bank_rows: torch.Tensor,
         out, sel = gathered_patch_attention_plain(xt, bank_rows, top_idx, theta, phi, K,
                                                   retrieval_mode, sharpness)
         return (out, sel) if return_selection else out
-    dev = xt.device
-    if dev.type != "cuda" or bank_rows.device != dev or top_idx.device != dev:
-        raise ValueError("gathered_patch_attention: xt, bank_rows and top_idx must be "
-                         "on one CUDA device")
-    if xt.dtype not in (torch.float32, torch.bfloat16) or bank_rows.dtype != xt.dtype:
-        raise ValueError(f"gathered_patch_attention: xt and bank_rows must share "
-                         f"float32 or bfloat16, got {xt.dtype}, {bank_rows.dtype}")
-    rows, feats = KERNEL_ROWS, KERNEL_FEATURES
-    q = xt.shape[0]
-    if (xt.dim() != 3 or tuple(xt.shape[1:]) != (rows, feats) or bank_rows.dim() != 3
-            or tuple(bank_rows.shape[1:]) != (rows, feats)):
-        raise ValueError(f"gathered_patch_attention: the kernel takes (·, {rows}, {feats}) "
-                         f"rows, got {tuple(xt.shape)} and {tuple(bank_rows.shape)}")
-    if top_idx.dtype != torch.int32 or tuple(top_idx.shape) != (q, K) or not 1 <= K <= 8:
-        raise ValueError(f"gathered_patch_attention: top_idx must be int32 ({q}, {K}) "
-                         f"with 1 <= K <= 8, got {top_idx.dtype} {tuple(top_idx.shape)}")
-    if not (xt.is_contiguous() and bank_rows.is_contiguous() and top_idx.is_contiguous()):
-        raise ValueError("gathered_patch_attention: inputs must be contiguous")
-    for w in (theta, phi):
-        if (tuple(w.fc0.weight.shape) != (128, feats) or tuple(w.fc1.weight.shape) != (128, 128)
-                or tuple(w.fc2.weight.shape) != (128, 128)
-                or tuple(w.out.weight.shape) != (KERNEL_EMBED, 128)):
-            raise ValueError("gathered_patch_attention: the kernel takes "
-                             f"{feats}->128->128->128->{KERNEL_EMBED} MLPs")
-    out = torch.empty_like(xt)
-    sel = torch.empty((q, rows), dtype=torch.int32, device=dev) if return_selection else None
-    if q == 0:
+    result = _gathered("gathered_attention", xt, bank_rows, top_idx, theta, phi, K,
+                       retrieval_mode, sharpness, return_selection)
+    if xt.shape[0] > 0:
+        gathered_patch_attention.launches += 1
+    return result
+
+
+def gathered_patch_attention_v1(xt: torch.Tensor, bank_rows: torch.Tensor,
+                                top_idx: torch.Tensor, theta: nn.Module, phi: nn.Module,
+                                K: int, retrieval_mode: bool = True,
+                                sharpness: float = 1024.0, return_selection: bool = False):
+    """gathered_patch_attention's function, through the kernel that stages
+    each tile's K candidate tiles in shared memory (K <= 4 in float32,
+    K <= 8 in bf16)."""
+    if xt.device.type == "cpu" and bank_rows.device.type == "cpu":
+        out, sel = gathered_patch_attention_v1_plain(xt, bank_rows, top_idx, theta, phi, K,
+                                                     retrieval_mode, sharpness)
         return (out, sel) if return_selection else out
-    w_theta, b_theta = _pack(theta, xt.dtype)
-    w_phi, b_phi = _pack(phi, xt.dtype)
-    _build.launch("gathered_attention", dev, 0 if xt.dtype == torch.float32 else 1,
-                  xt.data_ptr(), bank_rows.data_ptr(), top_idx.data_ptr(), q, K,
-                  w_theta.data_ptr(), b_theta.data_ptr(), w_phi.data_ptr(), b_phi.data_ptr(),
-                  int(bool(retrieval_mode)), float(sharpness), out.data_ptr(),
-                  None if sel is None else sel.data_ptr())
-    gathered_patch_attention.launches += 1
-    return (out, sel) if return_selection else out
+    result = _gathered("gathered_attention_v1", xt, bank_rows, top_idx, theta, phi, K,
+                       retrieval_mode, sharpness, return_selection, V1_STAGE_BYTES)
+    if xt.shape[0] > 0:
+        gathered_patch_attention_v1.launches += 1
+    return result
 
 
+patch_attention.launches = 0
 gathered_patch_attention.launches = 0
+gathered_patch_attention_v1.launches = 0

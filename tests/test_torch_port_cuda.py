@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a CUDA
-card (skipped elsewhere: the kernels have no CPU mode). This file imports
+"""The port's six CUDA kernels against their plain PyTorch versions, on a
+CUDA card (skipped elsewhere: the kernels have no CPU mode). This file imports
 neither JAX nor the JAX package, so it runs where only PyTorch is:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from retrieval_fuse_tpu_torch.models.attention import AttentionFeatureEncoder
+from retrieval_fuse_tpu_torch.ops import decoder_tail as dt
 from retrieval_fuse_tpu_torch.ops import patch_attention as pa
 from retrieval_fuse_tpu_torch.ops.streaming_knn import streaming_knn_sims, streaming_knn_sims_plain
 from retrieval_fuse_tpu_torch.ops.topk import topk, topk_plain
@@ -110,3 +111,86 @@ def test_gathered_attention_kernel_bf16(cuda):
     assert float(agree.float().mean()) >= 0.99
     diff = (out.float() - want.float()).abs()[agree]
     assert float(diff.max()) <= 0.04 and float(diff.mean()) <= 1e-3
+
+
+def _agree(out, sel, want, want_sel, min_share, max_err):
+    agree = sel.long() == want_sel
+    assert float(agree.float().mean()) >= min_share
+    assert float((out.float() - want.float()).abs()[agree].max()) <= max_err
+
+
+@pytest.mark.parametrize("retrieval_mode", [True, False], ids=["hard", "softmax"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_patch_attention_kernel_matches_plain(cuda, retrieval_mode, dtype):
+    """Ragged N (not a multiple of the 64-row block), K=4."""
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(10), 37, 50, 64, 128, 4)
+    n = 37 * 64 - 23
+    x = torch.from_numpy(xt).reshape(-1, 128)[:n].to(cuda, dtype).contiguous()
+    rows = np.random.default_rng(11).integers(0, 50 * 64, (n, 4))
+    p = torch.from_numpy(bank).reshape(-1, 128)[torch.from_numpy(rows)].to(cuda, dtype).contiguous()
+    theta, phi = theta.to(cuda, dtype), phi.to(cuda, dtype)
+    with torch.no_grad():
+        before = pa.patch_attention.launches
+        out, sel = pa.patch_attention(x, p, theta, phi, 4, retrieval_mode, return_selection=True)
+        torch.cuda.synchronize()
+        assert pa.patch_attention.launches == before + 1
+        want, want_sel = pa.patch_attention_plain(x, p, theta, phi, 4, retrieval_mode)
+    assert out.shape == x.shape and out.dtype == dtype and sel.shape == (n,)
+    if dtype == torch.float32:
+        _agree(out, sel, want, want_sel, 0.999, 1e-4)
+    else:
+        _agree(out, sel, want, want_sel, 0.99, 0.04)
+
+
+@pytest.mark.parametrize("retrieval_mode", [True, False], ids=["hard", "softmax"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gathered_attention_v1_kernel_matches_plain(cuda, retrieval_mode, dtype):
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(12), 37, 50, 64, 128, 4)
+    args = [torch.from_numpy(a).to(cuda, dtype) for a in (xt, bank)] + [
+        torch.from_numpy(idx).to(cuda)]
+    theta, phi = theta.to(cuda, dtype), phi.to(cuda, dtype)
+    with torch.no_grad():
+        before = pa.gathered_patch_attention_v1.launches
+        out, sel = pa.gathered_patch_attention_v1(*args, theta, phi, 4, retrieval_mode,
+                                                  return_selection=True)
+        torch.cuda.synchronize()
+        assert pa.gathered_patch_attention_v1.launches == before + 1
+        want, want_sel = pa.gathered_patch_attention_v1_plain(*args, theta, phi, 4,
+                                                              retrieval_mode)
+    if dtype == torch.float32:
+        _agree(out, sel, want, want_sel, 0.999, 1e-4)
+    else:
+        _agree(out, sel, want, want_sel, 0.99, 0.04)
+
+
+def test_gathered_attention_v1_raises_past_its_staging_budget(cuda):
+    """K=5 float32 candidate tiles (160 KB) do not fit beside the activations."""
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(13), 3, 9, 64, 128, 5)
+    args = [torch.from_numpy(a).to(cuda) for a in (xt, bank, idx)]
+    with pytest.raises(ValueError, match="staging"):
+        pa.gathered_patch_attention_v1(*args, theta.to(cuda), phi.to(cuda), 5)
+
+
+@pytest.mark.parametrize("nf, s", [(16, 5), (16, 33), (4, 7), (8, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decoder_tail_kernel_matches_plain(cuda, nf, s, dtype):
+    """S is no multiple of any block tile; the pad ring is zero, as
+    CompactPackedDecoder writes it."""
+    rng = np.random.default_rng(14)
+    b = 2
+    hn = torch.zeros((b, s + 2, s + 2, s + 2, 8 * nf))
+    hn[:, 1:-1, 1:-1, 1:-1] = torch.from_numpy(
+        rng.standard_normal((b, s, s, s, 8 * nf)).astype(np.float32))
+    hn = hn.to(cuda, dtype)
+    w2 = torch.from_numpy(rng.standard_normal((3, 3, 3, nf, nf)).astype(np.float32)
+                          / np.sqrt(27 * nf)).to(cuda, dtype)
+    wh = torch.from_numpy(rng.standard_normal(nf).astype(np.float32) / np.sqrt(nf)).to(cuda, dtype)
+    before = dt.decoder_tail.launches
+    out = dt.decoder_tail(hn, w2, wh, 0.25)
+    torch.cuda.synchronize()
+    assert dt.decoder_tail.launches == before + 1
+    want = dt.decoder_tail_plain(hn, w2, wh, 0.25)
+    assert out.shape == (b, s, s, s, 8) and out.dtype == torch.float32
+    # bf16: the ReLU output is rounded before the head, so sums taken in
+    # another order may round to the neighbouring bf16 value
+    assert float((out - want).abs().max()) <= (1e-5 if dtype == torch.float32 else 1e-2)

@@ -121,20 +121,69 @@ def test_bf16_engine_within_budget(setup):
     assert mae < 1e-3, f"bf16 MAE {mae} blows the 1e-3 TSDF budget"
 
 
+def _jax_paths(jax_kwargs: dict) -> dict:
+    """The JAX engine's keyword options -> the port's names for the same
+    decoder, backbone, attention and top-k paths."""
+    attention = {False: "modules", True: "patches", "packedrows": "packedrows",
+                 "gathered": "gathered", "gathered2": "gathered2", "phibank": "phibank"}
+    packed = jax_kwargs["use_packed_decoder"]
+    decoder = ({"compact": "compact", "decomposed": "decomposed"}.get(packed, "packed")
+               if packed else "fused" if jax_kwargs["use_fused_decoder"] else "modules")
+    topk_impl = {"iterative": "iterative", "approx": "approx", "top_k": "top_k",
+                 "pallas1p": "single_pass"}
+    return dict(attention=attention[jax_kwargs["use_pallas_attention"]],
+                flat_gather=jax_kwargs["packedrows_flat_gather"], decoder=decoder,
+                fused_backbone=jax_kwargs["use_fused_backbone"],
+                streaming_knn=jax_kwargs["streaming_knn"],
+                topk_impl=topk_impl[jax_kwargs["topk_impl"]])
+
+
 @pytest.mark.parametrize("token", ["pallas", "pallasp", "pallasg", "cdec", "dconv", "fbb",
                                    "flatg", "phib", "packed", "approxk"])
 def test_unported_variant_tokens_raise(token):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        variant_engine_kwargs(f"fused+{token}")
+    """The name is that of the check these tokens had while they raised
+    NotImplementedError. Each, beside `fused`, now selects the same
+    decoder, backbone, attention and top-k paths as the JAX engine."""
+    variant = f"fused+{token}"
+    assert variant_engine_kwargs(variant) == _jax_paths(jax_variant_kwargs(variant))
+
+
+@pytest.mark.parametrize("variant", [
+    "pallasp+topk1p+dconv+fbb+fused",           # test_inference.py:336-353
+    FAST_VARIANT, "cdec", "dconv", "packed", "base+streamknn+denseknn",
+    "phib+pallasg2+pallasg+pallasp+pallas+cdec+dconv+packed+approxk+topk1p"])
+def test_variant_tokens_select_jax_paths(variant):
+    """The JAX tests' combined strings select the same paths as the JAX
+    engine, with its substring precedence."""
+    assert variant_engine_kwargs(variant) == _jax_paths(jax_variant_kwargs(variant))
 
 
 def test_variant_tokens():
-    assert variant_engine_kwargs(FAST_VARIANT) == {"gathered_attention": True,
-                                                   "topk_impl": "single_pass"}
-    assert variant_engine_kwargs("base+streamknn") == {"streaming_knn": True}
-    assert variant_engine_kwargs("denseknn") == {"streaming_knn": False}
+    assert variant_engine_kwargs(FAST_VARIANT) == dict(
+        attention="gathered2", flat_gather=False, decoder="fused", fused_backbone=False,
+        streaming_knn=None, topk_impl="single_pass")
+    assert variant_engine_kwargs("base+streamknn")["streaming_knn"] is True
+    assert variant_engine_kwargs("denseknn")["streaming_knn"] is False
+    assert variant_engine_kwargs("packed")["decoder"] == "packed"  # implies fused
     with pytest.raises(ValueError, match="unknown"):
         variant_engine_kwargs("fused+nosuchtoken")
+
+
+def test_fused_variant_runs_the_fused_decoder(setup):
+    from retrieval_fuse_tpu_torch.ops.fused_decoder import FusedFinalDecoder
+    assert isinstance(_port_engine(setup, FAST_VARIANT).fused_decoder, FusedFinalDecoder)
+    assert _port_engine(setup, "base").fused_decoder is None
+
+
+def test_trunc_takes_the_float16_round_trip(setup):
+    """The reference stores trunc (3 voxels) in float16; both engines keep
+    that rounding, which differs from 3·voxel_size in float32."""
+    eng = _port_engine(setup, "base")
+    dtr = CFG["dataset_train"]
+    for got, voxel in ((eng.input_trunc, dtr["voxel_size_input"]),
+                       (eng.target_trunc, dtr["voxel_size_target"])):
+        assert got == float(np.float16(voxel * 3))
+        assert got != float(np.float32(voxel * 3))
 
 
 def test_serve_directory_pads_tail_batch(setup, tmp_path):

@@ -1,4 +1,4 @@
-"""The plain PyTorch versions of the port's three kernels against the JAX
+"""The plain PyTorch versions of the port's six kernels against the JAX
 package's Pallas kernels (run with interpret=True, as the JAX tests run
 them on the CPU), and the layout helpers around them. The CUDA kernels
 themselves are held against these plain versions in test_torch_port_cuda.py.
@@ -12,10 +12,15 @@ import torch
 from retrieval_fuse_tpu.inference import RetrieveRefineEngine as JaxEngine
 from retrieval_fuse_tpu.ops.knn import exact_knn as jax_exact_knn
 from retrieval_fuse_tpu.ops.pallas_attention import (
-    pack_tile_rows as jax_pack_tile_rows, pallas_gathered_patch_attention_v2)
+    _mlp as jax_mlp, pack_tile_rows as jax_pack_tile_rows, pallas_gathered_patch_attention,
+    pallas_gathered_patch_attention_v2, pallas_patch_attention)
+from retrieval_fuse_tpu.ops.pallas_decoder import (
+    depth_to_space_1ch as jax_depth_to_space_1ch, pack_conv2_imcol_kernel, pack_head_kernel,
+    packed_decoder_tail)
 from retrieval_fuse_tpu.ops.pallas_knn import pallas_exact_knn
 from retrieval_fuse_tpu.ops.pallas_topk import pallas_topk
 from retrieval_fuse_tpu_torch.models.attention import AttentionFeatureEncoder
+from retrieval_fuse_tpu_torch.ops import decoder_tail as dt
 from retrieval_fuse_tpu_torch.ops import patch_attention as pa
 from retrieval_fuse_tpu_torch.ops.knn import auto_exact_knn, exact_knn, use_streaming_knn
 from retrieval_fuse_tpu_torch.ops.streaming_knn import streaming_knn
@@ -145,3 +150,111 @@ def test_layout_helpers_match_jax():
     np.testing.assert_array_equal(
         back.numpy(), np.asarray(jax_eng._rows_to_volume(jnp.asarray(rows.numpy()), 2)))
     np.testing.assert_array_equal(back.numpy(), vol)
+
+
+def _jax_selection(x, p, theta, phi):
+    """argmax(25 s) of the JAX `_mlp` embeddings: the Pallas kernels' choice."""
+    def l2n(v):
+        return v / jnp.maximum(jnp.sqrt(jnp.sum(v * v, axis=-1, keepdims=True)), 1e-12)
+    n, k, f = p.shape
+    xf = l2n(jax_mlp(jnp.asarray(x), _flax_mlp(theta)))
+    pf = l2n(jax_mlp(jnp.asarray(p.reshape(n * k, f)), _flax_mlp(phi))).reshape(n, k, -1)
+    return np.asarray(jnp.argmax(jnp.sum(xf[:, None] * pf, axis=-1) * 25.0, axis=1))
+
+
+@pytest.mark.parametrize("retrieval_mode", [True, False], ids=["hard", "softmax"])
+def test_patch_attention_plain_matches_pallas(retrieval_mode):
+    """The plain version against pallas_patch_attention (f32, atol 1e-5),
+    N ragged against both the Pallas 512-row tile and the CUDA 64-row
+    block; selections equal to the JAX math's."""
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(20), 9, 5, 64, 32, 3)
+    n = 9 * 64 - 13
+    x = xt.reshape(-1, 32)[:n]
+    rows = np.random.default_rng(21).integers(0, 5 * 64, (n, 3))
+    p = bank.reshape(-1, 32)[rows]
+    want = pallas_patch_attention(jnp.asarray(x), jnp.asarray(p), _flax_mlp(theta),
+                                  _flax_mlp(phi), 3, retrieval_mode=retrieval_mode,
+                                  sharpness=1024.0, tile=512, interpret=True)
+    with torch.no_grad():
+        got, sel = pa.patch_attention(torch.from_numpy(x), torch.from_numpy(p), theta, phi, 3,
+                                      retrieval_mode=retrieval_mode, sharpness=1024.0,
+                                      return_selection=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_array_equal(sel.numpy(), _jax_selection(x, p, theta, phi))
+    assert not np.allclose(got.numpy(), x) and len(np.unique(sel.numpy())) > 1
+
+
+@pytest.mark.parametrize("retrieval_mode", [True, False], ids=["hard", "softmax"])
+def test_gathered_attention_v1_plain_matches_pallas(retrieval_mode):
+    """The plain version of the v1 kernel against pallas_gathered_patch_attention
+    (f32, atol 1e-5); selections equal to the JAX math's."""
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(22), 5, 7, 8, 32, 3)
+    want = pallas_gathered_patch_attention(
+        jnp.asarray(xt), jnp.asarray(bank), jnp.asarray(idx), _flax_mlp(theta), _flax_mlp(phi),
+        3, retrieval_mode=retrieval_mode, sharpness=1024.0, interpret=True)
+    with torch.no_grad():
+        got, sel = pa.gathered_patch_attention_v1(
+            torch.from_numpy(xt), torch.from_numpy(bank), torch.from_numpy(idx), theta, phi, 3,
+            retrieval_mode=retrieval_mode, sharpness=1024.0, return_selection=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    p = bank[idx].transpose(0, 2, 1, 3).reshape(5 * 8, 3, 32)
+    np.testing.assert_array_equal(sel.numpy().reshape(-1),
+                                  _jax_selection(xt.reshape(-1, 32), p, theta, phi))
+
+
+def test_decoder_tail_plain_matches_pallas():
+    """decoder_tail_plain against packed_decoder_tail (interpret) on the
+    input and weights of test_pallas_decoder.py:28-49 (atol 2e-5); the JAX
+    input carries the TPU's sublane pad of the minor axis, the port's does
+    not. The port's layout helpers equal the JAX ones."""
+    rng = np.random.default_rng(3)
+    nf, s2 = 4, 16
+    w2 = rng.standard_normal((3, 3, 3, nf, nf)).astype(np.float32)
+    wh = rng.standard_normal((nf, 1)).astype(np.float32)
+    x = rng.standard_normal((2, s2, s2, s2, nf)).astype(np.float32)
+    h = s2 // 2
+    xp = x.reshape(2, h, 2, h, 2, h, 2, nf).transpose(0, 1, 3, 5, 2, 4, 6, 7)
+    xp = xp.reshape(2, h, h, h, 8 * nf)
+    want = packed_decoder_tail(
+        jnp.pad(jnp.asarray(xp), ((0, 0), (1, 1), (1, 1), (1, (-(h + 2)) % 8 + 1), (0, 0))),
+        jnp.asarray(pack_conv2_imcol_kernel(w2)), jnp.asarray(pack_head_kernel(wh)), 0.37,
+        t0=4, interpret=True)
+    hn = torch.nn.functional.pad(torch.from_numpy(xp), (0, 0, 1, 1, 1, 1, 1, 1))
+    got = dt.decoder_tail(hn, torch.from_numpy(w2), torch.from_numpy(wh[:, 0]), 0.37)
+    assert got.shape == (2, h, h, h, 8) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    np.testing.assert_array_equal(dt.depth_to_space_1ch(got).numpy(),
+                                  np.asarray(jax_depth_to_space_1ch(jnp.asarray(got.numpy()))))
+
+
+def test_hard_selection_ties_after_scaling_by_25():
+    """Scores one float32 ulp apart that round to the same 25·s tie, and the
+    first candidate wins, as jnp.argmax(s * 25.0) picks it; argmax(s) would
+    pick the second."""
+    s = np.array([[0.6402101, 0.64021015]], np.float32)
+    assert s[0, 1] > s[0, 0] and (s * np.float32(25.0))[0, 0] == (s * np.float32(25.0))[0, 1]
+    assert pa.hard_selection(torch.from_numpy(s)).item() == 0
+    assert int(jnp.argmax(jnp.asarray(s) * 25.0, axis=1)[0]) == 0
+
+
+def test_attention_packing_helpers_match_jax():
+    """_pack_feats_for_attention and _pack_volumes_for_attention equal the
+    JAX engine's; the first refuses fold tiles x patches per tile that
+    differ from attn_num_patch, as the JAX assert does."""
+    from retrieval_fuse_tpu_torch.inference import RetrieveRefineEngine
+    rng = np.random.default_rng(23)
+    geo = dict(attn_extent=2, n_fold=4, nf=4, attn_num_patch=16, K=2)
+    jax_eng, port_eng = object.__new__(JaxEngine), object.__new__(RetrieveRefineEngine)
+    for eng in (jax_eng, port_eng):
+        eng.__dict__.update(geo)
+    feats = rng.standard_normal((1 * 64, 2, 8, 8, 8, 4)).astype(np.float32)
+    np.testing.assert_array_equal(
+        port_eng._pack_feats_for_attention(torch.from_numpy(feats), 1).numpy(),
+        np.asarray(jax_eng._pack_feats_for_attention(jnp.asarray(feats), 1)))
+    vols = rng.standard_normal((2, 32, 32, 32, 4)).astype(np.float32)
+    np.testing.assert_array_equal(
+        port_eng._pack_volumes_for_attention(torch.from_numpy(vols)).numpy(),
+        np.asarray(jax_eng._pack_volumes_for_attention(jnp.asarray(vols))))
+    port_eng.attn_num_patch = 8
+    with pytest.raises(ValueError, match="attn_num_patch"):
+        port_eng._pack_feats_for_attention(torch.from_numpy(feats), 1)

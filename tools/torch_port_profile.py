@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's serving engine spends its device time.
 
-    python tools/torch_port_profile.py [--seed 0] [--out chiprun_out/profile]
+    python tools/torch_port_profile.py [--seed 0] [--variant V] [--out chiprun_out/profile]
 
-Builds the flagship FAST_VARIANT engine in bf16 on one CUDA card (weights
-and data as chip_smoke.py draws them), then traces three engine calls at
-batch 64 and at batch 128 with torch.profiler. Prints per batch: the host
-time per call (ending in a synchronize), the summed device time of the
-CUDA kernels, the device's idle share of the traced window, and the device
-time by kernel group (convolutions, GroupNorm, the port's three kernels,
-the rest) and for the top kernels. Writes a Chrome trace per batch under
+Builds the flagship engine of --variant (default FAST_VARIANT) in bf16 on
+one CUDA card (weights and data as chip_smoke.py draws them), then traces
+three engine calls at batch 64 and at batch 128 with torch.profiler. Prints
+per batch: the host time per call (ending in a synchronize), the summed
+device time of the CUDA kernels, the device's idle share of the traced
+window, and the device time by kernel group (convolutions, GroupNorm, the
+port's kernels, the rest) and for the top kernels. Writes a Chrome trace per batch under
 --out. Needs a CUDA card.
 """
 
@@ -25,7 +25,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
-    ("attention kernel", ("gathered_attention",)),
+    ("attention kernel", ("gathered_attention", "patch_attention")),
+    ("decoder tail kernel", ("decoder_tail",)),
     ("knn kernel", ("knn_kernel",)),
     ("topk kernel", ("topk_rows",)),
     ("convolution", ("conv", "xmma", "implicit", "cudnn", "sm90_", "gemm", "winograd")),
@@ -44,6 +45,7 @@ def group_of(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--variant", default=None, help="engine variant (default FAST_VARIANT)")
     ap.add_argument("--out", default="chiprun_out/profile")
     args = ap.parse_args(argv)
 
@@ -66,7 +68,7 @@ def main(argv=None) -> int:
     db, bank = flagship_data(cfg, rng, SEED_BANK_ROWS, dev)
     eng = RetrieveRefineEngine(cfg, flagship_params(cfg, args.seed), db, bank,
                                compute_dtype=torch.bfloat16, device=dev,
-                               **variant_engine_kwargs(FAST_VARIANT))
+                               **variant_engine_kwargs(args.variant or FAST_VARIANT))
     del bank
     chunks = synthetic_df(rng, 128, 8, cfg["dataset_train"]["voxel_size_input"], dev)[..., None]
     out = Path(args.out)
