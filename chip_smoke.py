@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and retrieval paths on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--out chiprun_out/chip_smoke.json]
 
@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from retrieval_fuse_tpu_torch/csrc, builds
 the flagship engine (ShapeNetV2 super-resolution 8³ -> 64³, nf=16, K=4,
 latent 64, a 27,132-row database and feature bank; random weights and data
 from --seed; data are distance fields of random spheres and boxes, as the
-JAX package's synthetic scenes), holds each of the six kernels against its
+JAX package's synthetic scenes), holds each of six kernels against its
 plain PyTorch version at the serving shapes (float32, the algorithm check,
 and bf16), times kernel, plain version, a library call where one exists and
 the bound, then drives the serving paths, each with the kernel launch
@@ -20,6 +20,18 @@ checking each path's TSDF against the plain `base` engine in bf16 (MAE <
 1e-3, the budget of the JAX tests) and in float32 (MAE < 1e-5); the
 bf16-vs-float32 MAE of FAST_VARIANT is printed.
 
+Then it drives the retrieval pipeline (retrieval/cli.py's map -> compose
+-> evaluate) at the full width of ShapeNetV2's retrieval config (Patch04
+nf 32 and Patch32 nf 8 encoders, latent 64, K = 4; random weights from
+--seed) on a synthetic dataset made on the card, with as many train chunks
+as it takes for the dictionary to reach the flagship database's 27,132
+rows and 64 val chunks: the train queries run through the streaming kNN
+kernel in 8192-query batches and `evaluate` through the chamfer kernel,
+one launch per val scene. It checks the mapping of 2,048 sampled train
+queries against a dense float32 search, the chamfer launches, and the
+metrics against the plain chamfer's; then holds the chamfer kernel against
+its plain version at the evaluate shape and at 128 batched pairs.
+
 Prints the card (nvidia-smi name and power limit), one line per check,
 a `{"kernels": [...]}` JSON line and, last, `{"ok": true, "device": ...}`.
 Any failed check exits non-zero. Needs one CUDA card; exits non-zero
@@ -31,6 +43,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -49,6 +62,11 @@ DENSE_BATCH = 64        # Q = 4096 queries: dense kNN + the topk kernel
 STREAM_BATCH = 128      # Q = 8192 queries: the streaming kNN kernel
 N_CHUNKS = 192          # chunk files served at each batch size (tail padded at 128)
 CDEC_VARIANT = "fused+pallasp+topk1p+cdec"
+RETRIEVAL_MIN_ROWS = SEED_BANK_ROWS  # the retrieval pipeline's dictionary reaches this
+RETRIEVAL_VAL_CHUNKS = 64
+MAP_SAMPLE = 2048       # train queries checked against a dense search
+CHAMFER_PAIRS = 128     # the chamfer kernel's batched check
+CHAMFER_CAPACITY = 16384
 #: the engine's other serving paths, each run at STREAM_BATCH -> the kernels
 #: it must launch there (the streaming kNN kernel is auto-selected at Q=8192)
 VARIANT_PATHS = {
@@ -78,28 +96,45 @@ def flagship_config() -> dict:
     }
 
 
-def synthetic_df(rng, n: int, res: int, voxel_size: float, device, n_prims: int = 3):
-    """n truncated unsigned distance fields (res³, channels-last without the
-    channel) of unions of random spheres and boxes in a unit chunk: the
-    scenes of the JAX package's data/synthetic.py, drawn from `rng`."""
+def draw_primitives(rng, n: int, device, n_prims: int = 3) -> list:
+    """For each of n unit chunks, n_prims random spheres or boxes drawn from
+    `rng`: [(center, radius, half extent, is_sphere)] per primitive."""
     import torch
-    c = (torch.arange(res, dtype=torch.float32, device=device) + 0.5) / res
-    g = torch.stack(torch.meshgrid(c, c, c, indexing="ij"), -1).reshape(1, -1, 3)
-    d = torch.full((n, res ** 3), float("inf"), device=device)
 
     def draw(lo, hi, shape):
         return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(device)
 
+    prims = []
     for _ in range(n_prims):
         center, radius, half = draw(0.25, 0.75, (n, 1, 3)), draw(0.08, 0.22, (n, 1)), \
             draw(0.06, 0.2, (n, 1, 3))
-        sphere = torch.from_numpy(rng.integers(0, 2, (n, 1)) == 0).to(device)
+        prims.append((center, radius, half,
+                      torch.from_numpy(rng.integers(0, 2, (n, 1)) == 0).to(device)))
+    return prims
+
+
+def primitives_df(prims: list, res: int, voxel_size: float):
+    """The truncated unsigned distance fields (n, res, res, res) of the
+    chunks of `prims` sampled at res³, in the units of `voxel_size`."""
+    import torch
+    device = prims[0][0].device
+    c = (torch.arange(res, dtype=torch.float32, device=device) + 0.5) / res
+    g = torch.stack(torch.meshgrid(c, c, c, indexing="ij"), -1).reshape(1, -1, 3)
+    d = torch.full((prims[0][0].shape[0], res ** 3), float("inf"), device=device)
+    for center, radius, half, sphere in prims:
         p = g - center
         q = p.abs() - half
         box = q.clamp(min=0).norm(dim=-1) + q.amax(dim=-1).clamp(max=0)
         d = torch.minimum(d, torch.where(sphere, p.norm(dim=-1) - radius, box))
     trunc = float(np.float16(voxel_size * 3))
-    return torch.clamp(d.abs() * (voxel_size * res), max=trunc).reshape(n, res, res, res)
+    return torch.clamp(d.abs() * (voxel_size * res), max=trunc).reshape(-1, res, res, res)
+
+
+def synthetic_df(rng, n: int, res: int, voxel_size: float, device, n_prims: int = 3):
+    """n truncated unsigned distance fields (res³, channels-last without the
+    channel) of unions of random spheres and boxes in a unit chunk: the
+    scenes of the JAX package's data/synthetic.py, drawn from `rng`."""
+    return primitives_df(draw_primitives(rng, n, device, n_prims), res, voxel_size)
 
 
 def flagship_params(cfg: dict, seed: int) -> dict:
@@ -126,6 +161,91 @@ def flagship_data(cfg: dict, rng, n: int, device):
     bank = scenes.reshape(-1, 4, 16, 4, 16, 4, 16).permute(0, 1, 3, 5, 2, 4, 6) \
         .reshape(-1, 16, 16, 16)[:n].contiguous()
     return db, bank
+
+
+def retrieval_config(root, retrieval_ckpt, k: int = 4) -> dict:
+    """The resolved config of the JAX package's
+    config/super_resolution/ShapeNetV2/retrieval_008_064.yaml (on
+    base/retrieval_superresolution.yaml), built in code, so that no YAML
+    parser is needed: inputs 2+1 (4³ patches, Patch04, nf 32), targets 16+8
+    (32³ patches, Patch32, nf 8), latent 64, patch stride 16, dictionary
+    batch 512, K = k as the retrieval CLI sets it. The dataset points at
+    `root`, as data/synthetic.make_synthetic_config points it."""
+    root = str(root).rstrip("/") + "/"
+    dataset = {
+        "num_points": 0, "skip_occupancy": False, "train_multiplier": 1,
+        "patch_size_input": 2, "patch_context_input": 1, "patch_size_target": 16,
+        "patch_context_target": 8, "patch_stride": 16, "input_ext": ".npz",
+        "target_ext": ".npz", "data_dir": root, "scene_dir": root, "retrieval_dir": root,
+        "dataset_name": "SynthSet", "input_chunk_size": 8, "target_chunk_size": 64,
+        "input_dir": "sdf_008", "target_dir": "sdf_064", "splits_dir": "main",
+        "voxel_size_input": 0.166667, "voxel_size_target": 0.020834, "preload_scenes": True,
+        "preload_retrievals": False, "input_mean": 0.34774827082940146,
+        "input_std": 0.16208995673899929, "target_mean": 0.060043341595512584,
+        "target_std": 0.009982546908894512, "rotation_augment": False,
+    }
+    return {
+        "task": "superresolution", "fast_visualization": True, "no_retrievals": True,
+        "retrieval_ckpt": str(retrieval_ckpt), "K": k,
+        "dataset_train": dict(dataset, occupancy_threshold=0),
+        "dataset_val": dict(dataset, occupancy_threshold=-1),
+        "retrieval_model": {"network_input": "2+1", "network_target": "16+8",
+                            "nf_input": 32, "nf_target": 8, "latent_dim": 64},
+        "retrieval_training": {"lr": 0.0001, "num_workers": 8, "code_noise": 0,
+                               "input_noise": 0, "batch_size": 128, "scheduler": [50, 75],
+                               "temprature": 0.2, "iou_scaling": True,
+                               "loss": {"contrastive": 1}},
+        "dictionary": {"batch_size": 512, "num_workers": 8},
+        "query": {"batch_size": 512, "num_workers": 8, "K": k, "flann_num_workers": 0},
+    }
+
+
+def patch_occupancy(df64, voxel_size: float):
+    """(n,) the number of dictionary rows each 64³ target chunk gives: its
+    16+8 patches (32³ windows at stride 16 on the chunk padded by 8) that
+    hold a voxel at or below 1.5 voxel sizes, the occupancy rule of
+    SceneHandler on the float16 scene. The padding is above the threshold."""
+    import torch
+    thr = float(np.float32(1.5) * np.float32(np.float16(voxel_size)))
+    occ = df64.half().float() <= thr
+    counts = torch.zeros(df64.shape[0], dtype=torch.int64, device=df64.device)
+    spans = [(max(s - 8, 0), s + 24) for s in (0, 16, 32, 48)]
+    for x0, x1 in spans:
+        for y0, y1 in spans:
+            for z0, z1 in spans:
+                counts += occ[:, x0:x1, y0:y1, z0:z1].flatten(1).any(dim=1)
+    return counts
+
+
+def write_retrieval_dataset(root, rng, min_rows: int, n_val: int, device) -> dict:
+    """A synthetic super-resolution dataset under `root`, in the layout of
+    the JAX package's data/synthetic.py (splits, sdf_064 targets, sdf_008
+    inputs of the same spheres and boxes), made on the device and written
+    with np.savez: train chunks, 64 at a time, until their patches give at
+    least `min_rows` dictionary rows, then n_val val chunks."""
+    from retrieval_fuse_tpu_torch.data.synthetic import write_splits
+    root = Path(root)
+    cfg = retrieval_config(root, "unused")["dataset_train"]
+    vs_in, vs_tgt = cfg["voxel_size_input"], cfg["voxel_size_target"]
+    for sub in ("sdf_008", "sdf_064"):
+        (root / sub / "SynthSet").mkdir(parents=True, exist_ok=True)
+    names, rows, n_train = [], 0, None
+    while n_train is None or len(names) < n_train + n_val:
+        n = 64 if n_train is None else n_train + n_val - len(names)
+        prims = draw_primitives(rng, n, device)
+        tgt, inp = primitives_df(prims, 64, vs_tgt), primitives_df(prims, 8, vs_in)
+        if n_train is None:
+            rows += int(patch_occupancy(tgt, vs_tgt).sum())
+        tgt, inp = tgt.cpu().numpy(), inp.cpu().numpy()
+        for i in range(n):
+            name = f"synth__{len(names):04d}"
+            np.savez(root / "sdf_064" / "SynthSet" / f"{name}.npz", arr=tgt[i])
+            np.savez(root / "sdf_008" / "SynthSet" / f"{name}.npz", arr=inp[i])
+            names.append(name)
+        if n_train is None and rows >= min_rows:
+            n_train = len(names)
+    write_splits(root, "SynthSet", "main", names[:n_train], names[n_train:])
+    return {"train": names[:n_train], "val": names[n_train:], "rows": rows}
 
 
 class Failed(Exception):
@@ -190,6 +310,97 @@ def hold_attention(label: str, kernel, plain, args32: tuple, args16: tuple) -> t
     return err, share16
 
 
+#: float32 operations per valid point pair of the chamfer minima: the depth-3
+#: dot product (5), |a|² + |b|² (1), the ×2 and the subtraction (2), the clamp
+#: at 0 (1), and one min in each direction (2)
+CHAMFER_OPS_PER_PAIR = 11
+
+
+def chamfer_bound(args: list) -> tuple[float, str]:
+    """The chamfer minima's bound for the (points_a, n_a, points_b, n_b)
+    calls in `args`, summed: the operations over the valid point pairs of
+    this data, the buffers and counts read once, the minima written once."""
+    pairs = nbytes = 0
+    for a, n_a, b, n_b in args:
+        pairs += int((n_a.long() * n_b.long()).sum())
+        nbytes += (a.numel() + b.numel()) * 4 + (n_a.numel() + n_b.numel()) * 4 \
+            + (a.numel() + b.numel()) // 3 * 4
+    return bound(nbytes, CHAMFER_OPS_PER_PAIR * pairs, F32_FLOPS)
+
+
+def hold_chamfer(label: str, args: list) -> float:
+    """The chamfer kernel against its plain version on each call of `args`:
+    minima bit-equal (voxel coordinates: every term an exact integer), the
+    chamfer values within 1e-6 relative. Returns the max |chamfer diff|."""
+    import torch
+    from retrieval_fuse_tpu_torch.ops.chamfer import chamfer_batch, chamfer_batch_plain
+    from retrieval_fuse_tpu_torch.ops.streaming_chamfer import (
+        chamfer_minima, chamfer_minima_plain)
+    worst = 0.0
+    for call in args:
+        got, want = chamfer_minima(*call), chamfer_minima_plain(*call)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"chamfer {label}: minima differ from the plain version's")
+        cd, cd_plain = chamfer_batch(*call), chamfer_batch_plain(*call)
+        rel = ((cd - cd_plain).abs() / cd_plain.abs().clamp(min=1e-30)).max()
+        check(float(rel) <= 1e-6, f"chamfer {label}: values differ by {float(rel)} relative")
+        worst = max(worst, float((cd - cd_plain).abs().max()))
+    pts = sum(int(c[1].sum()) + int(c[3].sum()) for c in args)
+    log(f"chamfer {label}: {len(args)} calls, {pts} points: minima bit-equal, chamfer max "
+        f"|diff| {worst:.2e} (<= 1e-6 relative)")
+    return worst
+
+
+class Subset:
+    """The items `idx` of a dataset, as a dataset."""
+
+    def __init__(self, dataset, idx):
+        self.dataset, self.idx = dataset, idx
+
+    def __len__(self):
+        return len(self.idx)
+
+    def __getitem__(self, i):
+        return self.dataset[int(self.idx[i])]
+
+
+def check_mapping(cfg: dict, tree, mapping: dict, dataset, rng, n_sample: int, device) -> int:
+    """The retrieval mapping of `n_sample` random train queries against a
+    dense float32 search over database.npy (matmul, top 2K, same-scene
+    demotion): the K rows (scene and extent) equal and the distances within
+    1e-5, on the queries whose top 2K+1 distances are more than 1e-5 apart.
+    Returns the number of the others (near-ties, where float32 sums in
+    another order may rank otherwise)."""
+    import torch
+    from retrieval_fuse_tpu_torch.ops.knn import demote_same_scene
+    from retrieval_fuse_tpu_torch.retrieval.cli import load_encoders_from_checkpoint
+    from retrieval_fuse_tpu_torch.retrieval.dictionary import extract_input_features
+    k, latent = cfg["K"], cfg["retrieval_model"]["latent_dim"]
+    database = np.load(Path(tree) / "database.npy")
+    scene_id = {s: i for i, s in enumerate(json.loads((Path(tree) / "index.json").read_text()))}
+    encode_in = load_encoders_from_checkpoint(cfg, device)[0]
+    sub = Subset(dataset, rng.choice(len(dataset), n_sample, replace=False))
+    names, feats = extract_input_features(encode_in, cfg["query"], latent, sub)
+    with torch.inference_mode():
+        db = torch.from_numpy(np.ascontiguousarray(database[:, 7:])).to(device)
+        top_s, top_i = torch.topk(torch.from_numpy(feats).to(device) @ db.T, 2 * k + 1, dim=1)
+        dist = torch.clamp(2.0 - 2.0 * top_s, min=0.0)
+        clear = ((dist[:, 1:] - dist[:, :-1]) > 1e-5).all(dim=1).cpu().numpy()
+        q_scene = torch.tensor([scene_id[dataset.get_scene_names_from_patches([n])[0]]
+                                for n in names], dtype=torch.int32, device=device)
+        db_scene = torch.from_numpy(database[:, 0].astype(np.int32)).to(device)
+        idx, d = demote_same_scene(top_i[:, :2 * k].int(), dist[:, :2 * k], db_scene, q_scene, k)
+    rows = database[idx.cpu().numpy(), 0:7]
+    got = np.stack([mapping[n] for n in names])
+    same = (rows == got[..., :7]).all(axis=(1, 2))
+    close = (np.abs(d.cpu().numpy() - got[..., 7]) <= 1e-5).all(axis=1)
+    check(bool(same[clear].all() and close[clear].all()),
+          f"retrieval map: {int((~(same & close))[clear].sum())} of {int(clear.sum())} sampled "
+          f"train queries differ from a dense float32 search")
+    return int((~clear).sum())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -212,6 +423,18 @@ def main(argv=None) -> int:
             streaming_knn_sims, streaming_knn_sims_plain)
         from retrieval_fuse_tpu_torch.ops.topk import topk, topk_plain
         from retrieval_fuse_tpu_torch.serve import serve_directory
+        from retrieval_fuse_tpu_torch.data import PatchedSceneDataset, SceneHandler
+        from retrieval_fuse_tpu_torch.evaluation import metrics as metrics_mod
+        from retrieval_fuse_tpu_torch.models import get_retrieval_networks, init_module_params
+        from retrieval_fuse_tpu_torch.ops.chamfer import (
+            chamfer_batch_plain, occupancy_to_point_buffer)
+        from retrieval_fuse_tpu_torch.ops.streaming_chamfer import (
+            chamfer_minima, chamfer_minima_plain)
+        from retrieval_fuse_tpu_torch.retrieval.cli import retrievals_to_disk
+        from retrieval_fuse_tpu_torch.retrieval.engine import query_batch_size
+        from retrieval_fuse_tpu_torch.train.checkpoint import save_checkpoint
+        from retrieval_fuse_tpu_torch.train.retrieval_trainer import get_metrics_for_retrieval
+        from retrieval_fuse_tpu_torch.utils.misc import get_retrievals_dir, get_tree_path
     except ImportError as e:
         print(f"chip_smoke: the port package is missing ({e})", file=sys.stderr)
         return 1
@@ -481,7 +704,8 @@ def main(argv=None) -> int:
         counters = {"topk": topk, "knn": streaming_knn_sims,
                     "attention": pa.gathered_patch_attention,
                     "attention_v1": pa.gathered_patch_attention_v1,
-                    "patch_attention": pa.patch_attention, "decoder_tail": dt.decoder_tail}
+                    "patch_attention": pa.patch_attention, "decoder_tail": dt.decoder_tail,
+                    "chamfer": chamfer_minima}
         launches = {name: 0 for name in counters}
 
         def drive(label: str, needed, fn):
@@ -554,6 +778,133 @@ def main(argv=None) -> int:
             log(f"path {variant} batch {STREAM_BATCH}: engine {rec['engine_ms']:.2f} ms/batch "
                 f"bf16 = {rec['engine_chunks_per_s']:.1f} chunks/s; launches {counts} [{card}]")
         results["paths"] = paths
+
+        # 7) the retrieval pipeline, map -> compose -> evaluate, at the full
+        # width of ShapeNetV2's retrieval config, on a synthetic dataset whose
+        # dictionary reaches the flagship database's rows
+        retrieval = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            t0 = time.perf_counter()
+            made = write_retrieval_dataset(root / "data", rng, RETRIEVAL_MIN_ROWS,
+                                           RETRIEVAL_VAL_CHUNKS, dev)
+            retrieval["data_s"] = time.perf_counter() - t0
+            log(f"retrieval data: {len(made['train'])} train and {len(made['val'])} val chunks "
+                f"(64³ targets, 8³ inputs) made and written in {retrieval['data_s']:.1f} s")
+            wrng = np.random.default_rng(args.seed + 1)
+            nets = get_retrieval_networks(retrieval_config(root, "")["retrieval_model"])
+            ckpt = save_checkpoint(root / "runs" / "chip_smoke", 0, {
+                name: init_module_params(net, wrng)
+                for name, net in zip(("fenc_input", "fenc_target"), nets)})
+            rcfg = retrieval_config(root / "data", ckpt)
+            cwd = os.getcwd()
+            os.chdir(root)  # the dictionary's scratch tree is relative: runs/retrieval_scratch
+            try:
+                outs = {}
+                for mode, needed in (("map", ("knn",)), ("compose", ()),
+                                     ("evaluate", ("chamfer",))):
+                    t0 = time.perf_counter()
+                    outs[mode], counts = drive(f"retrieval {mode}", needed,
+                                               lambda: retrievals_to_disk(mode, rcfg, device=dev))
+                    retrieval[f"{mode}_s"] = time.perf_counter() - t0
+                    retrieval[f"{mode}_launches"] = counts
+                    log(f"retrieval {mode}: {retrieval[f'{mode}_s']:.1f} s wall; launches "
+                        f"{counts} [{card}]")
+                tree, rdir = root / get_tree_path(rcfg), get_retrievals_dir(rcfg)
+                n_rows = np.load(tree / "database.npy", mmap_mode="r").shape[0]
+                maps = {split: np.load(rdir / f"map_{split}.npy", allow_pickle=True)[()]
+                        for split in ("train", "val")}
+                n_q = {split: len(m) for split, m in maps.items()}
+                q_batch = query_batch_size(n_rows)
+                full = n_q["train"] // q_batch
+                retrieval.update(database_rows=n_rows, queries=n_q, metrics=outs["evaluate"])
+                log(f"retrieval: database {n_rows} rows, {n_q['train']} train queries "
+                    f"({full} full {q_batch}-query batches), {n_q['val']} val queries; metrics "
+                    f"[iou, chamfer, precision, recall] = {outs['evaluate']}")
+                check(n_rows >= RETRIEVAL_MIN_ROWS, f"retrieval: {n_rows} database rows")
+                check(full >= 2 and retrieval["map_launches"].get("knn") == full,
+                      f"retrieval map: {retrieval['map_launches']} kNN launches for {full} "
+                      "full query batches")
+                ds_train = PatchedSceneDataset("train", rcfg["dataset_train"],
+                                               SceneHandler("train", rcfg))
+                near = check_mapping(rcfg, tree, maps["train"], ds_train, rng, MAP_SAMPLE, dev)
+                retrieval["map_near_ties"] = near
+                log(f"retrieval map: {MAP_SAMPLE} sampled train queries equal a dense float32 "
+                    f"search with demotion, {near} near-tie queries (top 2K+1 distances "
+                    f"within 1e-5) excluded")
+
+                # the evaluate shape: one (target, 1-NN) point-set pair per val scene
+                ds_val = PatchedSceneDataset("val", rcfg["dataset_val"], SceneHandler("val", rcfg))
+                nn1 = np.stack([np.load(rdir / "compose" / f"{s}.npz")["arr_0"][:1]
+                                for s in ds_val.scenes])
+                thr = 0.75 * ds_val.target_voxel_size
+                occ = [(torch.from_numpy(ds_val.get_scene_target(s) <= thr).to(dev),
+                        torch.from_numpy(nn1[i, 0] <= thr).to(dev))
+                       for i, s in enumerate(ds_val.scenes)]
+                occ = [(t, p) for t, p in occ if t.any() and p.any()]
+                check(retrieval["evaluate_launches"].get("chamfer", 0) == len(occ),
+                      f"retrieval evaluate: {retrieval['evaluate_launches']} chamfer launches "
+                      f"for {len(occ)} val scenes with both point sets non-empty")
+                chamfer_batch_kernel = metrics_mod.chamfer_batch
+                try:  # the same metrics with the plain chamfer on the card
+                    metrics_mod.chamfer_batch = chamfer_batch_plain
+                    plain_metrics = get_metrics_for_retrieval(nn1, ds_val, device=dev)
+                finally:
+                    metrics_mod.chamfer_batch = chamfer_batch_kernel
+                for got, want in zip(outs["evaluate"], plain_metrics):
+                    check(np.isfinite(got) and abs(got - want) <= 1e-6 * abs(want),
+                          f"retrieval evaluate: metrics {outs['evaluate']} against "
+                          f"{plain_metrics} with the plain chamfer")
+                log(f"retrieval evaluate: metrics equal the plain chamfer's within 1e-6 "
+                    f"relative ({plain_metrics})")
+            finally:
+                os.chdir(cwd)
+        results["retrieval"] = retrieval
+
+        # 8) the chamfer kernel against its plain version at the evaluate shape
+        # (B = 1 per val scene) and at a batched shape
+        cap = max(CHAMFER_CAPACITY, -(-max(int(x.sum()) for pair in occ for x in pair)
+                                      // CHAMFER_CAPACITY) * CHAMFER_CAPACITY)
+
+        def point_args(pairs, capacity):
+            """(target buffers, counts, 1-NN buffers, counts) of B pairs."""
+            cols = list(zip(*[occupancy_to_point_buffer(x, capacity) for pair in pairs
+                              for x in pair]))
+            bufs, counts = torch.stack(cols[0]), torch.tensor(cols[1], dtype=torch.int32,
+                                                              device=dev)
+            return [bufs[0::2].contiguous(), counts[0::2].contiguous(),
+                    bufs[1::2].contiguous(), counts[1::2].contiguous()]
+
+        eval_args = [point_args([pair], cap) for pair in occ]
+        err = hold_chamfer(f"evaluate shape (B=1, cap {cap})", eval_args)
+        cham_bound = chamfer_bound(eval_args)
+        shells = [synthetic_df(rng, CHAMFER_PAIRS, 64, rcfg["dataset_val"]["voxel_size_target"],
+                               dev) <= thr for _ in range(2)]
+        shells[1][0] = False  # one pair with an empty set
+        batch_args = point_args(list(zip(*shells)), CHAMFER_CAPACITY)
+        err = max(err, hold_chamfer(f"batched (B={CHAMFER_PAIRS}, cap {CHAMFER_CAPACITY})",
+                                    [batch_args]))
+        batch_bound = chamfer_bound([batch_args])
+        n_eval = len(eval_args)
+        kernels["chamfer"] = dict(
+            name="chamfer", route="cuda", source="retrieval_fuse_tpu_torch/csrc/chamfer.cu",
+            replaces="retrieval_fuse_tpu/ops/pallas_chamfer.py:21", max_abs_err=err,
+            ms=cuda_ms(lambda: [chamfer_minima(*a) for a in eval_args], 5) / n_eval,
+            plain_ms=cuda_ms(lambda: [chamfer_minima_plain(*a) for a in eval_args], 2) / n_eval,
+            library_ms=None, bound_ms=cham_bound[0] / n_eval, bound_by=cham_bound[1],
+            batch_ms=cuda_ms(lambda: chamfer_minima(*batch_args), 5),
+            batch_plain_ms=cuda_ms(lambda: chamfer_minima_plain(*batch_args), 1),
+            batch_bound_ms=batch_bound[0], batch_bound_by=batch_bound[1],
+            shape=f"{n_eval} val scenes, B=1, cap {cap}; batched B={CHAMFER_PAIRS}, "
+                  f"cap {CHAMFER_CAPACITY}; f32 voxel coordinates")
+        kr = kernels["chamfer"]
+        log(f"chamfer: kernel {kr['ms']:.3f} ms per evaluate call, plain {kr['plain_ms']:.3f} "
+            f"ms, library none, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}: "
+            f"{CHAMFER_OPS_PER_PAIR} float32 operations per valid point pair at 67 TFLOP/s, "
+            f"bytes at 3.35 TB/s); batched "
+            f"B={CHAMFER_PAIRS}: kernel {kr['batch_ms']:.3f} ms, plain "
+            f"{kr['batch_plain_ms']:.3f} ms, bound {kr['batch_bound_ms']:.3f} ms "
+            f"({kr['batch_bound_by']}) [{card}]")
         for key in kernels:
             kernels[key]["launches"] = launches[key]
         results["kernels"] = kernels

@@ -4,18 +4,26 @@ A second package beside the JAX reference `retrieval_fuse_tpu`, with the
 same module names so each counterpart is easy to find:
 
   device.py      device resolution: CUDA unless the CPU is asked for
-  models/        patch encoder, 3D U-Net, refinement stacks, attention
+  config/        YAML configs (the JAX package's tree, read as data)
+  data/          scene handler, patched dataset, batch loader, synthetic data
+  models/        patch encoders (MLP, conv), 3D U-Net, refinement stacks,
+                 attention
   ops/           fold/unfold, kNN selection, the coarse-grid decoders and
-                 backbone, and the six hand-written Hopper kernels (topk,
-                 streaming_knn, three patch attentions, decoder_tail) with
-                 their plain PyTorch versions
+                 backbone, chamfer, and the seven hand-written Hopper
+                 kernels (topk, streaming_knn, three patch attentions,
+                 decoder_tail, streaming_chamfer) with their plain PyTorch
+                 versions
   csrc/          the kernels' CUDA sources
-  utils/         flax-params -> state_dict weight bridge
+  retrieval/     dictionary, kNN mapping, compose, and the retrieval CLI
+  evaluation/    IoU, Chamfer, precision and recall over occupancy grids
+  train/         the checkpoint layout; get_metrics_for_retrieval
+  utils/         flax-params -> state_dict weight bridge, paths, timer
   inference.py   RetrieveRefineEngine (the serving path)
   serve.py       directory-of-chunks serving loop
 
-It imports torch and numpy only. Entry points run on the card unless the
-caller passes device="cpu"; without CUDA they raise instead of falling back.
+It imports torch and numpy only (and PyYAML inside config.read_config).
+Entry points run on the card unless the caller passes device="cpu"; without
+CUDA they raise instead of falling back.
 Layouts at public functions are channels-last (B, D, H, W, C), as in JAX.
 """
 

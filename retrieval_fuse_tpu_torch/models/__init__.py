@@ -8,24 +8,37 @@ import torch
 from torch import nn
 
 from retrieval_fuse_tpu_torch.models.encoders import (
-    make_encoder, INPUT_CODE_TO_ENCODER, MLPPatchEncoder)
+    make_encoder, INPUT_CODE_TO_ENCODER, TARGET_CODE_TO_ENCODER, ConvPatchEncoder,
+    MLPPatchEncoder)
 from retrieval_fuse_tpu_torch.models.refinement import (
     Superresolution08UNetBackbone, Superresolution08FinalDecoder, RetrievalUNetBackbone)
 from retrieval_fuse_tpu_torch.models.attention import AttentionBlock, PatchedAttentionBlock
 
 __all__ = [
-    "MLPPatchEncoder", "AttentionBlock", "PatchedAttentionBlock",
+    "ConvPatchEncoder", "MLPPatchEncoder", "AttentionBlock", "PatchedAttentionBlock",
     "Superresolution08UNetBackbone", "Superresolution08FinalDecoder",
-    "RetrievalUNetBackbone", "get_input_encoder", "get_unet_backbone",
-    "get_decoder", "get_retrieval_backbone", "get_attention_block",
-    "build_modules", "init_params",
+    "RetrievalUNetBackbone", "get_retrieval_networks", "get_input_encoder",
+    "get_unet_backbone", "get_decoder", "get_retrieval_backbone", "get_attention_block",
+    "build_modules", "init_module_params", "init_params",
 ]
 
 
+def get_retrieval_networks(model_config: dict):
+    """(fenc_input, fenc_target) from the network codes; None for a code
+    with no encoder."""
+    fenc_input = fenc_target = None
+    code_in, code_tgt = model_config["network_input"], model_config["network_target"]
+    if code_in in INPUT_CODE_TO_ENCODER:
+        fenc_input = make_encoder(INPUT_CODE_TO_ENCODER[code_in],
+                                  model_config["nf_input"], model_config["latent_dim"])
+    if code_tgt in TARGET_CODE_TO_ENCODER:
+        fenc_target = make_encoder(TARGET_CODE_TO_ENCODER[code_tgt],
+                                   model_config["nf_target"], model_config["latent_dim"])
+    return fenc_input, fenc_target
+
+
 def get_input_encoder(model_config: dict) -> nn.Module:
-    """The query-side patch encoder for `network_input` (the JAX
-    get_retrieval_networks' first result; the target encoder is a conv
-    encoder and is not ported yet)."""
+    """The query-side patch encoder for `network_input`."""
     return make_encoder(INPUT_CODE_TO_ENCODER[model_config["network_input"]],
                         model_config["nf_input"], model_config["latent_dim"])
 
@@ -83,16 +96,20 @@ def init_params(config: dict, seed: int) -> dict[str, dict[str, torch.Tensor]]:
     (PyTorch's default law), GroupNorm weight 1 and bias 0, the attention
     switch parameters at their initial values."""
     rng = np.random.default_rng(seed)
-    params = {}
-    for name, module in build_modules(config).items():
-        sd = module.state_dict()
-        for mod_name, mod in module.named_modules():
-            if isinstance(mod, (nn.Conv3d, nn.Linear)):
-                bound = 1.0 / np.sqrt(mod.weight[0].numel())
-                for p in ("weight", "bias"):
-                    key = f"{mod_name}.{p}"
-                    if key in sd:
-                        sd[key] = torch.from_numpy(rng.uniform(
-                            -bound, bound, tuple(sd[key].shape)).astype(np.float32))
-        params[name] = sd
-    return params
+    return {name: init_module_params(module, rng)
+            for name, module in build_modules(config).items()}
+
+
+def init_module_params(module: nn.Module, rng: np.random.Generator) -> dict[str, torch.Tensor]:
+    """A random state_dict for `module`: conv and linear weights and biases
+    U(-1/√fan_in, 1/√fan_in) drawn from `rng`, everything else as built."""
+    sd = module.state_dict()
+    for mod_name, mod in module.named_modules():
+        if isinstance(mod, (nn.Conv3d, nn.Linear)):
+            bound = 1.0 / np.sqrt(mod.weight[0].numel())
+            for p in ("weight", "bias"):
+                key = f"{mod_name}.{p}"
+                if key in sd:
+                    sd[key] = torch.from_numpy(rng.uniform(
+                        -bound, bound, tuple(sd[key].shape)).astype(np.float32))
+    return sd

@@ -1,12 +1,17 @@
 """Retrieval patch encoders, as in the JAX package's models/encoders.py.
 
-Ported: the MLP encoders (Patch04 is the serving path's query encoder,
-network code "2+1"). The conv encoders (Patch32 and the rest of CONV_SPECS)
-build the database offline and are not ported yet.
+Ported: the MLP encoders (Patch04 is the query encoder, network code
+"2+1") and the conv encoders of CONV_SPECS (Patch32, code "16+8", encodes
+the target patches into the dictionary): valid-padding conv stacks with
+LeakyReLU(0.2) and a final Linear to the latent width. The BatchNorm
+variants (PatchNorm*) are not ported yet.
 
-Layout is channels-last: input (B, D, H, W, 1), flattened in that order, so
-flax Dense kernels transpose straight into nn.Linear weights; output
-(B, 1, 1, 1, z).
+Layout is channels-last: input (B, D, H, W, 1), output (B, 1, 1, 1, z).
+The MLP flattens its input in that order, and the conv stack's final map
+is flattened channels-last too, so flax Dense kernels transpose straight
+into nn.Linear weights (utils/flax_import.py). The conv stacks run
+channels-first inside (nn.Conv3d), whose weights are flax's conv kernels
+transposed.
 """
 
 from __future__ import annotations
@@ -17,6 +22,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+# (channel multiplier of nf, kernel, stride) per conv layer
+CONV_SPECS: dict[str, tuple[tuple[int, int, int], ...]] = {
+    "Patch32": ((1, 5, 1), (2, 3, 1), (4, 3, 2), (8, 3, 1), (8, 3, 2), (8, 4, 1)),  # 32³
+    "Patch08": ((1, 3, 1), (4, 3, 1), (4, 3, 1), (8, 2, 1)),  # 8³
+    "Patch16": ((1, 3, 1), (2, 3, 1), (2, 3, 1), (4, 3, 1), (4, 3, 1), (8, 3, 1), (8, 4, 1)),
+    "Patch24": ((1, 5, 1), (2, 3, 1), (2, 3, 2), (4, 3, 1), (8, 3, 1), (8, 3, 1), (8, 2, 1)),
+    "Patch24V2": ((1, 3, 1), (2, 3, 1), (2, 3, 2), (4, 3, 1), (8, 3, 1), (8, 3, 1), (8, 3, 1)),
+    "Patch12": ((1, 3, 1), (2, 3, 1), (4, 3, 1), (4, 3, 1), (8, 3, 1), (8, 2, 1)),
+    "PCPatch32": ((1, 3, 1), (2, 3, 1), (4, 3, 2), (4, 3, 1), (8, 3, 2), (8, 3, 1), (8, 3, 1)),
+    "PCPatch48": ((1, 5, 1), (2, 3, 1), (4, 3, 2), (4, 3, 2), (8, 3, 2), (8, 3, 1), (8, 2, 1)),
+    "PCPatch64": ((1, 5, 1), (2, 3, 1), (4, 3, 2), (4, 3, 2), (8, 3, 2), (8, 3, 1), (8, 4, 1)),
+}
+
 MLP_SPECS: dict[str, tuple[int, tuple[int, ...]]] = {
     # (flat input size, hidden multipliers of nf)
     "Patch04": (4 ** 3, (4, 8, 16, 8)),
@@ -24,6 +42,7 @@ MLP_SPECS: dict[str, tuple[int, tuple[int, ...]]] = {
     "Patch04V2": (4 ** 3, (4, 8, 16, 16, 8)),
 }
 
+# network code ("<patch_size>+<context>") -> encoder class name
 INPUT_CODE_TO_ENCODER = {
     "2+1": "Patch04",
     "2+1V2": "Patch04V2",
@@ -34,6 +53,40 @@ INPUT_CODE_TO_ENCODER = {
     "pc_32+8": "PCPatch48",
     "pc_32+16": "PCPatch64",
 }
+
+TARGET_CODE_TO_ENCODER = {
+    "pc_32+16": "PCPatch64",
+    "8+2": "Patch12",
+    "8+4": "Patch16",
+    "16+4": "Patch24",
+    "16+4V2": "Patch24V2",
+    "16+8": "Patch32",
+    "16+8N": "PatchNorm32",
+}
+
+
+class ConvPatchEncoder(nn.Module):
+    """Valid-padding conv stack + LeakyReLU(0.2) + final Linear -> latent.
+    Each spec collapses its patch size to a 1³ map, so the Linear reads the
+    last conv's channels."""
+
+    def __init__(self, nf: int, z_dim: int, spec: Sequence[tuple[int, int, int]]):
+        super().__init__()
+        self.z_dim = z_dim
+        self.n_conv = len(spec)
+        in_ch = 1
+        for i, (mult, k, s) in enumerate(spec):
+            self.add_module(f"conv{i}", nn.Conv3d(in_ch, nf * mult, k, stride=s))
+            in_ch = nf * mult
+        self.final_layer = nn.Linear(in_ch, z_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        x = x.permute(0, 4, 1, 2, 3)
+        for i in range(self.n_conv):
+            x = F.leaky_relu(getattr(self, f"conv{i}")(x), negative_slope=0.2)
+        x = x.permute(0, 2, 3, 4, 1).reshape(b, -1)  # flax's channels-last flatten
+        return self.final_layer(x).reshape(b, 1, 1, 1, self.z_dim)
 
 
 class MLPPatchEncoder(nn.Module):
@@ -59,9 +112,11 @@ class MLPPatchEncoder(nn.Module):
 
 def make_encoder(name: str, nf: int, z_dim: int) -> nn.Module:
     """Instantiate an encoder by its reference class name."""
-    if name not in MLP_SPECS:
-        raise NotImplementedError(
-            f"encoder {name!r}: only the MLP encoders are ported "
-            "(conv encoders: ROADMAP Queue 1 item 3)")
-    in_size, hidden = MLP_SPECS[name]
-    return MLPPatchEncoder(nf, z_dim, in_size, hidden)
+    if name in MLP_SPECS:
+        in_size, hidden = MLP_SPECS[name]
+        return MLPPatchEncoder(nf, z_dim, in_size, hidden)
+    if name in CONV_SPECS:
+        return ConvPatchEncoder(nf, z_dim, CONV_SPECS[name])
+    raise NotImplementedError(
+        f"encoder {name!r}: the BatchNorm encoders are not ported yet "
+        "(ROADMAP Queue 1 item 3.3)")

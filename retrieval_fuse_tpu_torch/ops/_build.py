@@ -55,6 +55,7 @@ KERNELS = {
                         [_i, _p, _p, _i, _i, _p, _p, _p, _p, _i, _f, _p, _p, _p]),
     "decoder_tail": ("decoder_tail.cu", "rf_decoder_tail",
                      [_i, _p, _p, _p, _f, _i, _i, _i, _p, _p]),
+    "chamfer": ("chamfer.cu", "rf_chamfer", [_p, _p, _p, _p, _p, _p, _i, _i, _i, _p]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

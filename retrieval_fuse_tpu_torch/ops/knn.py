@@ -67,3 +67,14 @@ def auto_exact_knn(queries: torch.Tensor, database: torch.Tensor, k: int,
         from retrieval_fuse_tpu_torch.ops.streaming_knn import streaming_knn
         return streaming_knn(queries, database, k)
     return exact_knn(queries, database, k)
+
+
+def demote_same_scene(top_idx: torch.Tensor, sq_dists: torch.Tensor, db_scene_ids: torch.Tensor,
+                      query_scene_ids: torch.Tensor, k: int):
+    """Move hits from the query's own scene behind all other hits, keeping
+    the order within each group (a stable sort on the same-scene flag, so
+    ties keep distance order), then keep the first k."""
+    is_same = db_scene_ids[top_idx.long()] == query_scene_ids[:, None]
+    order = torch.argsort(is_same.to(torch.int32), dim=1, stable=True)
+    return (torch.take_along_dim(top_idx, order, dim=1)[:, :k],
+            torch.take_along_dim(sq_dists, order, dim=1)[:, :k])

@@ -1,4 +1,4 @@
-"""The port's six CUDA kernels against their plain PyTorch versions, on a
+"""The port's seven CUDA kernels against their plain PyTorch versions, on a
 CUDA card (skipped elsewhere: the kernels have no CPU mode). This file imports
 neither JAX nor the JAX package, so it runs where only PyTorch is:
 
@@ -15,6 +15,9 @@ import torch
 from retrieval_fuse_tpu_torch.models.attention import AttentionFeatureEncoder
 from retrieval_fuse_tpu_torch.ops import decoder_tail as dt
 from retrieval_fuse_tpu_torch.ops import patch_attention as pa
+from retrieval_fuse_tpu_torch.ops.chamfer import chamfer_batch, chamfer_batch_plain
+from retrieval_fuse_tpu_torch.ops.streaming_chamfer import (
+    BIG, chamfer_minima, chamfer_minima_plain)
 from retrieval_fuse_tpu_torch.ops.streaming_knn import streaming_knn_sims, streaming_knn_sims_plain
 from retrieval_fuse_tpu_torch.ops.topk import topk, topk_plain
 
@@ -194,3 +197,48 @@ def test_decoder_tail_kernel_matches_plain(cuda, nf, s, dtype):
     # bf16: the ReLU output is rounded before the head, so sums taken in
     # another order may round to the neighbouring bf16 value
     assert float((out - want).abs().max()) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["voxel", "float"])
+def test_chamfer_kernel_matches_plain(cuda, integer):
+    """B > 1 pairs, ragged counts, capacities that are no multiple of the
+    kernel's tiles, one set empty in two pairs and both in one. On voxel
+    coordinates the minima are bit-equal (every term an exact integer)."""
+    rng = np.random.default_rng(15)
+    counts = [(1300, 517), (1, 2), (0, 40), (600, 0), (0, 0), (1301, 1999)]
+    cap_a, cap_b = 1301, 2000
+    a = np.zeros((len(counts), cap_a, 3), np.float32)
+    b = np.zeros((len(counts), cap_b, 3), np.float32)
+    for i, (na, nb) in enumerate(counts):
+        for buf, n in ((a, na), (b, nb)):
+            buf[i, :n] = rng.integers(0, 64, (n, 3)) if integer else rng.standard_normal((n, 3))
+    n_a = torch.tensor([c[0] for c in counts], dtype=torch.int32)
+    n_b = torch.tensor([c[1] for c in counts], dtype=torch.int32)
+    args = [torch.from_numpy(a).to(cuda), n_a.to(cuda), torch.from_numpy(b).to(cuda),
+            n_b.to(cuda)]
+    before = chamfer_minima.launches
+    min_ab, min_ba = chamfer_minima(*args)
+    torch.cuda.synchronize()
+    assert chamfer_minima.launches == before + 1
+    want_ab, want_ba = chamfer_minima_plain(*args)
+    assert torch.equal(min_ab == BIG, want_ab == BIG) and torch.equal(min_ba == BIG, want_ba == BIG)
+    if integer:
+        assert torch.equal(min_ab, want_ab) and torch.equal(min_ba, want_ba)
+    else:
+        torch.testing.assert_close(min_ab, want_ab, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(min_ba, want_ba, rtol=1e-5, atol=1e-5)
+    got, want = chamfer_batch(*args), chamfer_batch_plain(*args)
+    assert chamfer_minima.launches == before + 2
+    torch.testing.assert_close(got, want, rtol=1e-6 if integer else 1e-5, atol=0)
+    assert float(got[4]) == 0.0 and float(got[2]) == pytest.approx(1e30, rel=1e-5)
+
+
+def test_chamfer_kernel_rejects_what_it_does_not_take(cuda):
+    pts = torch.zeros((2, 8, 3), device=cuda)
+    n = torch.tensor([3, 4], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        chamfer_minima(pts, n.long(), pts, n)
+    with pytest.raises(ValueError, match="float32"):
+        chamfer_minima(pts.double(), n, pts, n)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        chamfer_minima(pts, n.cpu(), pts, n)

@@ -158,14 +158,17 @@ def test_seeded_params_are_reproducible():
 
 
 def test_package_imports_without_jax():
-    """With jax and flax blocked, every port module imports, and no module
-    of the JAX package is loaded."""
+    """With jax, flax and PyYAML blocked, every port module imports, and no
+    module of the JAX package is loaded."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
+        "sys.modules['yaml'] = None\n"
         "import retrieval_fuse_tpu_torch.inference, retrieval_fuse_tpu_torch.serve\n"
         "import retrieval_fuse_tpu_torch.utils.flax_import, retrieval_fuse_tpu_torch.ops._build\n"
+        "import retrieval_fuse_tpu_torch.retrieval.cli, retrieval_fuse_tpu_torch.data.synthetic\n"
+        "import retrieval_fuse_tpu_torch.evaluation.metrics, retrieval_fuse_tpu_torch.config\n"
         "bad = [m for m in sys.modules if m == 'retrieval_fuse_tpu'"
         " or m.startswith('retrieval_fuse_tpu.')]\n"
         "assert not bad, bad\n"
