@@ -10,8 +10,10 @@ from --seed; data are distance fields of random spheres and boxes, as the
 JAX package's synthetic scenes), holds each of six kernels against its
 plain PyTorch version at the serving shapes (float32, the algorithm check,
 and bf16), times kernel, plain version, a library call where one exists and
-the bound, then drives the serving paths, each with the kernel launch
-counts set to 0 just before and read just after:
+the bound, records which instruction path each attention and decoder-tail
+launch took (bf16 on the tensor cores, float32 on FMAs), then drives the
+serving paths, each with the kernel launch counts set to 0 just before and
+read just after:
   - serve_directory with the shipped variant (FAST_VARIANT, bf16) at batch
     64 (dense kNN + the topk kernel) and batch 128 (the streaming kNN
     kernel), and with `fused+pallasp+topk1p+cdec` at batch 128;
@@ -67,6 +69,10 @@ RETRIEVAL_VAL_CHUNKS = 64
 MAP_SAMPLE = 2048       # train queries checked against a dense search
 CHAMFER_PAIRS = 128     # the chamfer kernel's batched check
 CHAMFER_CAPACITY = 16384
+#: engine ms per batch-128 call in bf16 while the decoder tail and the attention
+#: body still multiplied bf16 on float32 FMAs (NVIDIA H100 80GB HBM3, 700.00 W),
+#: printed beside this run's
+FMA_BODY_ENGINE_MS = {"fused+pallasg2+topk1p": 53.80, CDEC_VARIANT: 69.09}
 #: the engine's other serving paths, each run at STREAM_BATCH -> the kernels
 #: it must launch there (the streaming kNN kernel is auto-selected at Q=8192)
 VARIANT_PATHS = {
@@ -283,12 +289,16 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def hold_attention(label: str, kernel, plain, args32: tuple, args16: tuple) -> tuple[float, float]:
+def hold_attention(label: str, kernel, plain, args32: tuple, args16: tuple,
+                   math16: str) -> tuple[float, float]:
     """An attention kernel against its plain version: float32 (selections
     agree on >= 99.9% of rows, max |diff| <= 1e-4 on them) and bf16
-    (selections agree on >= 99%). Returns (float32 max |diff|, bf16 share)."""
+    (selections agree on >= 99%); the float32 launch must report the FMA
+    path and the bf16 launch the path `math16`. Returns (float32 max |diff|,
+    bf16 share)."""
     import torch
     out, sel = kernel(*args32, return_selection=True)
+    check(kernel.math == "fma.f32", f"{label} f32: launch took {kernel.math}")
     want, want_sel = plain(*args32)
     torch.cuda.synchronize()
     agree = sel.long() == want_sel
@@ -300,12 +310,13 @@ def hold_attention(label: str, kernel, plain, args32: tuple, args16: tuple) -> t
     log(f"{label} f32: selections agree on {share:.5%} of rows, max |diff| {err:.2e} on "
         f"them; switch open on {switch_open:.1%} of rows")
     out16, sel16 = kernel(*args16, return_selection=True)
+    check(kernel.math == math16, f"{label} bf16: launch took {kernel.math}, not {math16}")
     want16, want_sel16 = plain(*args16)
     agree16 = sel16.long() == want_sel16
     share16 = float(agree16.float().mean())
     diff16 = (out16.float() - want16.float()).abs()[agree16]
     check(share16 >= 0.99, f"{label} bf16: selections agree on {share16}")
-    log(f"{label} bf16: selections agree on {share16:.5%} of rows, "
+    log(f"{label} bf16 [{math16}]: selections agree on {share16:.5%} of rows, "
         f"max |diff| {float(diff16.max()):.2e}, mean {float(diff16.mean()):.2e}")
     return err, share16
 
@@ -598,10 +609,10 @@ def main(argv=None) -> int:
                 f"gathered attention Q={q}", pa.gathered_patch_attention,
                 pa.gathered_patch_attention_plain,
                 (xt32, bank32, top_idx, theta32, phi32, k),
-                (xt16, bank16, top_idx, att.theta, att.phi, k))
+                (xt16, bank16, top_idx, att.theta, att.phi, k), "mma.bf16")
             args16 = (xt16, bank16, top_idx, att.theta, att.phi, k)
             kernels["attention"] = dict(
-                name="gathered_patch_attention", route="cuda",
+                name="gathered_patch_attention", route="cuda", math="mma.bf16",
                 source="retrieval_fuse_tpu_torch/csrc/gathered_attention.cu",
                 replaces="retrieval_fuse_tpu/ops/pallas_attention.py:249", max_abs_err=err,
                 ms=cuda_ms(lambda: pa.gathered_patch_attention(*args16), 5),
@@ -615,9 +626,9 @@ def main(argv=None) -> int:
             err, share16 = hold_attention(
                 f"gathered attention v1 Q={q}", pa.gathered_patch_attention_v1,
                 pa.gathered_patch_attention_v1_plain,
-                (xt32, bank32, top_idx, theta32, phi32, k), args16)
+                (xt32, bank32, top_idx, theta32, phi32, k), args16, "fma.f32")
             kernels["attention_v1"] = dict(
-                name="gathered_patch_attention_v1", route="cuda",
+                name="gathered_patch_attention_v1", route="cuda", math="fma.f32",
                 source="retrieval_fuse_tpu_torch/csrc/gathered_attention_v1.cu",
                 replaces="retrieval_fuse_tpu/ops/pallas_attention.py:151", max_abs_err=err,
                 ms=cuda_ms(lambda: pa.gathered_patch_attention_v1(*args16), 5),
@@ -635,10 +646,10 @@ def main(argv=None) -> int:
             err, share16 = hold_attention(
                 f"patch attention N={n_rows}", pa.patch_attention, pa.patch_attention_plain,
                 (x16.float(), p16.float(), theta32, phi32, k),
-                (x16, p16, att.theta, att.phi, k))
+                (x16, p16, att.theta, att.phi, k), "mma.bf16")
             pargs16 = (x16, p16, att.theta, att.phi, k)
             kernels["patch_attention"] = dict(
-                name="patch_attention", route="cuda",
+                name="patch_attention", route="cuda", math="mma.bf16",
                 source="retrieval_fuse_tpu_torch/csrc/patch_attention.cu",
                 replaces="retrieval_fuse_tpu/ops/pallas_attention.py:46", max_abs_err=err,
                 ms=cuda_ms(lambda: pa.patch_attention(*pargs16), 5),
@@ -662,14 +673,17 @@ def main(argv=None) -> int:
             for tag in ("f32", "bf16"):
                 d = cdec[tag]
                 got = dt.decoder_tail(hn[tag], d.w2_dhwio, d.w_final, d.bias_h)
+                math = {"f32": "fma.f32", "bf16": "mma.bf16"}[tag]
+                check(dt.decoder_tail.math == math,
+                      f"decoder tail {tag}: launch took {dt.decoder_tail.math}, not {math}")
                 want = dt.decoder_tail_plain(hn[tag], d.w2_dhwio, d.w_final, d.bias_h)
                 torch.cuda.synchronize()
                 diff = (got - want).abs()
                 errs[tag] = float(diff.max())
                 check(errs[tag] <= (1e-4 if tag == "f32" else 1e-2),
                       f"decoder tail {tag}: max |diff| {errs[tag]}")
-                log(f"decoder tail {tag} B={STREAM_BATCH} S={hn[tag].shape[1] - 2}: max |diff| "
-                    f"{errs[tag]:.2e}, mean {float(diff.mean()):.2e}")
+                log(f"decoder tail {tag} [{math}] B={STREAM_BATCH} S={hn[tag].shape[1] - 2}: "
+                    f"max |diff| {errs[tag]:.2e}, mean {float(diff.mean()):.2e}")
             d, h16 = cdec["bf16"], hn["bf16"]
             b_, s2 = h16.shape[0], 2 * (h16.shape[1] - 2)
             nf = cfg["nf"]
@@ -681,7 +695,7 @@ def main(argv=None) -> int:
             tail_bound = bound(h16.numel() * 2 + b_ * s2 ** 3 * 4,
                                b_ * s2 ** 3 * (27 * nf * nf * 2 + 2 * nf), BF16_FLOPS)
             kernels["decoder_tail"] = dict(
-                name="decoder_tail", route="cuda",
+                name="decoder_tail", route="cuda", math="mma.bf16",
                 source="retrieval_fuse_tpu_torch/csrc/decoder_tail.cu",
                 replaces="retrieval_fuse_tpu/ops/pallas_decoder.py:94", max_abs_err=errs["f32"],
                 ms=cuda_ms(lambda: dt.decoder_tail(*dargs), 5),
@@ -695,7 +709,8 @@ def main(argv=None) -> int:
             del hn, h2x
         for kr in kernels.values():
             lib_ms = "none" if kr["library_ms"] is None else f"{kr['library_ms']:.3f} ms"
-            log(f"{kr['name']}: kernel {kr['ms']:.3f} ms, plain {kr['plain_ms']:.3f} ms, "
+            math = f" [{kr['math']}]" if "math" in kr else ""
+            log(f"{kr['name']}{math}: kernel {kr['ms']:.3f} ms, plain {kr['plain_ms']:.3f} ms, "
                 f"library {lib_ms}, bound {kr['bound_ms']:.3f} ms ({kr['bound_by']}) "
                 f"[{kr['shape']}; {card}]")
 
@@ -758,9 +773,14 @@ def main(argv=None) -> int:
                 if variant == FAST_VARIANT:
                     rec.update(tsdf_check(variant, xb))
                 serving[f"{variant}@{batch}"] = rec
+                was = ""
+                if batch == STREAM_BATCH and variant in FMA_BODY_ENGINE_MS:
+                    rec["fma_body_engine_ms"] = FMA_BODY_ENGINE_MS[variant]
+                    was = (f" ({FMA_BODY_ENGINE_MS[variant]:.2f} ms with the float32-FMA "
+                           f"tail and attention body)")
                 log(f"serve {variant} batch {batch}: {len(done)} chunks, "
                     f"{len(done) / wall:.1f} chunks/s through serve_directory (npz I/O "
-                    f"included), engine {engine_ms:.2f} ms/batch = "
+                    f"included), engine {engine_ms:.2f} ms/batch{was} = "
                     f"{batch / (engine_ms / 1e3):.1f} chunks/s; launches {counts} [{card}]")
         results["serving"] = serving
 
@@ -917,7 +937,9 @@ def main(argv=None) -> int:
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(results, indent=1, default=str))
-    log(json.dumps({"kernels": [{k_: kr[k_] for k_ in keys} for kr in kernels.values()]}))
+    # every record has `keys`; "math" where the kernel has two instruction paths
+    log(json.dumps({"kernels": [{k_: kr[k_] for k_ in (*keys, *(("math",) if "math" in kr else ()))}
+                                for kr in kernels.values()]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

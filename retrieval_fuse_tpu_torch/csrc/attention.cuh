@@ -17,16 +17,51 @@
 // activations are rounded back to bf16 between layers. Norms, scores,
 // selection and blend are float32.
 //
-// Design: one block of 256 threads per tile. The tile's rows are brought
-// into a shared-memory activation buffer (float32), and each MLP layer is a
-// shared-memory-tiled GEMM: 32-row chunks of the weight matrix (read from
-// global memory, where the 213 KB of theta + phi weights stay L2-resident)
-// are staged in shared memory and every thread accumulates a 4x8 (or 1x8)
-// register tile with float32 FMAs. theta runs once, then phi once per
-// candidate, each reusing the same two 33 KB activation buffers; only the
-// scores stay. The blend re-reads x and the selected candidates from where
-// they came from. Rows past the tile's valid count are zero in the
-// activations and are never written.
+// Two bodies compute this, chosen by a kernel from its element type.
+//
+// bf16 on the tensor cores (`attend_tiles_mma`; gathered_attention.cu and
+// patch_attention.cu): bf16 products with float32 sums are what
+// mma.sync.m16n8k16.bf16 computes, so only the order of the sums differs
+// from the plain version. The design answers what bounds the body on an
+// H100:
+//   - Weights stay in shared memory for the life of the block: theta and
+//     phi, 2 x 106,496 bytes of bf16, laid out once in the order the B
+//     fragments are read (one 16-byte load a lane for a k16 step of two n8
+//     tiles), with the 2 x 416 float32 biases. That is one block per SM, so
+//     the launch is persistent: a grid of at most the SM count, each warp
+//     walking over 16-row slices of the tiles.
+//   - The layer chain stays in registers. A warp owns 16 rows. The float32
+//     C fragments of a layer (64 registers a thread), after bias, LeakyReLU
+//     and the round to bf16, are the A fragments of the next layer's k16
+//     steps (mma.cuh), so no activation goes through shared memory.
+//   - The input rows need no staging either: a sum over k may take k in any
+//     order, so layer 0's weights are laid out for a permuted k, in which a
+//     lane's A fragments of two k16 steps are one 16-byte run of its row.
+//     A lane reads its rows from global memory with 8 16-byte loads, every
+//     32-byte sector used in full, and candidate k+1's loads are started
+//     before candidate k's MLP, so they arrive under ~400 mma.
+//   - A row's 32 embedding values lie in the four lanes of a quad: norms and
+//     scores are partial sums and two shuffles. Scores pass through 6.9 KB
+//     of shared memory to the lane that selects for a row; the blend is the
+//     float32 body's, per warp.
+//   What holds it is shared-memory reads beside the mma.sync rate: each B
+//   fragment feeds one m16 tile, so a hidden layer's 128 mma of a warp need
+//   64 16-byte loads (~2 shared-memory cycles per tensor cycle), and more
+//   warps change little (12 warps a block: 7% over 8). Measured times:
+//   PERF.md.
+//
+// float32 FMAs (`attend_tile`; the float32 launches of those two kernels,
+// and gathered_attention_v1.cu in both types): float32 on the tensor cores
+// would be TF32 (~3 decimal digits). One block of 256 threads per tile. The
+// tile's rows are brought into a shared-memory activation buffer (float32),
+// and each MLP layer is a shared-memory-tiled GEMM: 32-row chunks of the
+// weight matrix (read from global memory, where the 213 KB of theta + phi
+// weights stay L2-resident) are staged in shared memory and every thread
+// accumulates a 4x8 (or 1x8) register tile with float32 FMAs. theta runs
+// once, then phi once per candidate, each reusing the same two 33 KB
+// activation buffers; only the scores stay. The blend re-reads x and the
+// selected candidates from where they came from. Rows past the tile's valid
+// count are zero in the activations and are never written.
 
 #pragma once
 
@@ -35,6 +70,8 @@
 
 #include <cmath>
 #include <cstdint>
+
+#include "mma.cuh"
 
 namespace rf_attention {
 
@@ -101,6 +138,8 @@ struct BankRows {
     return bank + static_cast<size_t>(idx[k]) * kT * kF;
   }
 };
+
+// ---- float32 FMAs ----
 
 // rows [0, n) of a tile whose row i starts at src + i*stride -> act[i*kLd + c]
 // as float32; rows [n, kT) are zero
@@ -297,18 +336,324 @@ __device__ __forceinline__ void attend_tile(const Rows& r, float* smem,
   }
 }
 
+// ---- bf16 on the tensor cores ----
+
+// threads of a persistent block: 12 warps, three on each scheduler (measured
+// on an H100: 8 warps 1.26 ms, 10 1.31, 12 1.17, 16 with 128 registers 1.38).
+// tools/torch_port_kernel_probe.py builds other sizes with
+// -DRF_PROBE_ATTN_THREADS=n.
+#ifndef RF_PROBE_ATTN_THREADS
+#define RF_PROBE_ATTN_THREADS 384
+#endif
+constexpr int kMmaThreads = RF_PROBE_ATTN_THREADS;
+static_assert(kMmaThreads % 32 == 0 && kMmaThreads >= 32 && kMmaThreads <= 1024, "whole warps");
+constexpr int kWarps = kMmaThreads / 32;
+constexpr int kSlice = 16;                   // rows per warp: one m16 tile
+constexpr int kSlicesPerTile = kT / kSlice;
+constexpr int kLayerWords = kH * kH / 2;     // 32-bit words of a hidden layer's fragments
+constexpr int kMlpWords = kW3 / 2 + kH * kC / 2;
+constexpr int kBiases = 3 * kH + kC;
+constexpr int kScoreLd = kMaxK + 1;          // a row's K scores (then weights) and its switch
+constexpr size_t kMmaSmemBytes = 2 * kMlpWords * sizeof(uint32_t) + 2 * kBiases * sizeof(float)
+                                 + kWarps * kSlice * kScoreLd * sizeof(float);
+static_assert(kMmaSmemBytes <= 232448, "theta and phi resident in one block's shared memory");
+static_assert(kF == 128 && kH == 128 && kC == 32, "the fragment layouts below");
+
+// One MLP's packed weights ((in, out) row-major per layer) -> B-fragment
+// order. Word r of (layer, k16 step s, n8-tile pair jp, lane) holds
+// W[k, k+1][n] with n = 8·(2jp + r/2) + g and, in the standard order,
+// k = 16s + 8·(r&1) + 2t. Layer 0 takes the k permutation of `load_rows16`:
+// k = 32·(s/2) + 8t + 4·(s&1) + 2·(r&1).
+__device__ __forceinline__ void stage_fragments(const __nv_bfloat16* __restrict__ w,
+                                                uint32_t* dst) {
+  for (int i = threadIdx.x; i < kMlpWords; i += kMmaThreads) {
+    const int layer = min(i / kLayerWords, 3), rem = i - layer * kLayerWords;
+    const int nout = layer == 3 ? kC : kH, pairs = nout / 16;
+    const int r = rem & 3, lane = (rem >> 2) & 31, sj = rem >> 7;
+    const int jp = sj % pairs, s = sj / pairs;
+    const int g = lane >> 2, t = lane & 3, u = r & 1;
+    const int n = 8 * (2 * jp + (r >> 1)) + g;
+    const int k = layer == 0 ? 32 * (s >> 1) + 8 * t + 4 * (s & 1) + 2 * u
+                             : 16 * s + 8 * u + 2 * t;
+    const __nv_bfloat16* wl = w + layer * kW1;
+    dst[i] = rf_mma::pack_bf16(wl[k * nout + n], wl[(k + 1) * nout + n]);
+  }
+}
+
+// Rows row0 + g and row0 + g + 8 of a tile (row i at src + i*stride) as the
+// A fragments of layer 0's eight k16 steps; rows at or past n are zero. Lane
+// (g, t) reads the 16-byte runs at columns 32c + 8t, c = 0..3, of its two
+// rows: elements 0-3 are its a0|a2 (row g) or a1|a3 (row g+8) of step 2c,
+// elements 4-7 those of step 2c+1.
+struct RowLoads {
+  uint4 raw[2][4];
+};
+
+__device__ __forceinline__ void load_rows16(const __nv_bfloat16* src, size_t stride, int row0,
+                                            int n, int lane, RowLoads& ld) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    const uint4* p = reinterpret_cast<const uint4*>(src + row * stride + 8 * t);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      ld.raw[h][c] = row < n ? __ldg(p + 4 * c) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+__device__ __forceinline__ void to_fragments(const RowLoads& ld, uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      a[2 * c][h] = ld.raw[h][c].x;
+      a[2 * c][2 + h] = ld.raw[h][c].y;
+      a[2 * c + 1][h] = ld.raw[h][c].z;
+      a[2 * c + 1][2 + h] = ld.raw[h][c].w;
+    }
+  }
+}
+
+// acc (16 rows x 8·NT columns) = a (16 x 128) @ W, W's fragments at `w`
+template <int NT>
+__device__ __forceinline__ void layer_mma(const uint32_t (&a)[8][4], const uint4* w, int lane,
+                                          float (&acc)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      const uint4 b = w[(s * (NT / 2) + jp) * 32 + lane];
+      rf_mma::mma_m16n8k16(acc[2 * jp], a[s], b.x, b.y);
+      rf_mma::mma_m16n8k16(acc[2 * jp + 1], a[s], b.z, b.w);
+    }
+  }
+}
+
+// The 4-layer MLP on the 16 rows in `a` (layer 0's fragments; overwritten
+// by the hidden activations). Leaves the (16, kC) float32 result in out:
+// out[j][0..1] are row g, columns 8j + 2t, +1; out[j][2..3] row g + 8.
+__device__ __forceinline__ void mlp_mma(uint32_t (&a)[8][4], const uint32_t* w,
+                                        const float* bias, int lane, float (&out)[kC / 8][4]) {
+  const int t = lane & 3;
+#pragma unroll 1
+  for (int layer = 0; layer < 3; ++layer) {
+    float acc[kH / 8][4];
+    layer_mma<kH / 8>(a, reinterpret_cast<const uint4*>(w + layer * kLayerWords), lane, acc);
+    const float* b = bias + layer * kH + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kH / 8; ++j) {
+      const float2 bj = *reinterpret_cast<const float2*>(b + 8 * j);
+      float v[4] = {acc[j][0] + bj.x, acc[j][1] + bj.y, acc[j][2] + bj.x, acc[j][3] + bj.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = v[e] >= 0.f ? v[e] : 0.01f * v[e];
+      a[j / 2][(j & 1) * 2] = rf_mma::pack_bf16(v[0], v[1]);      // row g
+      a[j / 2][(j & 1) * 2 + 1] = rf_mma::pack_bf16(v[2], v[3]);  // row g + 8
+    }
+  }
+  layer_mma<kC / 8>(a, reinterpret_cast<const uint4*>(w + 3 * kLayerWords), lane, out);
+  const float* b = bias + 3 * kH + 2 * t;
+#pragma unroll
+  for (int j = 0; j < kC / 8; ++j) {
+    const float2 bj = *reinterpret_cast<const float2*>(b + 8 * j);
+    out[j][0] += bj.x;
+    out[j][1] += bj.y;
+    out[j][2] += bj.x;
+    out[j][3] += bj.y;
+  }
+}
+
+// max(||row||, 1e-12) of rows g (h = 0) and g + 8 (h = 1) of an MLP result
+__device__ __forceinline__ float row_norm_mma(const float (&e)[kC / 8][4], int h) {
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < kC / 8; ++j) {
+    ss = fmaf(e[j][2 * h], e[j][2 * h], ss);
+    ss = fmaf(e[j][2 * h + 1], e[j][2 * h + 1], ss);
+  }
+  return fmaxf(sqrtf(rf_mma::quad_sum(ss)), 1e-12f);
+}
+
+struct MmaWeights {
+  const uint32_t* w_theta;
+  const float* b_theta;
+  const uint32_t* w_phi;
+  const float* b_phi;
+  float* scores;  // this warp's (kSlice, kScoreLd)
+};
+
+// Attention over rows [row0, row0 + 16) of the tile of row source `r`, by
+// one warp; writes its valid rows to out (rows kF apart) and, if sel_out is
+// not null, each row's argmax candidate to sel_out[i].
+template <bool kHard, typename Rows>
+__device__ __forceinline__ void attend_slice_mma(const Rows& r, int row0, const MmaWeights& m,
+                                                 float sharpness,
+                                                 __nv_bfloat16* __restrict__ out,
+                                                 int* __restrict__ sel_out) {
+  using T = __nv_bfloat16;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int K = r.K;
+  RowLoads ld;
+  uint32_t a[8][4];
+  float emb[kC / 8][4], xf[kC / 8][4];
+
+  load_rows16(r.x, kF, row0, r.n, lane, ld);
+  to_fragments(ld, a);
+  load_rows16(r.cand(0), r.stride, row0, r.n, lane, ld);  // in flight under theta
+  mlp_mma(a, m.w_theta, m.b_theta, lane, xf);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float d = row_norm_mma(xf, h);
+#pragma unroll
+    for (int j = 0; j < kC / 8; ++j) {
+      xf[j][2 * h] /= d;
+      xf[j][2 * h + 1] /= d;
+    }
+  }
+
+  for (int k = 0; k < K; ++k) {
+    to_fragments(ld, a);
+    if (k + 1 < K) load_rows16(r.cand(k + 1), r.stride, row0, r.n, lane, ld);
+    mlp_mma(a, m.w_phi, m.b_phi, lane, emb);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float d = row_norm_mma(emb, h);
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < kC / 8; ++j) {
+        s = fmaf(xf[j][2 * h], emb[j][2 * h] / d, s);
+        s = fmaf(xf[j][2 * h + 1], emb[j][2 * h + 1] / d, s);
+      }
+      s = rf_mma::quad_sum(s);
+      if (t == 0) m.scores[(g + 8 * h) * kScoreLd + k] = s;
+    }
+  }
+  __syncwarp();
+
+  // lane i selects for row i: its scores become its blend weights
+  if (lane < kSlice) {
+    float* s = m.scores + lane * kScoreLd;
+    float mx = s[0];
+    int best = 0;
+    for (int k = 1; k < K; ++k) {
+      mx = fmaxf(mx, s[k]);
+      if (s[k] * 25.f > s[best] * 25.f) best = k;  // first maximum wins
+    }
+    if (kHard) {
+      for (int k = 0; k < K; ++k) s[k] = k == best ? 1.f : 0.f;
+    } else {
+      float top = sharpness * s[0];
+      for (int k = 1; k < K; ++k) top = fmaxf(top, sharpness * s[k]);
+      float sum = 0.f;
+      for (int k = 0; k < K; ++k) {
+        const float e = expf(sharpness * s[k] - top);
+        s[k] = e;
+        sum += e;
+      }
+      for (int k = 0; k < K; ++k) s[k] /= sum;
+    }
+    s[kMaxK] = fmaxf(mx, 0.f);
+    if (sel_out != nullptr && row0 + lane < r.n) sel_out[row0 + lane] = best;
+  }
+  __syncwarp();
+
+  // blend, 16 bytes of bf16 per step, from the original rows
+  constexpr int kE = 8;
+  for (int v = lane; v < kSlice * kF / kE; v += 32) {
+    const int lrow = v / (kF / kE), row = row0 + lrow, col = v % (kF / kE) * kE;
+    if (row >= r.n) continue;
+    const float* ws = m.scores + lrow * kScoreLd;
+    const uint4 xraw = *reinterpret_cast<const uint4*>(r.x + row * kF + col);
+    const T* xv = reinterpret_cast<const T*>(&xraw);
+    float acc[kE];
+#pragma unroll
+    for (int e = 0; e < kE; ++e) acc[e] = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float wk = ws[k];
+      if (wk == 0.f) continue;  // exact: 0 * p adds nothing
+      const uint4 praw = *reinterpret_cast<const uint4*>(r.cand(k) + row * r.stride + col);
+      const T* pv = reinterpret_cast<const T*>(&praw);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) acc[e] += wk * to_f32(pv[e]);
+    }
+    const float sw = ws[kMaxK];
+    uint4 oraw;
+    T* ov = reinterpret_cast<T*>(&oraw);
+#pragma unroll
+    for (int e = 0; e < kE; ++e)
+      ov[e] = from_f32<T>(to_f32(xv[e]) * (1.f - sw) + acc[e] * sw);
+    *reinterpret_cast<uint4*>(out + row * kF + col) = oraw;
+  }
+  __syncwarp();  // the scores are free for the warp's next slice
+}
+
+// The persistent body of a bf16 kernel: stage theta's and phi's fragments
+// and biases in shared memory once, then let each warp walk over the 16-row
+// slices of tiles [0, tiles): slice blockIdx.x·kWarps + warp, then every
+// gridDim.x·kWarps-th. `tile_rows(q)` is tile q's row source; its rows go to
+// out + q·kT·kF and its selections to sel_out + q·kT.
+template <bool kHard, typename TileRows>
+__device__ __forceinline__ void attend_tiles_mma(
+    TileRows tile_rows, int tiles, unsigned char* smem, const __nv_bfloat16* __restrict__ w_theta,
+    const float* __restrict__ b_theta, const __nv_bfloat16* __restrict__ w_phi,
+    const float* __restrict__ b_phi, float sharpness, __nv_bfloat16* __restrict__ out,
+    int* __restrict__ sel_out) {
+  uint32_t* wt = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* wp = wt + kMlpWords;
+  float* bt = reinterpret_cast<float*>(wp + kMlpWords);
+  float* bp = bt + kBiases;
+  float* scores = bp + kBiases;
+  stage_fragments(w_theta, wt);
+  stage_fragments(w_phi, wp);
+  for (int i = threadIdx.x; i < kBiases; i += kMmaThreads) {
+    bt[i] = b_theta[i];
+    bp[i] = b_phi[i];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const MmaWeights m{wt, bt, wp, bp, scores + warp * kSlice * kScoreLd};
+  const long long slices = static_cast<long long>(tiles) * kSlicesPerTile;
+  for (long long s = static_cast<long long>(blockIdx.x) * kWarps + warp; s < slices;
+       s += static_cast<long long>(gridDim.x) * kWarps) {
+    const size_t q = s / kSlicesPerTile;
+    const int row0 = static_cast<int>(s % kSlicesPerTile) * kSlice;
+    const auto r = tile_rows(q);
+    if (row0 >= r.n) continue;
+    attend_slice_mma<kHard>(r, row0, m, sharpness, out + q * kT * kF,
+                            sel_out == nullptr ? nullptr : sel_out + q * kT);
+  }
+}
+
+// the persistent grid for `tiles` tiles: one block per SM, or fewer where
+// the slices do not fill them; 0 if the device cannot be asked
+inline int persistent_blocks(int tiles, cudaError_t* err) {
+  int dev = 0, sms = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*err != cudaSuccess) return 0;
+  const long long want = (static_cast<long long>(tiles) * kSlicesPerTile + kWarps - 1) / kWarps;
+  return static_cast<int>(want < sms ? want : sms);
+}
+
 struct NoWait {
   __device__ void operator()() const {}
 };
 
 // A kernel's launch: raise the dynamic shared-memory limit to `smem`, launch
-// q blocks of kThreads on `stream`, return the cudaError_t as an int.
+// `blocks` blocks of `threads` on `stream`, return the cudaError_t as an int.
 template <typename Kernel, typename... Args>
-int launch_blocks(Kernel kernel, int blocks, size_t smem, cudaStream_t stream, Args... args) {
+int launch_blocks(Kernel kernel, int blocks, int threads, size_t smem, cudaStream_t stream,
+                  Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, kThreads, smem, stream>>>(args...);
+  kernel<<<blocks, threads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 

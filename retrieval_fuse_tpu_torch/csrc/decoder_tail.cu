@@ -15,30 +15,65 @@
 // head, as in the JAX kernel (pallas_decoder.py:148); bias and tanh are
 // float32.
 //
-// Design: the direct 27-tap conv, not the JAX kernel's im2col GEMM, which
-// spends 64/27 = 2.37x the useful FLOPs to fill the TPU's matrix unit. One
-// block owns a row of packed outputs (b, i0, i1, all i2): the 2·2·2S
-// voxels of the 2x grid under it. Shared memory holds conv2's weights
-// (27·nf·nf float32) and the input slab those voxels read: 4 x 4 rows of
-// the 2x grid around them (of the packed neighbours i-1 and i+1 only the
-// sub-position next to i is read), each 2S+2 long with the padding,
-// converted to float32 and stored channel-major with an odd channel pitch,
-// so that a warp's 32 neighbouring voxels read 32 neighbouring words.
-// A thread owns one voxel and accumulates its nf output channels in
-// registers with float32 FMAs; weights are read as broadcast float4s.
-// Each block stops at the ragged edges by index; no TPU workaround is
-// carried over (the sublane-aligned pad of the input's minor axis, the
-// 4-group split of the im2col columns, the t0-row grid).
+// Both bodies are the direct 27-tap conv read through the packed layout,
+// not the JAX kernel's im2col GEMM over the 64 packed offsets, which spends
+// 64/27 = 2.37x the useful FLOPs to fill the TPU's matrix unit. No TPU
+// workaround is carried over (the sublane-aligned pad of the input's minor
+// axis, the 4-group split of the im2col columns, the t0-row grid); ragged
+// edges stop by index.
 //
-// Bound on the H100 at batch 128 (S=32, nf=16): 465 GFLOP of useful conv
-// and head work, 0.47 ms at the 989 TFLOP/s bf16 tensor-core rate; 1.42 GB
-// of bytes, 0.43 ms at 3.35 TB/s. A float32-FMA kernel cannot go under
-// ~6.9 ms (67 TFLOP/s); an mma.sync / wgmma implicit GEMM is later work.
+// bf16 at nf = 16 (the flagship width): an implicit GEMM on the tensor
+// cores, `decoder_tail_mma`. Per output voxel the conv is a product of
+// depth 27·16 and width 16: M is 16 neighbouring voxels of a 2x-grid row,
+// one tap is one k16 step, the width is two n8 tiles of
+// mma.sync.m16n8k16.bf16 with float32 sums. A tile is 2 x 2 packed
+// positions (i0, i1) and all of i2: 4 x 4 rows of the 2x grid. Its slab, the
+// 6 x 6 rows around them (the halo is read once for 16 output rows), stays
+// in bf16, voxel-major and channel-minor (32 bytes a voxel), filled by
+// cp.async in 16-byte halves of a voxel; a voxel's two halves are swapped
+// where (voxel / 4) is odd, so that the eight 16-byte rows of each ldmatrix
+// phase fall in eight different bank groups. The A fragment of tap
+// (k0, k1, k2) is then one ldmatrix at an offset of k2 voxels in slab row
+// (o0 + k0, o1 + k1): no im2col matrix exists. A compute warp owns the four
+// output rows of one packed (i0, i1) over 32 voxels (64 float32 sums a
+// thread) and walks the 4 x 4 slab rows under them, so each A fragment is
+// loaded once for the up to four (output row, tap) pairs that read it. The
+// weights sit in shared memory in B-fragment order (one 16-byte load a lane
+// and tap). The epilogue rounds relu to bf16, takes the head as a partial
+// sum over a lane's four channels and two shuffles, and the four lanes of a
+// quad store the four rows' values of a voxel, so a warp's store fills whole
+// 32-byte sectors of the o_idx-minor output.
+//   The launch is persistent (one block on an SM, walking over tiles), so
+// the weights are laid out once per block, and the block is split by role:
+// 8 warps compute, 4 warps only copy the next tile's slab into a second
+// buffer. Measured on an NVIDIA H100 80GB HBM3 at 700 W (B=128, S=32;
+// tools/torch_port_kernel_probe.py): the conv alone takes ~1.2 ms and the
+// copies alone 0.7-0.9 ms; run by the same warps they added up (1.7-1.8
+// ms, two blocks on an SM or two buffers alike), because a warp whose
+// cp.async waits on the memory system starts no mma; with copy warps the
+// two overlap (1.4 ms).
+//
+// float32, and nf ∈ {4, 8}: `decoder_tail`, float32 FMAs (float32 on the
+// tensor cores would be TF32, ~3 decimal digits). One block per packed row
+// (b, i0, i1); a float32 slab of 4 x 4 rows of the 2x grid, channel-major
+// with an odd pitch; one thread per output voxel, weights read as broadcast
+// float4s.
+//
+// Bound on the H100 at batch 128 (S=32, nf=16, bf16): 465 GFLOP of useful
+// conv and head work, 0.47 ms at the 989 TFLOP/s bf16 tensor-core rate;
+// 1.42 GB of bytes, 0.43 ms at 3.35 TB/s. What holds the mma body is the
+// conv loop itself: 432 mma.sync of a warp tile with their 96 ldmatrix.x4
+// and 108 16-byte weight loads (keeping the weights in registers instead
+// changed nothing: 1.77 against 1.69 ms), two warps on each scheduler.
+// Measured times: PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -53,6 +88,8 @@ template <> __device__ __forceinline__ float round_to<float>(float v) { return v
 template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
+
+// ---- float32, and nf ∈ {4, 8}: float32 FMAs ----
 
 __host__ __device__ constexpr int slab_cols(int s) { return 2 * s + 2; }
 __host__ __device__ constexpr int channel_pitch(int s) { return 16 * slab_cols(s) + 1; }
@@ -131,6 +168,258 @@ decoder_tail(const T* __restrict__ hn, const float* __restrict__ w2,
   }
 }
 
+// ---- bf16, nf = 16: implicit GEMM on the tensor cores ----
+
+constexpr int kNf = 16;          // the mma body's width: one k16 step per tap
+constexpr int kTile = 2;         // packed positions per tile along i0 and along i1
+constexpr int kSlabSide = 2 * kTile + 2;  // slab rows along each of the two axes
+constexpr int kWarpVoxels = 32;  // voxels of a 2x-grid row per warp tile (two m16 tiles)
+constexpr int kVoxelBytes = kNf * 2;
+constexpr int kWFragBytes = 27 * 32 * 16;  // per tap and lane: b0, b1 of both n8 tiles
+constexpr int kComputeWarps = 8;           // warps that run the conv
+constexpr int kCopyWarps = 4;              // warps that only copy slabs
+constexpr int kMmaThreads = 32 * (kComputeWarps + kCopyWarps);
+
+// Probes of tools/torch_port_kernel_probe.py: built with -DRF_PROBE_NO_COPY
+// the kernel copies no slab, with -DRF_PROBE_NO_CONV it runs no conv (its
+// output is then meaningless): what each half costs alone.
+#ifdef RF_PROBE_NO_COPY
+constexpr bool kCopies = false;
+#else
+constexpr bool kCopies = true;
+#endif
+#ifdef RF_PROBE_NO_CONV
+constexpr bool kConvs = false;
+#else
+constexpr bool kConvs = true;
+#endif
+
+// slab row pitch in voxels: the row's 2S + 2, rounded so that the last warp
+// tile's reads (32 voxels + 2 taps) stay inside the row
+__host__ __device__ constexpr int mma_pitch(int s) {
+  return (2 * s + kWarpVoxels - 1) / kWarpVoxels * kWarpVoxels + 2;
+}
+
+__host__ __device__ constexpr int slab_bytes(int s) {
+  return kSlabSide * kSlabSide * mma_pitch(s) * kVoxelBytes;
+}
+
+size_t mma_smem_bytes(int s, int slabs) {
+  return kWFragBytes + kNf * sizeof(float) + static_cast<size_t>(slabs) * slab_bytes(s);
+}
+
+// byte offset of half `h` (channels 8h..8h+7) of slab voxel j in its row
+__device__ __forceinline__ int voxel_half_offset(int j, int h) {
+  return j * kVoxelBytes + ((h ^ ((j >> 2) & 1)) << 4);
+}
+
+// tile `index` of the (B, ceil(S/2), ceil(S/2)) tiles: its batch item, first
+// packed position and count of valid packed positions along i0 and i1
+struct Tile {
+  int b, i0, i1, n0, n1;
+  __device__ Tile(int index, int S) {
+    const int tiles = (S + kTile - 1) / kTile;
+    i1 = index % tiles * kTile;
+    i0 = index / tiles % tiles * kTile;
+    b = index / (tiles * tiles);
+    n0 = min(kTile, S - i0);
+    n1 = min(kTile, S - i1);
+  }
+};
+
+// The copies of a tile's slab (cp.async), by the block's copy warps.
+// Slab row (r0, r1) is 2x-grid row (2·i0 - 1 + r0, 2·i1 - 1 + r1): packed
+// (padded) position i0 + (r0+1)/2, block bit (r0+1) & 1; likewise r1. Slab
+// voxel j is 2x-grid index j - 1 along the last axis. Each (r0, r1, p2)
+// reads the two channel blocks o_idx = s0·4 + s1·2 + {0, 1}: 32 contiguous
+// values, four 16-byte chunks: voxels 2·p2 - 1 and 2·p2, two halves each.
+// A warp takes a slab row at a time, a lane a chunk; returns when this
+// lane's copies have landed (a barrier publishes them).
+__device__ __forceinline__ void fill_slab(const Tile& tl, const __nv_bfloat16* __restrict__ hn,
+                                          int S, unsigned char* slab) {
+  const int P = S + 2, J = 2 * S + 2, pitch = mma_pitch(S) * kVoxelBytes;
+  const int warp = (threadIdx.x >> 5) - kComputeWarps, lane = threadIdx.x & 31;
+  const int rows1 = kCopies ? 2 * tl.n1 + 2 : 0;
+  for (int R = warp; R < (2 * tl.n0 + 2) * rows1; R += kCopyWarps) {
+    const int r1 = R % rows1, r0 = R / rows1;
+    const int pp0 = tl.i0 + ((r0 + 1) >> 1), pp1 = tl.i1 + ((r1 + 1) >> 1);
+    const int blk_off = (((r0 + 1) & 1) * 4 + ((r1 + 1) & 1) * 2) * kNf;
+    const __nv_bfloat16* src = hn + ((static_cast<size_t>(tl.b) * P + pp0) * P + pp1) * P
+                                        * (8 * kNf) + blk_off;
+    unsigned char* dst = slab + (r0 * kSlabSide + r1) * pitch;
+    for (int c = lane; c < 4 * P; c += 32) {
+      const int q = c & 3, p2 = c >> 2, j = 2 * p2 - 1 + (q >> 1);
+      if (j >= 0 && j < J)
+        rf_mma::cp_async16(dst + voxel_half_offset(j, q & 1), src + p2 * (8 * kNf) + q * 8);
+    }
+  }
+  rf_mma::cp_async_wait_all();
+}
+
+// One warp tile: the four output rows (o0, o1) of packed position
+// (i0 + l0, i1 + l1) over the 32 voxels from m0 of the 2x grid's last axis,
+// from the slab at shared address `slab`: conv, relu, head, tanh, store.
+__device__ __forceinline__ void conv_warp_tile(unsigned slab, const uint4* wfrag,
+                                               const float* whs, float bias, int S, int l0,
+                                               int l1, int m0, float* __restrict__ row_out) {
+  using namespace rf_mma;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int pitch = mma_pitch(S) * kVoxelBytes;
+  // ldmatrix: lane l gives row l % 8 of matrix l / 8; matrices 0, 1 are
+  // voxels 0-7 and 8-15 of channels 0-7, matrices 2, 3 of channels 8-15
+  unsigned lane_addr[3];
+#pragma unroll
+  for (int k2 = 0; k2 < 3; ++k2)
+    lane_addr[k2] = slab + (2 * l0 * kSlabSide + 2 * l1) * pitch
+                    + voxel_half_offset(m0 + k2 + (lane & 7) + 8 * ((lane >> 3) & 1), lane >> 4);
+
+  float acc[4][2][2][4];  // [output row o0·2 + o1][m16 tile][n8 tile]
+#pragma unroll
+  for (int i = 0; i < 64; ++i) (&acc[0][0][0][0])[i] = 0.f;
+#pragma unroll
+  for (int r0 = 0; r0 < 4; ++r0) {
+#pragma unroll
+    for (int r1 = 0; r1 < 4; ++r1) {
+      const unsigned row = (r0 * kSlabSide + r1) * pitch;
+#pragma unroll
+      for (int k2 = 0; k2 < 3; ++k2) {
+        uint32_t a[2][4];
+        ldmatrix_x4(a[0], lane_addr[k2] + row);
+        ldmatrix_x4(a[1], lane_addr[k2] + row + 16 * kVoxelBytes);
+#pragma unroll
+        for (int o0 = 0; o0 < 2; ++o0) {
+#pragma unroll
+          for (int o1 = 0; o1 < 2; ++o1) {
+            const int k0 = r0 - o0, k1 = r1 - o1;
+            if (k0 < 0 || k0 > 2 || k1 < 0 || k1 > 2) continue;
+            const uint4 w = wfrag[((k0 * 3 + k1) * 3 + k2) * 32 + lane];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma_m16n8k16(acc[o0 * 2 + o1][mt][0], a[mt], w.x, w.y);
+              mma_m16n8k16(acc[o0 * 2 + o1][mt][1], a[mt], w.z, w.w);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  const float wh[4] = {whs[2 * t], whs[2 * t + 1], whs[8 + 2 * t], whs[9 + 2 * t]};
+  // relu, round to bf16, head over a lane's channels 2t, 2t+1, 8+2t, 9+2t,
+  // then over the quad; lane t of a quad stores output row t of its voxel
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mine = 0.f;
+#pragma unroll
+      for (int oo = 0; oo < 4; ++oo) {
+        const float(&c)[2][4] = acc[oo][mt];
+        float z = round_to<__nv_bfloat16>(fmaxf(c[0][2 * half], 0.f)) * wh[0];
+        z = fmaf(round_to<__nv_bfloat16>(fmaxf(c[0][2 * half + 1], 0.f)), wh[1], z);
+        z = fmaf(round_to<__nv_bfloat16>(fmaxf(c[1][2 * half], 0.f)), wh[2], z);
+        z = fmaf(round_to<__nv_bfloat16>(fmaxf(c[1][2 * half + 1], 0.f)), wh[3], z);
+        z = quad_sum(z);
+        if (oo == t) mine = z;
+      }
+      const int y = m0 + mt * 16 + half * 8 + g;
+      if (y < 2 * S) row_out[(y >> 1) * 8 + t * 2 + (y & 1)] = tanhf(mine + bias);
+    }
+  }
+}
+
+// Persistent, one block on an SM: block x takes tiles x, x + gridDim.x, ….
+// The weights are laid out once per block. Warps are specialised: the copy
+// warps bring in the next tile's slab while the compute warps run the conv on
+// this one (kSlabs = 2), so that a copy held up by the memory system holds up
+// no mma; one barrier per tile hands the slabs over. With kSlabs = 1 (a slab
+// past half the shared memory) a tile is copied, then computed.
+template <int kSlabs>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+decoder_tail_mma(const __nv_bfloat16* __restrict__ hn, const float* __restrict__ w2,
+                 const float* __restrict__ wh, float bias, int S, int n_tiles,
+                 float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* wfrag = reinterpret_cast<uint4*>(smem_raw);                  // [27][32]
+  float* whs = reinterpret_cast<float*>(smem_raw + kWFragBytes);      // (16,)
+  unsigned char* slabs = smem_raw + kWFragBytes + kNf * sizeof(float);  // [6][6][pitch][32 B] each
+  const int warp = threadIdx.x >> 5;
+  const bool copies = warp >= kComputeWarps;
+  const int row_tiles = (2 * S + kWarpVoxels - 1) / kWarpVoxels;
+
+  if (copies) {
+    fill_slab(Tile(blockIdx.x, S), hn, S, slabs);
+  } else {
+    // the weights in B-fragment order: word r of (tap, lane) is
+    // W[tap][ci, ci+1][co], ci = 2t + 8·(r&1), co = 8·(r>>1) + g
+    for (int i = threadIdx.x; i < 27 * 32 * 4; i += 32 * kComputeWarps) {
+      const int r = i & 3, lane = (i >> 2) & 31, tap = i >> 7;
+      const int ci = 2 * (lane & 3) + 8 * (r & 1), co = 8 * (r >> 1) + (lane >> 2);
+      const float* wt = w2 + tap * kNf * kNf;
+      reinterpret_cast<uint32_t*>(wfrag)[i] =
+          rf_mma::pack_bf16(wt[ci * kNf + co], wt[(ci + 1) * kNf + co]);
+    }
+    if (threadIdx.x < kNf) whs[threadIdx.x] = wh[threadIdx.x];
+  }
+  __syncthreads();  // the first slab and the weights are in place
+
+  int buf = 0;
+  for (int index = blockIdx.x; index < n_tiles; index += gridDim.x, buf ^= kSlabs - 1) {
+    const int next = index + gridDim.x;
+    unsigned char* slab = slabs + buf * slab_bytes(S);
+    if (copies) {
+      if (kSlabs == 2 && next < n_tiles)
+        fill_slab(Tile(next, S), hn, S, slabs + (buf ^ 1) * slab_bytes(S));
+    } else {
+      const Tile tl(index, S);
+      const unsigned slab_addr = static_cast<unsigned>(__cvta_generic_to_shared(slab));
+      for (int wt = warp; kConvs && wt < tl.n0 * tl.n1 * row_tiles; wt += kComputeWarps) {
+        const int l1 = wt / row_tiles % tl.n1, l0 = wt / (row_tiles * tl.n1);
+        conv_warp_tile(slab_addr, wfrag, whs, bias, S, l0, l1, wt % row_tiles * kWarpVoxels,
+                       out + ((static_cast<size_t>(tl.b) * S + tl.i0 + l0) * S + tl.i1 + l1)
+                                 * S * 8);
+      }
+    }
+    __syncthreads();  // this slab is free; with two slabs, the next one is in place
+    if (kSlabs == 1) {
+      if (copies && next < n_tiles) fill_slab(Tile(next, S), hn, S, slab);
+      __syncthreads();
+    }
+  }
+}
+
+template <int kSlabs>
+int launch_mma_slabs(const void* hn, const float* w2, const float* wh, float bias, int b, int s,
+               float* out, cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes(s, kSlabs);
+  auto kernel = decoder_tail_mma<kSlabs>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // as many blocks as the card holds at once
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess
+      || (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess
+      || (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMmaThreads, smem))
+             != cudaSuccess)
+    return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (s + kTile - 1) / kTile, n_tiles = b * tiles * tiles;
+  kernel<<<min(n_tiles, sms * per_sm), kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(hn), w2, wh, bias, s, n_tiles, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// two slabs where they fit (S <= 32), else one (S <= 80)
+int launch_mma(const void* hn, const float* w2, const float* wh, float bias, int b, int s,
+               float* out, cudaStream_t stream) {
+  if (mma_smem_bytes(s, 2) <= kMaxSmemBytes)
+    return launch_mma_slabs<2>(hn, w2, wh, bias, b, s, out, stream);
+  if (mma_smem_bytes(s, 1) <= kMaxSmemBytes)
+    return launch_mma_slabs<1>(hn, w2, wh, bias, b, s, out, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T, int NF>
 int launch(const void* hn, const float* w2, const float* wh, float bias, int b, int s,
            float* out, cudaStream_t stream) {
@@ -150,7 +439,11 @@ int dispatch(int nf, const void* hn, const float* w2, const float* wh, float bia
   switch (nf) {
     case 4: return launch<T, 4>(hn, w2, wh, bias, b, s, out, stream);
     case 8: return launch<T, 8>(hn, w2, wh, bias, b, s, out, stream);
-    case 16: return launch<T, 16>(hn, w2, wh, bias, b, s, out, stream);
+    case 16:
+      if constexpr (std::is_same_v<T, __nv_bfloat16>)
+        return launch_mma(hn, w2, wh, bias, b, s, out, stream);
+      else
+        return launch<T, 16>(hn, w2, wh, bias, b, s, out, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -164,7 +457,10 @@ extern "C" const char* rf_error_string(int err) {
 // dtype 0: float32, 1: bfloat16 (hn). hn (b, s+2, s+2, s+2, 8·nf), w2
 // (3, 3, 3, nf, nf) DHWIO float32 (holding values of hn's dtype), wh (nf,)
 // float32 likewise, out (b, s, s, s, 8) float32. nf ∈ {4, 8, 16}; s >= 1,
-// b >= 1, b·s·s < 2^31. Returns a cudaError_t value.
+// b >= 1, b·s·s < 2^31; hn 16-byte aligned. bf16 with nf = 16 runs the
+// tensor-core body, everything else the float32-FMA body. Returns a
+// cudaError_t value (cudaErrorInvalidValue where a slab exceeds the shared
+// memory of a block: S > 80 for the tensor-core body).
 extern "C" int rf_decoder_tail(int dtype, const void* hn, const float* w2, const float* wh,
                                float bias, int b, int s, int nf, float* out,
                                cudaStream_t stream) {

@@ -8,18 +8,25 @@
 // and, for each of its K retrieved bank rows idx[q, k], that (T, F) bank
 // tile, read from global memory. No (Q, K, T, F) tensor exists.
 //
+// bf16 runs attention.cuh's tensor-core body as a persistent launch (one
+// block per SM with theta's and phi's weights resident in shared memory,
+// each warp walking over 16-row slices, reading candidate k+1's bank rows by
+// index while candidate k's MLP runs); float32 keeps the float32-FMA body,
+// one block per tile, two blocks on an SM (97 KB of shared memory each).
+//
 // Bound on the H100: at Q=8192 (batch 128) the MLPs are (Q T + Q K T) rows
 // x 106,496 flops = 279 GFLOP, ~0.28 ms at the 989 TFLOP/s bf16 tensor-core
 // rate; the ~0.8 GB of bf16 rows it must move (x, the gathered candidates,
-// out) take ~0.24 ms at 3.35 TB/s. This first version multiplies with
-// float32 FMAs from shared memory (67 TFLOP/s peak, so >= 4.2 ms), which
-// is right before it is fast; tensor cores (mma.sync / wgmma) are later
-// work.
+// out) take ~0.24 ms at 3.35 TB/s. The tensor-core body is held by
+// shared-memory reads of the weight fragments (attention.cuh); measured
+// times: PERF.md.
 //
-// Two blocks fit on an SM (97 KB of shared memory each). The TPU version's
-// workarounds are not carried over: the flattened 1-D index operand (SMEM
-// lane padding), the GROUP-tile grid steps (grid overhead) and the padding
-// of Q to a GROUP multiple; a block reads its own K indices, and any Q works.
+// The TPU version's workarounds are not carried over: the flattened 1-D
+// index operand (SMEM lane padding), the GROUP-tile grid steps (grid
+// overhead) and the padding of Q to a GROUP multiple; a tile's K indices are
+// read where it is computed, and any Q works.
+
+#include <type_traits>
 
 #include "attention.cuh"
 
@@ -41,15 +48,43 @@ gathered_attention(const T* __restrict__ xt, const T* __restrict__ bank,
                         sel_out == nullptr ? nullptr : sel_out + q * kT, NoWait{});
 }
 
+template <bool kHard>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+gathered_attention_mma(const __nv_bfloat16* __restrict__ xt,
+                       const __nv_bfloat16* __restrict__ bank, const int* __restrict__ idx,
+                       int Q, int K, const __nv_bfloat16* __restrict__ w_theta,
+                       const float* __restrict__ b_theta,
+                       const __nv_bfloat16* __restrict__ w_phi,
+                       const float* __restrict__ b_phi, float sharpness,
+                       __nv_bfloat16* __restrict__ out, int* __restrict__ sel_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto tile_rows = [=](size_t q) {
+    return BankRows<__nv_bfloat16>{xt + q * kT * kF, bank, idx + q * K, kT, K};
+  };
+  attend_tiles_mma<kHard>(tile_rows, Q, smem_raw, w_theta, b_theta, w_phi, b_phi, sharpness,
+                          out, sel_out);
+}
+
 template <typename T, bool kHard>
 int launch(const void* xt, const void* bank, const int* idx, int q, int k,
            const void* w_theta, const float* b_theta, const void* w_phi,
            const float* b_phi, float sharpness, void* out, int* sel, cudaStream_t s) {
-  return launch_blocks(gathered_attention<T, kHard>, q, kSmemBytes, s,
-                       static_cast<const T*>(xt), static_cast<const T*>(bank), idx, k,
-                       static_cast<const T*>(w_theta), b_theta,
-                       static_cast<const T*>(w_phi), b_phi, sharpness, static_cast<T*>(out),
-                       sel);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    cudaError_t err;
+    const int blocks = persistent_blocks(q, &err);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch_blocks(gathered_attention_mma<kHard>, blocks, kMmaThreads, kMmaSmemBytes, s,
+                         static_cast<const T*>(xt), static_cast<const T*>(bank), idx, q, k,
+                         static_cast<const T*>(w_theta), b_theta,
+                         static_cast<const T*>(w_phi), b_phi, sharpness, static_cast<T*>(out),
+                         sel);
+  } else {
+    return launch_blocks(gathered_attention<T, kHard>, q, kThreads, kSmemBytes, s,
+                         static_cast<const T*>(xt), static_cast<const T*>(bank), idx, k,
+                         static_cast<const T*>(w_theta), b_theta,
+                         static_cast<const T*>(w_phi), b_phi, sharpness, static_cast<T*>(out),
+                         sel);
+  }
 }
 
 }  // namespace
@@ -58,7 +93,8 @@ int launch(const void* xt, const void* bank, const int* idx, int q, int k,
 // xt (q, 64, 128), bank (n, 64, 128), idx (q, k) int32 in [0, n),
 // w_* packed (128*128*3 + 128*32) in (in, out) layout, b_* (128*3 + 32)
 // float32; sel (q, 64) int32 or null (argmax candidate of each row).
-// 1 <= k <= 8, q >= 1. Returns a cudaError_t value.
+// 1 <= k <= 8, q >= 1; xt, bank and out 16-byte aligned. bfloat16 runs the
+// tensor-core body, float32 the FMA body. Returns a cudaError_t value.
 extern "C" int rf_gathered_attention(int dtype, const void* xt, const void* bank,
                                      const int* idx, int q, int k, const void* w_theta,
                                      const float* b_theta, const void* w_phi,

@@ -19,7 +19,10 @@
 // and K <= 4 in float32; the wrapper raises beyond. One block per SM.
 //
 // Bound on the H100: as gathered_attention.cu, 0.282 ms at Q=8192, K=4,
-// bf16 (279 GFLOP of MLP GEMMs at 989 TFLOP/s); float32 FMAs here.
+// bf16 (279 GFLOP of MLP GEMMs at 989 TFLOP/s). This kernel keeps
+// attention.cuh's float32-FMA body in both types: its staged candidate
+// tiles cannot share an SM with the 213 KB of weights that the tensor-core
+// body keeps resident.
 
 #include "attention.cuh"
 
@@ -68,7 +71,7 @@ int launch(const void* xt, const void* bank, const int* idx, int q, int k,
            const float* b_phi, float sharpness, void* out, int* sel, cudaStream_t s) {
   const size_t smem = kSmemBytes + static_cast<size_t>(k) * kT * kF * sizeof(T);
   if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_blocks(gathered_attention_v1<T, kHard>, q, smem, s,
+  return launch_blocks(gathered_attention_v1<T, kHard>, q, kThreads, smem, s,
                        static_cast<const T*>(xt), static_cast<const T*>(bank), idx, k,
                        static_cast<const T*>(w_theta), b_theta,
                        static_cast<const T*>(w_phi), b_phi, sharpness, static_cast<T*>(out),

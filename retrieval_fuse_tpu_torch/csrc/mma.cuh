@@ -1,0 +1,71 @@
+// Warp-level tensor-core and async-copy primitives for sm_90a, shared by
+// attention.cuh and decoder_tail.cu: the bf16 m16n8k16 product with float32
+// sums, ldmatrix, cp.async and the bf16 pair pack.
+//
+// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4), each
+// register a pair of bf16 with the lower index in the low half:
+//   A (16 x 16, row):  a0 = A[g][2t, 2t+1]      a1 = A[g+8][2t, 2t+1]
+//                      a2 = A[g][2t+8, 2t+9]    a3 = A[g+8][2t+8, 2t+9]
+//   B (16 x 8, col):   b0 = B[2t, 2t+1][g]      b1 = B[2t+8, 2t+9][g]
+//   C (16 x 8, f32):   c0, c1 = C[g][2t, 2t+1]  c2, c3 = C[g+8][2t, 2t+1]
+// So the C fragments of two neighbouring n8 tiles, rounded to bf16 and
+// packed, are the A fragment of one k16 step of the next product: tile 2s
+// gives a0 (c0, c1) and a1 (c2, c3), tile 2s+1 gives a2 and a3.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace rf_mma {
+
+// d += a (16 x 16 bf16) . b (16 x 8 bf16), float32 sums
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the shared-space
+// address (__cvta_generic_to_shared) of the 16-byte row l % 8 of matrix
+// l / 8; r[m] receives matrix m's element pair (row g, columns 2t, 2t+1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned smem_row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_row));
+}
+
+// (lo, hi) rounded to bf16 (nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo))
+         | (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// sum over the four lanes of a quad (the lanes that share g)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
+}
+
+// this thread's cp.async copies have landed (a barrier publishes them)
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+}  // namespace rf_mma

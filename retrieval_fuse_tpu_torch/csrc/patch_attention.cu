@@ -8,16 +8,22 @@
 // the candidate rows differs: candidate k of row i is p[i, k, :], so a
 // block's candidate-k rows lie K*F elements apart.
 //
-// A block owns 64 consecutive rows of x; N need not be a multiple of 64:
-// the last block's missing rows are zero in the activations and never
-// written. The TPU version's padding of N to 512-row tiles is not carried
-// over.
+// A tile is 64 consecutive rows of x; N need not be a multiple of 64: the
+// last tile's missing rows are zero in the MLPs and never written. The TPU
+// version's padding of N to 512-row tiles is not carried over.
+//
+// bf16 runs attention.cuh's tensor-core body as a persistent launch (one
+// block per SM with theta's and phi's weights resident in shared memory,
+// each warp walking over 16-row slices); float32 keeps the float32-FMA body,
+// one block per tile.
 //
 // Bound on the H100 at `pallasp` batch 128 (N = 524,288 rows, K=4, bf16):
 // N (1 + K) rows x 106,496 MLP flops = 279 GFLOP, ~0.28 ms at the
 // 989 TFLOP/s bf16 tensor-core rate; x, p and out are 805 MB, ~0.24 ms at
-// 3.35 TB/s. Like gathered_attention.cu this first version multiplies with
-// float32 FMAs (>= 4.2 ms at 67 TFLOP/s); tensor cores are later work.
+// 3.35 TB/s. The tensor-core body is held by shared-memory reads of the
+// weight fragments (attention.cuh); measured times: PERF.md.
+
+#include <type_traits>
 
 #include "attention.cuh"
 
@@ -40,15 +46,45 @@ patch_attention(const T* __restrict__ x, const T* __restrict__ p, int n, int K,
                         sel_out == nullptr ? nullptr : sel_out + r0, NoWait{});
 }
 
+template <bool kHard>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+patch_attention_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ p,
+                    int n, int K, const __nv_bfloat16* __restrict__ w_theta,
+                    const float* __restrict__ b_theta, const __nv_bfloat16* __restrict__ w_phi,
+                    const float* __restrict__ b_phi, float sharpness,
+                    __nv_bfloat16* __restrict__ out, int* __restrict__ sel_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const size_t stride = static_cast<size_t>(K) * kF;
+  auto tile_rows = [=](size_t q) {
+    const size_t r0 = q * kT;
+    return StridedRows<__nv_bfloat16>{x + r0 * kF, p + r0 * stride, kF, stride,
+                                      min(kT, static_cast<int>(n - r0)), K};
+  };
+  attend_tiles_mma<kHard>(tile_rows, (n + kT - 1) / kT, smem_raw, w_theta, b_theta, w_phi,
+                          b_phi, sharpness, out, sel_out);
+}
+
 template <typename T, bool kHard>
 int launch(const void* x, const void* p, int n, int k, const void* w_theta,
            const float* b_theta, const void* w_phi, const float* b_phi, float sharpness,
            void* out, int* sel, cudaStream_t s) {
-  return launch_blocks(patch_attention<T, kHard>, (n + kT - 1) / kT, kSmemBytes, s,
-                       static_cast<const T*>(x), static_cast<const T*>(p), n, k,
-                       static_cast<const T*>(w_theta), b_theta,
-                       static_cast<const T*>(w_phi), b_phi, sharpness, static_cast<T*>(out),
-                       sel);
+  const int tiles = (n + kT - 1) / kT;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    cudaError_t err;
+    const int blocks = persistent_blocks(tiles, &err);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch_blocks(patch_attention_mma<kHard>, blocks, kMmaThreads, kMmaSmemBytes, s,
+                         static_cast<const T*>(x), static_cast<const T*>(p), n, k,
+                         static_cast<const T*>(w_theta), b_theta,
+                         static_cast<const T*>(w_phi), b_phi, sharpness, static_cast<T*>(out),
+                         sel);
+  } else {
+    return launch_blocks(patch_attention<T, kHard>, tiles, kThreads, kSmemBytes, s,
+                         static_cast<const T*>(x), static_cast<const T*>(p), n, k,
+                         static_cast<const T*>(w_theta), b_theta,
+                         static_cast<const T*>(w_phi), b_phi, sharpness, static_cast<T*>(out),
+                         sel);
+  }
 }
 
 }  // namespace
@@ -56,7 +92,9 @@ int launch(const void* x, const void* p, int n, int k, const void* w_theta,
 // dtype 0: float32, 1: bfloat16 (x, p, out, packed weights).
 // x (n, 128), p (n, k, 128), w_* packed (128*128*3 + 128*32) in (in, out)
 // layout, b_* (128*3 + 32) float32; sel (n,) int32 or null (argmax
-// candidate of each row). 1 <= k <= 8, n >= 1. Returns a cudaError_t value.
+// candidate of each row). 1 <= k <= 8, n >= 1; x, p and out 16-byte aligned.
+// bfloat16 runs the tensor-core body, float32 the FMA body. Returns a
+// cudaError_t value.
 extern "C" int rf_patch_attention(int dtype, const void* x, const void* p, int n, int k,
                                   const void* w_theta, const float* b_theta,
                                   const void* w_phi, const float* b_phi, int hard,

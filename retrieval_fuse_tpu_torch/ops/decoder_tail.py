@@ -5,10 +5,17 @@ Kernel: csrc/decoder_tail.cu, replacing the Pallas `packed_decoder_tail`
 (retrieval_fuse_tpu/ops/pallas_decoder.py:94 `_decoder_tail_kernel`, :154).
 It runs conv2 (3³, nf -> nf) of the 2x grid, ReLU, the 1x1 head, bias and
 tanh in one pass over conv1's packed S³ output, so no (2S)³ tensor is
-written: the direct 27-tap conv, read through the packed layout, with
-float32 FMAs. Its bound on the H100 at batch 128 (S=32, nf=16) is 0.47 ms
-of bf16 tensor-core work (465 GFLOP) against 0.43 ms of bytes (1.42 GB);
-float32 FMAs cannot go under ~6.9 ms.
+written: the direct 27-tap conv, read through the packed layout. In bf16 at
+nf = 16 (the flagship width) it is an implicit GEMM on the tensor cores
+(`mma.sync.m16n8k16`, bf16 products, float32 sums: one tap is one k16 step)
+over a bf16 slab in shared memory, filled once for 2 x 2 packed positions by
+the copy warps of a persistent block while its compute warps run the tile
+before; in float32, and at nf 4 and 8, it multiplies with float32 FMAs
+(float32 on the tensor cores would be TF32). `decoder_tail.math` names the
+path of the last launch. Its bound on the H100 at batch 128 (S=32, nf=16)
+is 0.47 ms of bf16 tensor-core work (465 GFLOP) against 0.43 ms of bytes
+(1.42 GB); the tensor-core body is held by its conv loop of `mma.sync` and
+fragment loads, ~2.4x the bound (csrc/decoder_tail.cu; times in PERF.md).
 
 `decoder_tail` launches the kernel on CUDA tensors and runs
 `decoder_tail_plain` on CPU tensors; it never falls back from one to the
@@ -34,6 +41,14 @@ from retrieval_fuse_tpu_torch.ops import _build
 from retrieval_fuse_tpu_torch.ops.fused_decoder import FusedFinalDecoder, _groups
 
 KERNEL_NF = (4, 8, 16)  # the kernel's conv widths
+MMA_NF = 16             # the width whose bf16 launch runs on the tensor cores
+
+
+def kernel_math(dtype: torch.dtype, nf: int) -> str:
+    """The instruction path of csrc/decoder_tail.cu for an input of `dtype`
+    and conv width nf: its dispatch sends bf16 at nf = 16 to the tensor-core
+    body and everything else to the float32-FMA body."""
+    return "mma.bf16" if dtype == torch.bfloat16 and nf == MMA_NF else "fma.f32"
 
 _YS = (-1, 0, 1, 2)  # 2x-grid tap offsets reachable from a packed position
 #: the JAX helper's im2col row-block order: y2-major, then y0, y1
@@ -121,8 +136,8 @@ def decoder_tail(hn_pad: torch.Tensor, w2: torch.Tensor, wh: torch.Tensor,
     if tuple(w2.shape) != (3, 3, 3, nf, nf) or tuple(wh.shape) != (nf,):
         raise ValueError(f"decoder_tail: w2 must be (3, 3, 3, {nf}, {nf}) and wh ({nf},), "
                          f"got {tuple(w2.shape)}, {tuple(wh.shape)}")
-    if not hn_pad.is_contiguous():
-        raise ValueError("decoder_tail: hn_pad must be contiguous")
+    if not hn_pad.is_contiguous() or hn_pad.data_ptr() % 16:
+        raise ValueError("decoder_tail: hn_pad must be contiguous and 16-byte aligned")
     out = torch.empty((b, s, s, s, 8), dtype=torch.float32, device=dev)
     if b == 0:
         return out
@@ -131,10 +146,12 @@ def decoder_tail(hn_pad: torch.Tensor, w2: torch.Tensor, wh: torch.Tensor,
                   hn_pad.data_ptr(), w2f.data_ptr(), whf.data_ptr(), float(bias), b, s, nf,
                   out.data_ptr())
     decoder_tail.launches += 1
+    decoder_tail.math = kernel_math(hn_pad.dtype, nf)
     return out
 
 
 decoder_tail.launches = 0
+decoder_tail.math = None  # the instruction path of the last launch
 
 
 class CompactPackedDecoder(FusedFinalDecoder):

@@ -22,10 +22,20 @@ on every candidate, normalised scores, ReLU-of-max switch, hard argmax(25 s)
 or softmax(sharpness s) selection, blend; only the (T, F) output rows are
 written. Bound on the H100 at batch 128 (8192 tiles of 64 rows, K=4, bf16):
 279 GFLOP of MLP GEMMs, ~0.28 ms at the bf16 tensor-core rate, against
-~0.8 GB of rows, ~0.24 ms. The kernels multiply with float32 FMAs from
-shared memory (>= 4.2 ms at 67 TFLOP/s); tensor cores are later work. The
-TPU workarounds are not carried over: the 512-row padding of N, the
-flattened index operand, the padding of Q to a group multiple.
+~0.8 GB of rows, ~0.24 ms. In bf16, `patch_attention` and
+`gathered_patch_attention` run the body on the tensor cores
+(`mma.sync.m16n8k16`, bf16 products, float32 sums): persistent blocks, one
+per SM, keep theta's and phi's weights in shared memory in B-fragment order
+for all their tiles, a warp owns 16 rows, and the four-layer chain stays in
+registers (a layer's C fragments are the next layer's A fragments). What
+holds it then is shared-memory reads of the weight fragments, not the
+tensor rate (csrc/attention.cuh; times in PERF.md). In float32 (TF32 would
+cost ~3 decimal digits), and in `gathered_patch_attention_v1` in both types
+(its staged candidate tiles cannot share an SM with resident weights), the
+body multiplies with float32 FMAs from shared memory. Each wrapper's `.math`
+names the path of its last launch. The TPU workarounds are not carried
+over: the 512-row padding of N, the flattened index operand, the padding of
+Q to a group multiple.
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 PyTorch version on CPU tensors; it never falls back from one to the other.
@@ -131,6 +141,15 @@ def _pack(w: nn.Module, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]
     return weights.to(dtype).contiguous(), biases.float().contiguous()
 
 
+def kernel_math(kernel: str, dtype: torch.dtype) -> str:
+    """The instruction path of attention kernel `kernel` (a `_build.KERNELS`
+    name) for rows of `dtype`: patch_attention.cu and gathered_attention.cu
+    send bf16 to the tensor-core body; float32, and gathered_attention_v1.cu
+    in both types, run the float32-FMA body."""
+    mma = dtype == torch.bfloat16 and kernel in ("patch_attention", "gathered_attention")
+    return "mma.bf16" if mma else "fma.f32"
+
+
 def _check_kernel_operands(name: str, rows: torch.Tensor, cands: torch.Tensor, idx,
                            theta: nn.Module, phi: nn.Module) -> None:
     """Device, dtype, contiguity and MLP-shape checks shared by the wrappers."""
@@ -144,6 +163,8 @@ def _check_kernel_operands(name: str, rows: torch.Tensor, cands: torch.Tensor, i
     if not (rows.is_contiguous() and cands.is_contiguous()
             and (idx is None or idx.is_contiguous())):
         raise ValueError(f"{name}: inputs must be contiguous")
+    if rows.data_ptr() % 16 or cands.data_ptr() % 16:
+        raise ValueError(f"{name}: rows and candidates must be 16-byte aligned")
     for w in (theta, phi):
         if (tuple(w.fc0.weight.shape) != (128, KERNEL_FEATURES)
                 or tuple(w.fc1.weight.shape) != (128, 128)
@@ -154,13 +175,15 @@ def _check_kernel_operands(name: str, rows: torch.Tensor, cands: torch.Tensor, i
 
 
 def _launch(kernel: str, rows: torch.Tensor, operands: tuple, theta, phi,
-            retrieval_mode: bool, sharpness: float, out: torch.Tensor, sel) -> None:
+            retrieval_mode: bool, sharpness: float, out: torch.Tensor, sel) -> str:
+    """Launch `kernel`; returns the instruction path it took."""
     w_theta, b_theta = _pack(theta, rows.dtype)
     w_phi, b_phi = _pack(phi, rows.dtype)
     _build.launch(kernel, rows.device, 0 if rows.dtype == torch.float32 else 1, *operands,
                   w_theta.data_ptr(), b_theta.data_ptr(), w_phi.data_ptr(), b_phi.data_ptr(),
                   int(bool(retrieval_mode)), float(sharpness), out.data_ptr(),
                   None if sel is None else sel.data_ptr())
+    return kernel_math(kernel, rows.dtype)
 
 
 def patch_attention(x: torch.Tensor, p: torch.Tensor, theta: nn.Module, phi: nn.Module,
@@ -185,15 +208,16 @@ def patch_attention(x: torch.Tensor, p: torch.Tensor, theta: nn.Module, phi: nn.
     out = torch.empty_like(x)
     sel = torch.empty((n,), dtype=torch.int32, device=x.device) if return_selection else None
     if n > 0:
-        _launch("patch_attention", x, (x.data_ptr(), p.data_ptr(), n, K), theta, phi,
-                retrieval_mode, sharpness, out, sel)
+        patch_attention.math = _launch("patch_attention", x, (x.data_ptr(), p.data_ptr(), n, K),
+                                       theta, phi, retrieval_mode, sharpness, out, sel)
         patch_attention.launches += 1
     return (out, sel) if return_selection else out
 
 
-def _gathered(name: str, xt, bank_rows, top_idx, theta, phi, K, retrieval_mode, sharpness,
-              return_selection, max_stage_bytes=None):
-    """The checks and launch of the two gathered kernels (same operands)."""
+def _gathered(wrapper, name: str, xt, bank_rows, top_idx, theta, phi, K, retrieval_mode,
+              sharpness, return_selection, max_stage_bytes=None):
+    """The checks and launch of the two gathered kernels (same operands), for
+    `wrapper`, whose launch count and instruction path it updates."""
     _check_kernel_operands(name, xt, bank_rows, top_idx, theta, phi)
     rows, feats = KERNEL_ROWS, KERNEL_FEATURES
     q = xt.shape[0]
@@ -210,8 +234,10 @@ def _gathered(name: str, xt, bank_rows, top_idx, theta, phi, K, retrieval_mode, 
     out = torch.empty_like(xt)
     sel = torch.empty((q, rows), dtype=torch.int32, device=xt.device) if return_selection else None
     if q > 0:
-        _launch(name, xt, (xt.data_ptr(), bank_rows.data_ptr(), top_idx.data_ptr(), q, K),
-                theta, phi, retrieval_mode, sharpness, out, sel)
+        wrapper.math = _launch(name, xt, (xt.data_ptr(), bank_rows.data_ptr(),
+                                          top_idx.data_ptr(), q, K),
+                               theta, phi, retrieval_mode, sharpness, out, sel)
+        wrapper.launches += 1
     return (out, sel) if return_selection else out
 
 
@@ -230,11 +256,8 @@ def gathered_patch_attention(xt: torch.Tensor, bank_rows: torch.Tensor,
         out, sel = gathered_patch_attention_plain(xt, bank_rows, top_idx, theta, phi, K,
                                                   retrieval_mode, sharpness)
         return (out, sel) if return_selection else out
-    result = _gathered("gathered_attention", xt, bank_rows, top_idx, theta, phi, K,
-                       retrieval_mode, sharpness, return_selection)
-    if xt.shape[0] > 0:
-        gathered_patch_attention.launches += 1
-    return result
+    return _gathered(gathered_patch_attention, "gathered_attention", xt, bank_rows, top_idx,
+                     theta, phi, K, retrieval_mode, sharpness, return_selection)
 
 
 def gathered_patch_attention_v1(xt: torch.Tensor, bank_rows: torch.Tensor,
@@ -248,13 +271,11 @@ def gathered_patch_attention_v1(xt: torch.Tensor, bank_rows: torch.Tensor,
         out, sel = gathered_patch_attention_v1_plain(xt, bank_rows, top_idx, theta, phi, K,
                                                      retrieval_mode, sharpness)
         return (out, sel) if return_selection else out
-    result = _gathered("gathered_attention_v1", xt, bank_rows, top_idx, theta, phi, K,
-                       retrieval_mode, sharpness, return_selection, V1_STAGE_BYTES)
-    if xt.shape[0] > 0:
-        gathered_patch_attention_v1.launches += 1
-    return result
+    return _gathered(gathered_patch_attention_v1, "gathered_attention_v1", xt, bank_rows,
+                     top_idx, theta, phi, K, retrieval_mode, sharpness, return_selection,
+                     V1_STAGE_BYTES)
 
 
-patch_attention.launches = 0
-gathered_patch_attention.launches = 0
-gathered_patch_attention_v1.launches = 0
+for _wrapper in (patch_attention, gathered_patch_attention, gathered_patch_attention_v1):
+    _wrapper.launches = 0
+    _wrapper.math = None  # the instruction path of the wrapper's last launch

@@ -145,6 +145,78 @@ def test_patch_attention_kernel_matches_plain(cuda, retrieval_mode, dtype):
         _agree(out, sel, want, want_sel, 0.99, 0.04)
 
 
+#: max |diff| in bf16 on rows whose selections agree, by retrieval_mode. Hard:
+#: one bf16 step of a blended value below 8. Softmax at sharpness 1024 turns a
+#: score difference of 1e-4 (one hidden activation rounded the other way) into
+#: a weight difference of up to 2.5%, so on near-ties of up to 8 candidates
+#: the blended values (|p| up to ~5) may differ by a few bf16 steps; the mean
+#: |diff| is held at 1e-3 beside it.
+_BF16_TOL = {True: 0.04, False: 0.15}
+
+
+@pytest.mark.parametrize("retrieval_mode", [True, False], ids=["hard", "softmax"])
+@pytest.mark.parametrize("n, k", [(37, 4), (64 * 3 + 1, 1), (64 * 500 - 23, 8), (15, 8)],
+                         ids=["under-a-tile", "K1", "past-the-grid-K8", "under-a-slice-K8"])
+def test_patch_attention_tensor_core_body(cuda, retrieval_mode, n, k):
+    """The bf16 body (persistent blocks, 16-row slices per warp): N smaller
+    than a 64-row tile and than a 16-row slice, N no multiple of 64, more
+    slices than one round of the persistent grid (12 warps on each of an
+    H100's 132 SMs: 396 tiles), K = 1 and K = 8."""
+    q = -(-n // 64)
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(16), q, 50, 64, 128, k)
+    x = torch.from_numpy(xt).reshape(-1, 128)[:n].to(cuda, torch.bfloat16).contiguous()
+    rows = np.random.default_rng(17).integers(0, 50 * 64, (n, k))
+    p = torch.from_numpy(bank).reshape(-1, 128)[torch.from_numpy(rows)] \
+        .to(cuda, torch.bfloat16).contiguous()
+    theta, phi = theta.to(cuda, torch.bfloat16), phi.to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        before = pa.patch_attention.launches
+        out, sel = pa.patch_attention(x, p, theta, phi, k, retrieval_mode, return_selection=True)
+        torch.cuda.synchronize()
+        assert pa.patch_attention.launches == before + 1
+        assert pa.patch_attention.math == "mma.bf16"
+        want, want_sel = pa.patch_attention_plain(x, p, theta, phi, k, retrieval_mode)
+    assert out.shape == x.shape and out.dtype == torch.bfloat16 and sel.shape == (n,)
+    assert int(sel.min()) >= 0 and int(sel.max()) < k
+    _agree(out, sel, want, want_sel, 0.99, _BF16_TOL[retrieval_mode])
+    assert float((out.float() - want.float()).abs().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("retrieval_mode", [True, False], ids=["hard", "softmax"])
+@pytest.mark.parametrize("q, k", [(3, 4), (500, 4), (5, 1), (450, 8)],
+                         ids=["under-the-grid", "past-the-grid", "K1", "past-the-grid-K8"])
+def test_gathered_attention_tensor_core_body(cuda, retrieval_mode, q, k):
+    """The bf16 body over bank rows gathered by index: fewer tiles than the
+    persistent grid has blocks and more slices than one round of it, K = 1
+    and K = 8."""
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(18), q, 50, 64, 128, k)
+    args = [torch.from_numpy(a).to(cuda, torch.bfloat16) for a in (xt, bank)] + [
+        torch.from_numpy(idx).to(cuda)]
+    theta, phi = theta.to(cuda, torch.bfloat16), phi.to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        before = pa.gathered_patch_attention.launches
+        out, sel = pa.gathered_patch_attention(*args, theta, phi, k, retrieval_mode,
+                                               return_selection=True)
+        torch.cuda.synchronize()
+        assert pa.gathered_patch_attention.launches == before + 1
+        assert pa.gathered_patch_attention.math == "mma.bf16"
+        want, want_sel = pa.gathered_patch_attention_plain(*args, theta, phi, k, retrieval_mode)
+    assert out.shape == (q, 64, 128) and sel.shape == (q, 64)
+    _agree(out, sel, want, want_sel, 0.99, _BF16_TOL[retrieval_mode])
+    assert float((out.float() - want.float()).abs().mean()) <= 1e-3
+
+
+def test_attention_float32_keeps_the_fma_body(cuda):
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(19), 3, 9, 64, 128, 4)
+    args = [torch.from_numpy(a).to(cuda) for a in (xt, bank, idx)]
+    with torch.no_grad():
+        pa.gathered_patch_attention(*args, theta.to(cuda), phi.to(cuda), 4)
+        pa.gathered_patch_attention_v1(*[a.bfloat16() for a in args[:2]], args[2],
+                                       theta.to(cuda).bfloat16(), phi.to(cuda).bfloat16(), 4)
+    assert pa.gathered_patch_attention.math == "fma.f32"
+    assert pa.gathered_patch_attention_v1.math == "fma.f32"
+
+
 @pytest.mark.parametrize("retrieval_mode", [True, False], ids=["hard", "softmax"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_gathered_attention_v1_kernel_matches_plain(cuda, retrieval_mode, dtype):
@@ -197,6 +269,33 @@ def test_decoder_tail_kernel_matches_plain(cuda, nf, s, dtype):
     # bf16: the ReLU output is rounded before the head, so sums taken in
     # another order may round to the neighbouring bf16 value
     assert float((out - want).abs().max()) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("s", [1, 5, 33])
+def test_decoder_tail_tensor_core_body(cuda, b, s):
+    """bf16 at nf = 16, the implicit GEMM: S below, at an odd count of and
+    past the block's 2 x 2 packed tile and the warp's 32-voxel run, on an
+    input whose pad ring is zero."""
+    rng = np.random.default_rng(20)
+    nf = 16
+    hn = torch.zeros((b, s + 2, s + 2, s + 2, 8 * nf))
+    hn[:, 1:-1, 1:-1, 1:-1] = torch.from_numpy(
+        rng.standard_normal((b, s, s, s, 8 * nf)).astype(np.float32))
+    hn = hn.to(cuda, torch.bfloat16)
+    w2 = torch.from_numpy(rng.standard_normal((3, 3, 3, nf, nf)).astype(np.float32)
+                          / np.sqrt(27 * nf)).to(cuda, torch.bfloat16)
+    wh = torch.from_numpy(rng.standard_normal(nf).astype(np.float32)
+                          / np.sqrt(nf)).to(cuda, torch.bfloat16)
+    before = dt.decoder_tail.launches
+    out = dt.decoder_tail(hn, w2, wh, -0.1)
+    torch.cuda.synchronize()
+    assert dt.decoder_tail.launches == before + 1 and dt.decoder_tail.math == "mma.bf16"
+    want = dt.decoder_tail_plain(hn, w2, wh, -0.1)
+    assert out.shape == (b, s, s, s, 8) and out.dtype == torch.float32
+    assert float((out - want).abs().max()) <= 1e-2
+    dt.decoder_tail(hn.float(), w2.float(), wh.float(), -0.1)
+    assert dt.decoder_tail.math == "fma.f32"
 
 
 @pytest.mark.parametrize("integer", [True, False], ids=["voxel", "float"])

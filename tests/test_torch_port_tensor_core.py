@@ -1,0 +1,59 @@
+"""The host side of the tensor-core kernels (csrc/decoder_tail.cu and the
+bf16 body of csrc/attention.cuh), on the CPU: which instruction path a
+launch is reported to take, and that CPU tensors take neither. The kernels
+themselves run in tests/test_torch_port_cuda.py, on a CUDA card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from retrieval_fuse_tpu_torch.models.attention import AttentionFeatureEncoder
+from retrieval_fuse_tpu_torch.ops import _build
+from retrieval_fuse_tpu_torch.ops import decoder_tail as dt
+from retrieval_fuse_tpu_torch.ops import patch_attention as pa
+
+
+@pytest.mark.parametrize("dtype, nf, want", [
+    (torch.bfloat16, 16, "mma.bf16"), (torch.bfloat16, 8, "fma.f32"),
+    (torch.bfloat16, 4, "fma.f32"), (torch.float32, 16, "fma.f32"),
+    (torch.float32, 4, "fma.f32")])
+def test_decoder_tail_math_follows_the_dispatch(dtype, nf, want):
+    """csrc/decoder_tail.cu sends bf16 at nf = 16 to the tensor-core body and
+    every other width and type it takes to the float32-FMA body."""
+    assert nf in dt.KERNEL_NF
+    assert dt.kernel_math(dtype, nf) == want
+
+
+@pytest.mark.parametrize("kernel, dtype, want", [
+    ("patch_attention", torch.bfloat16, "mma.bf16"),
+    ("gathered_attention", torch.bfloat16, "mma.bf16"),
+    ("gathered_attention_v1", torch.bfloat16, "fma.f32"),
+    ("patch_attention", torch.float32, "fma.f32"),
+    ("gathered_attention", torch.float32, "fma.f32"),
+    ("gathered_attention_v1", torch.float32, "fma.f32")])
+def test_attention_math_follows_the_dispatch(kernel, dtype, want):
+    """patch_attention.cu and gathered_attention.cu send bf16 to the
+    tensor-core body; float32, and the staged kernel in both types, keep the
+    float32-FMA body."""
+    assert kernel in _build.KERNELS
+    assert pa.kernel_math(kernel, dtype) == want
+
+
+def test_cpu_tensors_take_the_plain_versions_and_report_no_path():
+    """On CPU tensors a wrapper runs its plain version: no launch is counted
+    and the instruction path of the last launch stays as it was."""
+    rng = np.random.default_rng(0)
+    theta, phi = AttentionFeatureEncoder(128, 32), AttentionFeatureEncoder(128, 32)
+    x = torch.from_numpy(rng.standard_normal((5, 128)).astype(np.float32)).bfloat16()
+    p = torch.from_numpy(rng.standard_normal((5, 2, 128)).astype(np.float32)).bfloat16()
+    hn = torch.zeros((1, 3, 3, 3, 128), dtype=torch.bfloat16)
+    w2, wh = torch.zeros((3, 3, 3, 16, 16), dtype=torch.bfloat16), torch.zeros(16)
+    before = (pa.patch_attention.launches, pa.patch_attention.math,
+              dt.decoder_tail.launches, dt.decoder_tail.math)
+    with torch.no_grad():
+        out = pa.patch_attention(x, p, theta.bfloat16(), phi.bfloat16(), 2)
+        tail = dt.decoder_tail(hn, w2, wh, 0.5)
+    assert out.shape == x.shape and tail.shape == (1, 1, 1, 1, 8)
+    assert before == (pa.patch_attention.launches, pa.patch_attention.math,
+                      dt.decoder_tail.launches, dt.decoder_tail.math)

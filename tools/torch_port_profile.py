@@ -73,7 +73,10 @@ def main(argv=None) -> int:
     chunks = synthetic_df(rng, 128, 8, cfg["dataset_train"]["voxel_size_input"], dev)[..., None]
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    print(torch.cuda.get_device_name(0), flush=True)
+    import subprocess
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+          or torch.cuda.get_device_name(0), flush=True)
     for batch in (64, 128):
         x = chunks[:batch]
         for _ in range(2):
