@@ -9,9 +9,10 @@ latent 64, a 27,132-row database and feature bank; random weights and data
 from --seed; data are distance fields of random spheres and boxes, as the
 JAX package's synthetic scenes), holds each of six kernels against its
 plain PyTorch version at the serving shapes (float32, the algorithm check,
-and bf16), times kernel, plain version, a library call where one exists and
-the bound, records which instruction path each attention and decoder-tail
-launch took (bf16 on the tensor cores, float32 on FMAs), then drives the
+and bf16; the attentions with hard and with softmax selection), times
+kernel, plain version, a library call where one exists and the bound,
+records which instruction path each attention and decoder-tail launch took
+(bf16 on the tensor cores, float32 on FMAs), then drives the
 serving paths, each with the kernel launch counts set to 0 just before and
 read just after:
   - serve_directory with the shipped variant (FAST_VARIANT, bf16) at batch
@@ -32,7 +33,9 @@ kernel in 8192-query batches and `evaluate` through the chamfer kernel,
 one launch per val scene. It checks the mapping of 2,048 sampled train
 queries against a dense float32 search, the chamfer launches, and the
 metrics against the plain chamfer's; then holds the chamfer kernel against
-its plain version at the evaluate shape and at 128 batched pairs.
+its plain version at the evaluate shape, on two pairs cut so that the
+kernel's split of the streamed set is ragged or mostly empty, and at 128
+batched pairs.
 
 Prints the card (nvidia-smi name and power limit), one line per check,
 a `{"kernels": [...]}` JSON line and, last, `{"ok": true, "device": ...}`.
@@ -69,10 +72,16 @@ RETRIEVAL_VAL_CHUNKS = 64
 MAP_SAMPLE = 2048       # train queries checked against a dense search
 CHAMFER_PAIRS = 128     # the chamfer kernel's batched check
 CHAMFER_CAPACITY = 16384
-#: engine ms per batch-128 call in bf16 while the decoder tail and the attention
-#: body still multiplied bf16 on float32 FMAs (NVIDIA H100 80GB HBM3, 700.00 W),
-#: printed beside this run's
-FMA_BODY_ENGINE_MS = {"fused+pallasg2+topk1p": 53.80, CDEC_VARIANT: 69.09}
+#: engine ms per batch-128 call in bf16 while the path's decoder tail and
+#: attention body still multiplied bf16 on float32 FMAs (NVIDIA H100 80GB HBM3,
+#: 700.00 W), printed beside this run's
+FMA_BODY_ENGINE_MS = {"fused+pallasg2+topk1p": 53.80, CDEC_VARIANT: 69.09,
+                      "fused+pallasg+topk1p+packed": 51.80}
+#: kernel ms before two kernels were redesigned (same card and limit), printed
+#: beside this run's: gathered attention v1 in bf16 on float32 FMAs with K
+#: tiles staged by cp.async; the chamfer kernel with one block per 512 points
+#: walking the whole other set, per evaluate call and at 128 batched pairs
+EARLIER_KERNEL_MS = {"attention_v1": 13.109, "chamfer": 1.288, "chamfer_batch": 3.457}
 #: the engine's other serving paths, each run at STREAM_BATCH -> the kernels
 #: it must launch there (the streaming kNN kernel is auto-selected at Q=8192)
 VARIANT_PATHS = {
@@ -292,10 +301,12 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
 def hold_attention(label: str, kernel, plain, args32: tuple, args16: tuple,
                    math16: str) -> tuple[float, float]:
     """An attention kernel against its plain version: float32 (selections
-    agree on >= 99.9% of rows, max |diff| <= 1e-4 on them) and bf16
-    (selections agree on >= 99%); the float32 launch must report the FMA
-    path and the bf16 launch the path `math16`. Returns (float32 max |diff|,
-    bf16 share)."""
+    agree on >= 99.9% of rows, max |diff| <= 1e-4 on them) and bf16 with
+    hard and with softmax selection (argmax candidates agree on >= 99%, mean
+    |diff| <= 1e-3 on them: rows differ only where float32 sums taken in
+    another order round to a neighbouring bf16 value); the float32 launch
+    must report the FMA path and the bf16 launches the path `math16`.
+    Returns (float32 max |diff|, bf16 share with hard selection)."""
     import torch
     out, sel = kernel(*args32, return_selection=True)
     check(kernel.math == "fma.f32", f"{label} f32: launch took {kernel.math}")
@@ -309,16 +320,21 @@ def hold_attention(label: str, kernel, plain, args32: tuple, args16: tuple,
     check(err <= 1e-4, f"{label} f32: max |diff| {err} on agreeing rows")
     log(f"{label} f32: selections agree on {share:.5%} of rows, max |diff| {err:.2e} on "
         f"them; switch open on {switch_open:.1%} of rows")
-    out16, sel16 = kernel(*args16, return_selection=True)
-    check(kernel.math == math16, f"{label} bf16: launch took {kernel.math}, not {math16}")
-    want16, want_sel16 = plain(*args16)
-    agree16 = sel16.long() == want_sel16
-    share16 = float(agree16.float().mean())
-    diff16 = (out16.float() - want16.float()).abs()[agree16]
-    check(share16 >= 0.99, f"{label} bf16: selections agree on {share16}")
-    log(f"{label} bf16 [{math16}]: selections agree on {share16:.5%} of rows, "
-        f"max |diff| {float(diff16.max()):.2e}, mean {float(diff16.mean()):.2e}")
-    return err, share16
+    shares = {}
+    for mode, hard in (("hard", True), ("softmax", False)):
+        out16, sel16 = kernel(*args16, hard, return_selection=True)
+        check(kernel.math == math16,
+              f"{label} bf16 {mode}: launch took {kernel.math}, not {math16}")
+        want16, want_sel16 = plain(*args16, hard)
+        agree16 = sel16.long() == want_sel16
+        shares[mode] = float(agree16.float().mean())
+        diff16 = (out16.float() - want16.float()).abs()[agree16]
+        check(shares[mode] >= 0.99, f"{label} bf16 {mode}: selections agree on {shares[mode]}")
+        check(float(diff16.mean()) <= 1e-3,
+              f"{label} bf16 {mode}: mean |diff| {float(diff16.mean())} on agreeing rows")
+        log(f"{label} bf16 {mode} [{math16}]: selections agree on {shares[mode]:.5%} of rows, "
+            f"max |diff| {float(diff16.max()):.2e}, mean {float(diff16.mean()):.2e}")
+    return err, shares["hard"]
 
 
 #: float32 operations per valid point pair of the chamfer minima: the depth-3
@@ -626,9 +642,9 @@ def main(argv=None) -> int:
             err, share16 = hold_attention(
                 f"gathered attention v1 Q={q}", pa.gathered_patch_attention_v1,
                 pa.gathered_patch_attention_v1_plain,
-                (xt32, bank32, top_idx, theta32, phi32, k), args16, "fma.f32")
+                (xt32, bank32, top_idx, theta32, phi32, k), args16, "mma.bf16")
             kernels["attention_v1"] = dict(
-                name="gathered_patch_attention_v1", route="cuda", math="fma.f32",
+                name="gathered_patch_attention_v1", route="cuda", math="mma.bf16",
                 source="retrieval_fuse_tpu_torch/csrc/gathered_attention_v1.cu",
                 replaces="retrieval_fuse_tpu/ops/pallas_attention.py:151", max_abs_err=err,
                 ms=cuda_ms(lambda: pa.gathered_patch_attention_v1(*args16), 5),
@@ -636,6 +652,7 @@ def main(argv=None) -> int:
                 library_ms=None, bound_ms=attn_bound[0], bound_by=attn_bound[1],
                 f32_ms=cuda_ms(lambda: pa.gathered_patch_attention_v1(
                     xt32, bank32, top_idx, theta32, phi32, k), 3),
+                earlier_ms=EARLIER_KERNEL_MS["attention_v1"],
                 bf16_agreement=share16, shape=f"Q={q} T={t_rows} F={f} K={k} bf16")
 
             # patch attention (kernel 4) at the `pallasp` shape: N = Q·T rows,
@@ -710,6 +727,8 @@ def main(argv=None) -> int:
         for kr in kernels.values():
             lib_ms = "none" if kr["library_ms"] is None else f"{kr['library_ms']:.3f} ms"
             math = f" [{kr['math']}]" if "math" in kr else ""
+            if "earlier_ms" in kr:
+                math += f" ({kr['earlier_ms']:.3f} ms before its redesign)"
             log(f"{kr['name']}{math}: kernel {kr['ms']:.3f} ms, plain {kr['plain_ms']:.3f} ms, "
                 f"library {lib_ms}, bound {kr['bound_ms']:.3f} ms ({kr['bound_by']}) "
                 f"[{kr['shape']}; {card}]")
@@ -795,7 +814,11 @@ def main(argv=None) -> int:
             rec.update(engine_ms=cuda_ms(lambda: eng(xb), 3), launches=counts)
             rec["engine_chunks_per_s"] = STREAM_BATCH / (rec["engine_ms"] / 1e3)
             paths[variant] = rec
-            log(f"path {variant} batch {STREAM_BATCH}: engine {rec['engine_ms']:.2f} ms/batch "
+            was = ""
+            if variant in FMA_BODY_ENGINE_MS:
+                rec["fma_body_engine_ms"] = FMA_BODY_ENGINE_MS[variant]
+                was = f" ({FMA_BODY_ENGINE_MS[variant]:.2f} ms on float32 FMAs)"
+            log(f"path {variant} batch {STREAM_BATCH}: engine {rec['engine_ms']:.2f} ms/batch{was} "
                 f"bf16 = {rec['engine_chunks_per_s']:.1f} chunks/s; launches {counts} [{card}]")
         results["paths"] = paths
 
@@ -898,6 +921,16 @@ def main(argv=None) -> int:
         eval_args = [point_args([pair], cap) for pair in occ]
         err = hold_chamfer(f"evaluate shape (B=1, cap {cap})", eval_args)
         cham_bound = chamfer_bound(eval_args)
+        # a B = 1 call is split up to 8 ways over the streamed set: the first
+        # scene with one set cut to a count that no split count divides (the
+        # last run is ragged), and to fewer points than there are runs
+        a0, n_a0, b0, n_b0 = eval_args[0]
+        ragged = int(n_b0) // 8 * 8 - 3
+        check(ragged > 8, f"chamfer: the first val scene has only {int(n_b0)} points")
+        err = max(err, hold_chamfer(f"ragged split (B=1, {int(n_a0)} x {ragged} points)",
+                                    [[a0, n_a0, b0, torch.full_like(n_b0, ragged)]]))
+        err = max(err, hold_chamfer(f"under one split (B=1, {int(n_a0)} x 3 points)",
+                                    [[a0, n_a0, b0, torch.full_like(n_b0, 3)]]))
         shells = [synthetic_df(rng, CHAMFER_PAIRS, 64, rcfg["dataset_val"]["voxel_size_target"],
                                dev) <= thr for _ in range(2)]
         shells[1][0] = False  # one pair with an empty set
@@ -915,14 +948,18 @@ def main(argv=None) -> int:
             batch_ms=cuda_ms(lambda: chamfer_minima(*batch_args), 5),
             batch_plain_ms=cuda_ms(lambda: chamfer_minima_plain(*batch_args), 1),
             batch_bound_ms=batch_bound[0], batch_bound_by=batch_bound[1],
+            earlier_ms=EARLIER_KERNEL_MS["chamfer"],
+            earlier_batch_ms=EARLIER_KERNEL_MS["chamfer_batch"],
             shape=f"{n_eval} val scenes, B=1, cap {cap}; batched B={CHAMFER_PAIRS}, "
                   f"cap {CHAMFER_CAPACITY}; f32 voxel coordinates")
         kr = kernels["chamfer"]
-        log(f"chamfer: kernel {kr['ms']:.3f} ms per evaluate call, plain {kr['plain_ms']:.3f} "
+        log(f"chamfer: kernel {kr['ms']:.3f} ms per evaluate call ({kr['earlier_ms']:.3f} ms "
+            f"before its redesign), plain {kr['plain_ms']:.3f} "
             f"ms, library none, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}: "
             f"{CHAMFER_OPS_PER_PAIR} float32 operations per valid point pair at 67 TFLOP/s, "
             f"bytes at 3.35 TB/s); batched "
-            f"B={CHAMFER_PAIRS}: kernel {kr['batch_ms']:.3f} ms, plain "
+            f"B={CHAMFER_PAIRS}: kernel {kr['batch_ms']:.3f} ms ({kr['earlier_batch_ms']:.3f} "
+            f"ms before), plain "
             f"{kr['batch_plain_ms']:.3f} ms, bound {kr['batch_bound_ms']:.3f} ms "
             f"({kr['batch_bound_by']}) [{card}]")
         for key in kernels:

@@ -20,10 +20,11 @@
 // Two bodies compute this, chosen by a kernel from its element type.
 //
 // bf16 on the tensor cores (`attend_tiles_mma`; gathered_attention.cu and
-// patch_attention.cu): bf16 products with float32 sums are what
-// mma.sync.m16n8k16.bf16 computes, so only the order of the sums differs
-// from the plain version. The design answers what bounds the body on an
-// H100:
+// patch_attention.cu; gathered_attention_v1.cu puts the same pieces together
+// around its staged candidates and keeps only phi resident): bf16 products
+// with float32 sums are what mma.sync.m16n8k16.bf16 computes, so only the
+// order of the sums differs from the plain version. The design answers what
+// bounds the body on an H100:
 //   - Weights stay in shared memory for the life of the block: theta and
 //     phi, 2 x 106,496 bytes of bf16, laid out once in the order the B
 //     fragments are read (one 16-byte load a lane for a k16 step of two n8
@@ -50,9 +51,9 @@
 //   warps change little (12 warps a block: 7% over 8). Measured times:
 //   PERF.md.
 //
-// float32 FMAs (`attend_tile`; the float32 launches of those two kernels,
-// and gathered_attention_v1.cu in both types): float32 on the tensor cores
-// would be TF32 (~3 decimal digits). One block of 256 threads per tile. The
+// float32 FMAs (`attend_tile`; the float32 launches of the three kernels):
+// float32 on the tensor cores would be TF32 (~3 decimal digits). One block
+// of 256 threads per tile. The
 // tile's rows are brought into a shared-memory activation buffer (float32),
 // and each MLP layer is a shared-memory-tiled GEMM: 32-row chunks of the
 // weight matrix (read from global memory, where the 213 KB of theta + phi
@@ -478,65 +479,63 @@ __device__ __forceinline__ float row_norm_mma(const float (&e)[kC / 8][4], int h
   return fmaxf(sqrtf(rf_mma::quad_sum(ss)), 1e-12f);
 }
 
-struct MmaWeights {
-  const uint32_t* w_theta;
-  const float* b_theta;
-  const uint32_t* w_phi;
-  const float* b_phi;
-  float* scores;  // this warp's (kSlice, kScoreLd)
-};
-
-// Attention over rows [row0, row0 + 16) of the tile of row source `r`, by
-// one warp; writes its valid rows to out (rows kF apart) and, if sel_out is
-// not null, each row's argmax candidate to sel_out[i].
-template <bool kHard, typename Rows>
-__device__ __forceinline__ void attend_slice_mma(const Rows& r, int row0, const MmaWeights& m,
-                                                 float sharpness,
-                                                 __nv_bfloat16* __restrict__ out,
-                                                 int* __restrict__ sel_out) {
-  using T = __nv_bfloat16;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int K = r.K;
-  RowLoads ld;
-  uint32_t a[8][4];
-  float emb[kC / 8][4], xf[kC / 8][4];
-
-  load_rows16(r.x, kF, row0, r.n, lane, ld);
-  to_fragments(ld, a);
-  load_rows16(r.cand(0), r.stride, row0, r.n, lane, ld);  // in flight under theta
-  mlp_mma(a, m.w_theta, m.b_theta, lane, xf);
+// The staged counterpart of `load_rows16`: rows row0 + g and row0 + g + 8 of a
+// whole (kT, kF) tile in shared memory. The quarter-warps' 16-byte loads meet
+// two to a bank (rows are 256 bytes apart); at 8 loads per ~400 mma that does
+// not show.
+__device__ __forceinline__ void staged_rows16(const __nv_bfloat16* tile, int row0, int lane,
+                                              RowLoads& ld) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float d = row_norm_mma(xf, h);
+    const __nv_bfloat16* p = tile + (row0 + g + 8 * h) * kF + 8 * t;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) ld.raw[h][c] = rf_mma::load_shared16(p + 32 * c);
+  }
+}
+
+// an MLP result of rows g and g + 8, scaled to unit length in place
+__device__ __forceinline__ void normalise_mma(float (&e)[kC / 8][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float d = row_norm_mma(e, h);
 #pragma unroll
     for (int j = 0; j < kC / 8; ++j) {
-      xf[j][2 * h] /= d;
-      xf[j][2 * h + 1] /= d;
+      e[j][2 * h] /= d;
+      e[j][2 * h + 1] /= d;
     }
   }
+}
 
-  for (int k = 0; k < K; ++k) {
-    to_fragments(ld, a);
-    if (k + 1 < K) load_rows16(r.cand(k + 1), r.stride, row0, r.n, lane, ld);
-    mlp_mma(a, m.w_phi, m.b_phi, lane, emb);
+// scores[row][k] = xf . l2norm(emb) for the warp's rows g and g + 8; xf is
+// the rows' normalised theta embedding, emb candidate k's MLP result
+__device__ __forceinline__ void score_mma(const float (&xf)[kC / 8][4],
+                                          const float (&emb)[kC / 8][4], float* scores, int k,
+                                          int lane) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float d = row_norm_mma(emb, h);
-      float s = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const float d = row_norm_mma(emb, h);
+    float s = 0.f;
 #pragma unroll
-      for (int j = 0; j < kC / 8; ++j) {
-        s = fmaf(xf[j][2 * h], emb[j][2 * h] / d, s);
-        s = fmaf(xf[j][2 * h + 1], emb[j][2 * h + 1] / d, s);
-      }
-      s = rf_mma::quad_sum(s);
-      if (t == 0) m.scores[(g + 8 * h) * kScoreLd + k] = s;
+    for (int j = 0; j < kC / 8; ++j) {
+      s = fmaf(xf[j][2 * h], emb[j][2 * h] / d, s);
+      s = fmaf(xf[j][2 * h + 1], emb[j][2 * h + 1] / d, s);
     }
+    s = rf_mma::quad_sum(s);
+    if (t == 0) scores[(g + 8 * h) * kScoreLd + k] = s;
   }
-  __syncwarp();
+}
 
-  // lane i selects for row i: its scores become its blend weights
+// Lane i selects for row row0 + i of a tile with n valid rows: its K scores
+// become its blend weights and scores[i][kMaxK] its switch; its argmax
+// candidate goes to sel_out[row0 + i] if sel_out is not null. The warp's
+// scores must be visible (__syncwarp) before, and its weights after.
+template <bool kHard>
+__device__ __forceinline__ void select_mma(float* scores, int K, float sharpness, int lane,
+                                           int row0, int n, int* __restrict__ sel_out) {
   if (lane < kSlice) {
-    float* s = m.scores + lane * kScoreLd;
+    float* s = scores + lane * kScoreLd;
     float mx = s[0];
     int best = 0;
     for (int k = 1; k < K; ++k) {
@@ -557,16 +556,23 @@ __device__ __forceinline__ void attend_slice_mma(const Rows& r, int row0, const 
       for (int k = 0; k < K; ++k) s[k] /= sum;
     }
     s[kMaxK] = fmaxf(mx, 0.f);
-    if (sel_out != nullptr && row0 + lane < r.n) sel_out[row0 + lane] = best;
+    if (sel_out != nullptr && row0 + lane < n) sel_out[row0 + lane] = best;
   }
-  __syncwarp();
+}
 
-  // blend, 16 bytes of bf16 per step, from the original rows
+// out = x (1 - switch) + (sum_k w_k p_k) switch for rows [row0, row0 + 16) of
+// the tile of row source `r`, by one warp, 16 bytes of bf16 per step, from
+// the original rows in global memory and the weights `select_mma` left
+template <typename Rows>
+__device__ __forceinline__ void blend_mma(const Rows& r, int row0, const float* scores, int lane,
+                                          __nv_bfloat16* __restrict__ out) {
+  using T = __nv_bfloat16;
   constexpr int kE = 8;
+  const int K = r.K;
   for (int v = lane; v < kSlice * kF / kE; v += 32) {
     const int lrow = v / (kF / kE), row = row0 + lrow, col = v % (kF / kE) * kE;
     if (row >= r.n) continue;
-    const float* ws = m.scores + lrow * kScoreLd;
+    const float* ws = scores + lrow * kScoreLd;
     const uint4 xraw = *reinterpret_cast<const uint4*>(r.x + row * kF + col);
     const T* xv = reinterpret_cast<const T*>(&xraw);
     float acc[kE];
@@ -588,6 +594,46 @@ __device__ __forceinline__ void attend_slice_mma(const Rows& r, int row0, const 
       ov[e] = from_f32<T>(to_f32(xv[e]) * (1.f - sw) + acc[e] * sw);
     *reinterpret_cast<uint4*>(out + row * kF + col) = oraw;
   }
+}
+
+struct MmaWeights {
+  const uint32_t* w_theta;
+  const float* b_theta;
+  const uint32_t* w_phi;
+  const float* b_phi;
+  float* scores;  // this warp's (kSlice, kScoreLd)
+};
+
+// Attention over rows [row0, row0 + 16) of the tile of row source `r`, by
+// one warp; writes its valid rows to out (rows kF apart) and, if sel_out is
+// not null, each row's argmax candidate to sel_out[i].
+template <bool kHard, typename Rows>
+__device__ __forceinline__ void attend_slice_mma(const Rows& r, int row0, const MmaWeights& m,
+                                                 float sharpness,
+                                                 __nv_bfloat16* __restrict__ out,
+                                                 int* __restrict__ sel_out) {
+  const int lane = threadIdx.x & 31;
+  const int K = r.K;
+  RowLoads ld;
+  uint32_t a[8][4];
+  float emb[kC / 8][4], xf[kC / 8][4];
+
+  load_rows16(r.x, kF, row0, r.n, lane, ld);
+  to_fragments(ld, a);
+  load_rows16(r.cand(0), r.stride, row0, r.n, lane, ld);  // in flight under theta
+  mlp_mma(a, m.w_theta, m.b_theta, lane, xf);
+  normalise_mma(xf);
+
+  for (int k = 0; k < K; ++k) {
+    to_fragments(ld, a);
+    if (k + 1 < K) load_rows16(r.cand(k + 1), r.stride, row0, r.n, lane, ld);
+    mlp_mma(a, m.w_phi, m.b_phi, lane, emb);
+    score_mma(xf, emb, m.scores, k, lane);
+  }
+  __syncwarp();
+  select_mma<kHard>(m.scores, K, sharpness, lane, row0, r.n, sel_out);
+  __syncwarp();
+  blend_mma(r, row0, m.scores, lane, out);
   __syncwarp();  // the scores are free for the warp's next slice
 }
 
@@ -629,14 +675,19 @@ __device__ __forceinline__ void attend_tiles_mma(
   }
 }
 
-// the persistent grid for `tiles` tiles: one block per SM, or fewer where
-// the slices do not fill them; 0 if the device cannot be asked
-inline int persistent_blocks(int tiles, cudaError_t* err) {
+// the current device's SMs; 0 if the device cannot be asked
+inline int sm_count(cudaError_t* err) {
   int dev = 0, sms = 0;
   *err = cudaGetDevice(&dev);
   if (*err == cudaSuccess)
     *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (*err != cudaSuccess) return 0;
+  return *err == cudaSuccess ? sms : 0;
+}
+
+// the persistent grid for `tiles` tiles: one block per SM, or fewer where
+// the slices do not fill them; 0 if the device cannot be asked
+inline int persistent_blocks(int tiles, cudaError_t* err) {
+  const int sms = sm_count(err);
   const long long want = (static_cast<long long>(tiles) * kSlicesPerTile + kWarps - 1) / kWarps;
   return static_cast<int>(want < sms ? want : sms);
 }

@@ -1,28 +1,52 @@
-// Fused gather + K-way patch attention, one tile per block with all K
-// candidate tiles staged in shared memory.
+// Fused gather + K-way patch attention whose candidate tiles are staged in
+// shared memory by bulk asynchronous copies.
 //
 // Replaces the Pallas kernel `_gathered_kernel` /
 // `pallas_gathered_patch_attention` of
 // retrieval_fuse_tpu/ops/pallas_attention.py:151 and :188 (the serving
 // engine's `pallasg` token), v1 of gathered_attention.cu's kernel: the same
 // function, and what sets it apart is its structure. Each Pallas grid step
-// held all K index-mapped candidate blocks of its tile before it computed;
-// here each block copies its tile's K candidate (T, F) bank tiles into
-// shared memory up front with cp.async, runs theta on x while the copies
-// are in flight, waits, and then phi and the blend read the candidates from
-// shared memory instead of global memory. Python side:
-// ops/patch_attention.py; the attention body is attention.cuh's.
-//
-// Shared memory: attention.cuh's 96,768 bytes plus K * 64 * 128 elements of
-// staging: 64 KB in bf16 at K=4 (161 KB in all), 128 KB in float32 at K=4
-// (227,840 bytes, under the 232,448 a block can have). So K <= 8 in bf16
-// and K <= 4 in float32; the wrapper raises beyond. One block per SM.
+// held all K index-mapped candidate blocks of its tile in on-chip memory,
+// brought in by the pipeline while the step before computed. The Hopper
+// counterpart of that is the bulk asynchronous copy: a candidate is one
+// contiguous run of the bank (bank + idx·64·128 elements), so one thread
+// starts `cp.async.bulk` for the whole tile, the copy engine reports its
+// arrival to an mbarrier, and the compute warps spend no instruction on the
+// bytes. Python side: ops/patch_attention.py; the attention arithmetic is
+// attention.cuh's, the copy and barrier wrappers are mma.cuh's.
 //
 // Bound on the H100: as gathered_attention.cu, 0.282 ms at Q=8192, K=4,
-// bf16 (279 GFLOP of MLP GEMMs at 989 TFLOP/s). This kernel keeps
-// attention.cuh's float32-FMA body in both types: its staged candidate
-// tiles cannot share an SM with the 213 KB of weights that the tensor-core
-// body keeps resident.
+// bf16 (279 GFLOP of MLP GEMMs at 989 TFLOP/s).
+//
+// bf16, on the tensor cores (`gathered_attention_v1_mma`). The obstacle is
+// shared memory: theta's and phi's B fragments (2 x 106,496 bytes) leave no
+// room to stage. So a persistent block (one per SM, 12 warps) owns tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ... and works in two phases, with phi
+// resident throughout:
+//   A. The rest of shared memory holds theta's fragments. Each warp runs
+//      theta on 16-row slices of the block's own tiles (attention.cuh's
+//      register chain) and writes the normalised embeddings, float32, in
+//      fragment order to a scratch tensor of the wrapper's (Q·64·32 floats:
+//      ~0.04 ms of traffic at Q = 8192). A block reads back only what it
+//      wrote, so a block barrier suffices: no grid-wide one.
+//   B. The same bytes become rings of 16 KB slots, one candidate tile a
+//      slot. Four warps (a group) own a tile, 16 rows each; each of the
+//      three groups has kSlots slots with a full and an empty mbarrier a
+//      slot, and its first lane is its producer: it starts the copy of the
+//      group's candidate j + kSlots as soon as all four warps have taken
+//      candidate j's rows into registers, which is before they compute on
+//      them, so a copy has kSlots MLPs (~10 us each) to land. A warp's 8
+//      16-byte loads from the slot are its layer-0 A fragments, as from
+//      global memory in gathered_attention.cu. Scores, selection and blend
+//      are that kernel's; the blend re-reads the selected rows from global
+//      memory (in L2 since their copy), as their slot is long recycled.
+//   The ring is candidate-granular, so K is not capped by staging: K <= 8.
+//
+// float32, on FMAs (`gathered_attention_v1`; TF32 would cost ~3 decimal
+// digits): attention.cuh's `attend_tile`, one block a tile, whose K
+// candidate tiles (K·32 KB beside the body's 96,768 bytes: K <= 4, the
+// wrapper raises beyond) are copied up front by one thread, in flight under
+// theta; phi and the blend read them from shared memory.
 
 #include "attention.cuh"
 
@@ -32,71 +56,244 @@ using namespace rf_attention;
 
 constexpr size_t kMaxSmemBytes = 232448;  // per block on sm_90
 
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
-}
+// ---- float32 ----
 
-struct WaitStaged {  // this thread's copies have landed; the caller's barrier publishes them
-  __device__ void operator()() const {
-    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-  }
+struct WaitStaged {  // the tile's K candidate copies have landed
+  uint64_t* bar;
+  __device__ void operator()() const { rf_mma::mbar_wait(bar, 0); }
 };
 
-template <typename T, bool kHard>
+template <bool kHard>
 __global__ void __launch_bounds__(kThreads, 1)
-gathered_attention_v1(const T* __restrict__ xt, const T* __restrict__ bank,
+gathered_attention_v1(const float* __restrict__ xt, const float* __restrict__ bank,
                       const int* __restrict__ idx, int K,
-                      const T* __restrict__ w_theta, const float* __restrict__ b_theta,
-                      const T* __restrict__ w_phi, const float* __restrict__ b_phi,
-                      float sharpness, T* __restrict__ out, int* __restrict__ sel_out) {
+                      const float* __restrict__ w_theta, const float* __restrict__ b_theta,
+                      const float* __restrict__ w_phi, const float* __restrict__ b_phi,
+                      float sharpness, float* __restrict__ out, int* __restrict__ sel_out) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int kE = 16 / sizeof(T);
-  T* stage = reinterpret_cast<T*>(smem + kSmemFloats);
+  __shared__ uint64_t bar;
+  constexpr unsigned kTileBytes = kT * kF * sizeof(float);
+  float* stage = smem + kSmemFloats;
   const size_t q = blockIdx.x;
-  for (int k = 0; k < K; ++k) {
-    const T* src = bank + static_cast<size_t>(idx[q * K + k]) * kT * kF;
-    T* dst = stage + k * kT * kF;
-    for (int v = threadIdx.x; v < kT * kF / kE; v += kThreads)
-      cp_async16(dst + v * kE, src + v * kE);
+  if (threadIdx.x == 0) {
+    rf_mma::mbar_init(&bar, 1);
+    rf_mma::mbar_init_fence();
   }
-  const StridedRows<T> r{xt + q * kT * kF, stage, static_cast<size_t>(kT) * kF, kF, kT, K};
-  attend_tile<T, kHard>(r, smem, w_theta, b_theta, w_phi, b_phi, sharpness, out + q * kT * kF,
-                        sel_out == nullptr ? nullptr : sel_out + q * kT, WaitStaged{});
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    rf_mma::mbar_arrive_expect_tx(&bar, K * kTileBytes);
+    for (int k = 0; k < K; ++k)
+      rf_mma::bulk_copy_to_shared(stage + k * kT * kF,
+                                  bank + static_cast<size_t>(idx[q * K + k]) * kT * kF,
+                                  kTileBytes, &bar);
+  }
+  const StridedRows<float> r{xt + q * kT * kF, stage, static_cast<size_t>(kT) * kF, kF, kT, K};
+  attend_tile<float, kHard>(r, smem, w_theta, b_theta, w_phi, b_phi, sharpness,
+                            out + q * kT * kF, sel_out == nullptr ? nullptr : sel_out + q * kT,
+                            WaitStaged{&bar});
 }
 
-template <typename T, bool kHard>
-int launch(const void* xt, const void* bank, const int* idx, int q, int k,
-           const void* w_theta, const float* b_theta, const void* w_phi,
-           const float* b_phi, float sharpness, void* out, int* sel, cudaStream_t s) {
-  const size_t smem = kSmemBytes + static_cast<size_t>(k) * kT * kF * sizeof(T);
+// ---- bf16 ----
+
+// candidate slots in a group's ring (tools/torch_port_kernel_probe.py builds
+// 1 with -DRF_PROBE_V1_SLOTS=1: a copy then starts only when the candidate
+// before it has been taken, and has one MLP to land)
+#ifndef RF_PROBE_V1_SLOTS
+#define RF_PROBE_V1_SLOTS 2
+#endif
+constexpr int kSlots = RF_PROBE_V1_SLOTS;
+constexpr int kGroupWarps = kSlicesPerTile;    // a tile's four 16-row slices
+constexpr int kGroups = kWarps / kGroupWarps;
+constexpr unsigned kSlotBytes = kT * kF * sizeof(__nv_bfloat16);
+constexpr size_t kRingBytes = static_cast<size_t>(kGroups) * kSlots * kSlotBytes;
+constexpr size_t kThetaBytes = kMlpWords * sizeof(uint32_t);
+constexpr size_t kRegionBytes = kRingBytes > kThetaBytes ? kRingBytes : kThetaBytes;
+constexpr size_t kV1SmemBytes = kRegionBytes + kThetaBytes + 2 * kBiases * sizeof(float)
+                                + kWarps * kSlice * kScoreLd * sizeof(float)
+                                + 2 * kGroups * kSlots * sizeof(uint64_t);
+static_assert(kWarps % kGroupWarps == 0 && kGroups >= 1, "whole groups of four warps");
+static_assert(kSlots >= 1 && kV1SmemBytes <= kMaxSmemBytes, "phi and the rings in one block");
+static_assert((kRegionBytes + kThetaBytes + 2 * kBiases * sizeof(float)
+               + kWarps * kSlice * kScoreLd * sizeof(float)) % 8 == 0, "the barriers' alignment");
+
+template <bool kHard>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+gathered_attention_v1_mma(const __nv_bfloat16* __restrict__ xt,
+                          const __nv_bfloat16* __restrict__ bank, const int* __restrict__ idx,
+                          int Q, int K, const __nv_bfloat16* __restrict__ w_theta,
+                          const float* __restrict__ b_theta,
+                          const __nv_bfloat16* __restrict__ w_phi,
+                          const float* __restrict__ b_phi, float sharpness,
+                          float* xf_scratch,  // written in phase A, read in phase B: no __ldg
+                          __nv_bfloat16* __restrict__ out, int* __restrict__ sel_out) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint32_t* wt = reinterpret_cast<uint32_t*>(smem_raw);  // theta's fragments, then the rings
+  uint32_t* wp = reinterpret_cast<uint32_t*>(smem_raw + kRegionBytes);
+  float* bt = reinterpret_cast<float*>(wp + kMlpWords);
+  float* bp = bt + kBiases;
+  float* scores = bp + kBiases + (threadIdx.x >> 5) * kSlice * kScoreLd;  // this warp's
+  uint64_t* bars = reinterpret_cast<uint64_t*>(bp + kBiases + kWarps * kSlice * kScoreLd);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  stage_fragments(w_theta, wt);
+  stage_fragments(w_phi, wp);
+  for (int i = threadIdx.x; i < kBiases; i += kMmaThreads) {
+    bt[i] = b_theta[i];
+    bp[i] = b_phi[i];
+  }
+  if (threadIdx.x == 0) {
+    for (int g = 0; g < kGroups; ++g)
+      for (int s = 0; s < kSlots; ++s) {
+        rf_mma::mbar_init(bars + (2 * g) * kSlots + s, 1);                 // full: the producer
+        rf_mma::mbar_init(bars + (2 * g + 1) * kSlots + s, kGroupWarps);   // empty: each warp
+      }
+    rf_mma::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the block's tiles: blockIdx.x + i·gridDim.x, i in [0, tiles)
+  const int tiles = (Q - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1)
+                    / static_cast<int>(gridDim.x);
+  auto tile_of = [&](int i) { return blockIdx.x + static_cast<size_t>(i) * gridDim.x; };
+  uint32_t a[8][4];
+  RowLoads ld;
+  float xf[kC / 8][4];
+
+  // A: theta on the 16-row slices of the block's tiles, the next slice's
+  // rows in flight under this one's MLP
+  const int slices = tiles * kSlicesPerTile;
+  if (warp < slices)
+    load_rows16(xt + tile_of(warp / kSlicesPerTile) * kT * kF, kF,
+                warp % kSlicesPerTile * kSlice, kT, lane, ld);
+  for (int s = warp; s < slices; s += kWarps) {
+    to_fragments(ld, a);
+    const int next = s + kWarps;
+    if (next < slices)
+      load_rows16(xt + tile_of(next / kSlicesPerTile) * kT * kF, kF,
+                  next % kSlicesPerTile * kSlice, kT, lane, ld);
+    mlp_mma(a, wt, bt, lane, xf);
+    normalise_mma(xf);
+    float4* dst = reinterpret_cast<float4*>(
+        xf_scratch + ((tile_of(s / kSlicesPerTile) * kSlicesPerTile + s % kSlicesPerTile) * 32
+                      + lane) * (kC / 2));
+#pragma unroll
+    for (int j = 0; j < kC / 8; ++j) dst[j] = make_float4(xf[j][0], xf[j][1], xf[j][2], xf[j][3]);
+  }
+  rf_mma::fence_proxy_async();  // theta's fragments were read; the copy engine may overwrite
+  __syncthreads();              // and the block's embeddings are visible to the block
+
+  // B: phi over the staged candidates of the group's tiles: the block's
+  // group + i·kGroups-th, i in [0, group_tiles). The group's candidates in
+  // order are its items; item j uses slot j % kSlots for the j / kSlots-th time.
+  const int group = warp / kGroupWarps, row0 = warp % kGroupWarps * kSlice;
+  const int group_tiles = tiles > group ? (tiles - group + kGroups - 1) / kGroups : 0;
+  const int items = group_tiles * K;
+  const T* ring = reinterpret_cast<const T*>(smem_raw + group * kSlots * kSlotBytes);
+  uint64_t* full = bars + (2 * group) * kSlots;
+  uint64_t* empty = full + kSlots;
+  const bool producer = warp % kGroupWarps == 0 && lane == 0;
+  auto start_copy = [&](int item) {
+    const size_t q = tile_of(group + item / K * kGroups);
+    const int slot = item % kSlots;
+    rf_mma::mbar_arrive_expect_tx(full + slot, kSlotBytes);
+    rf_mma::bulk_copy_to_shared(const_cast<T*>(ring) + slot * kT * kF,
+                                bank + static_cast<size_t>(idx[q * K + item % K]) * kT * kF,
+                                kSlotBytes, full + slot);
+  };
+  if (producer)
+    for (int item = 0; item < kSlots && item < items; ++item) start_copy(item);
+
+  int item = 0;
+  for (int i = 0; i < group_tiles; ++i) {
+    const size_t q = tile_of(group + i * kGroups);
+    const float4* src = reinterpret_cast<const float4*>(
+        xf_scratch + ((q * kSlicesPerTile + warp % kGroupWarps) * 32 + lane) * (kC / 2));
+#pragma unroll
+    for (int j = 0; j < kC / 8; ++j) {
+      const float4 v = src[j];
+      xf[j][0] = v.x, xf[j][1] = v.y, xf[j][2] = v.z, xf[j][3] = v.w;
+    }
+    for (int k = 0; k < K; ++k, ++item) {
+      const int slot = item % kSlots;
+      const unsigned parity = (item / kSlots) & 1;
+      rf_mma::mbar_wait(full + slot, parity);
+      staged_rows16(ring + slot * kT * kF, row0, lane, ld);
+      to_fragments(ld, a);
+      __syncwarp();  // every lane has its rows: the warp is done with the slot
+      if (lane == 0) rf_mma::mbar_arrive(empty + slot);
+      if (producer && item + kSlots < items) {
+        rf_mma::mbar_wait(empty + slot, parity);  // all four warps are done with it
+        start_copy(item + kSlots);
+      }
+      __syncwarp();
+      float emb[kC / 8][4];
+      mlp_mma(a, wp, bp, lane, emb);
+      score_mma(xf, emb, scores, k, lane);
+    }
+    const BankRows<T> r{xt + q * kT * kF, bank, idx + q * K, kT, K};
+    __syncwarp();
+    select_mma<kHard>(scores, K, sharpness, lane, row0, kT,
+                      sel_out == nullptr ? nullptr : sel_out + q * kT);
+    __syncwarp();
+    blend_mma(r, row0, scores, lane, out + q * kT * kF);
+    __syncwarp();  // the scores are free for the warp's next tile
+  }
+}
+
+template <bool kHard>
+int launch_f32(const void* xt, const void* bank, const int* idx, int q, int k,
+               const void* w_theta, const float* b_theta, const void* w_phi,
+               const float* b_phi, float sharpness, void* out, int* sel, cudaStream_t s) {
+  const size_t smem = kSmemBytes + static_cast<size_t>(k) * kT * kF * sizeof(float);
   if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_blocks(gathered_attention_v1<T, kHard>, q, kThreads, smem, s,
-                       static_cast<const T*>(xt), static_cast<const T*>(bank), idx, k,
-                       static_cast<const T*>(w_theta), b_theta,
-                       static_cast<const T*>(w_phi), b_phi, sharpness, static_cast<T*>(out),
-                       sel);
+  return launch_blocks(gathered_attention_v1<kHard>, q, kThreads, smem, s,
+                       static_cast<const float*>(xt), static_cast<const float*>(bank), idx, k,
+                       static_cast<const float*>(w_theta), b_theta,
+                       static_cast<const float*>(w_phi), b_phi, sharpness,
+                       static_cast<float*>(out), sel);
+}
+
+template <bool kHard>
+int launch_bf16(const void* xt, const void* bank, const int* idx, int q, int k,
+                const void* w_theta, const float* b_theta, const void* w_phi,
+                const float* b_phi, float sharpness, void* out, int* sel, float* scratch,
+                cudaStream_t s) {
+  using T = __nv_bfloat16;
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  const int sms = sm_count(&err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int want = (q + kGroups - 1) / kGroups;  // a tile for every group first
+  return launch_blocks(gathered_attention_v1_mma<kHard>, want < sms ? want : sms, kMmaThreads,
+                       kV1SmemBytes, s, static_cast<const T*>(xt), static_cast<const T*>(bank),
+                       idx, q, k, static_cast<const T*>(w_theta), b_theta,
+                       static_cast<const T*>(w_phi), b_phi, sharpness, scratch,
+                       static_cast<T*>(out), sel);
 }
 
 }  // namespace
 
-// The operands of rf_gathered_attention (gathered_attention.cu); in
-// addition k * 64 * 128 * sizeof(element) must fit the staging budget
-// (k <= 4 in float32, k <= 8 in bfloat16). Returns a cudaError_t value.
+// The operands of rf_gathered_attention (gathered_attention.cu), and
+// `scratch`: q * 64 * 32 float32 for bfloat16 (the theta embeddings between
+// the kernel's phases), unused for float32. bfloat16 runs on the tensor
+// cores with 1 <= k <= 8; float32 on FMAs with k * 64 * 128 * 4 bytes of
+// staging, k <= 4. Returns a cudaError_t value.
 extern "C" int rf_gathered_attention_v1(int dtype, const void* xt, const void* bank,
                                         const int* idx, int q, int k, const void* w_theta,
                                         const float* b_theta, const void* w_phi,
                                         const float* b_phi, int hard, float sharpness,
-                                        void* out, int* sel, cudaStream_t stream) {
+                                        void* out, int* sel, float* scratch,
+                                        cudaStream_t stream) {
   if (k < 1 || k > kMaxK || q < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return hard ? launch<float, true>(xt, bank, idx, q, k, w_theta, b_theta, w_phi, b_phi,
-                                      sharpness, out, sel, stream)
-                : launch<float, false>(xt, bank, idx, q, k, w_theta, b_theta, w_phi,
-                                       b_phi, sharpness, out, sel, stream);
-  return hard ? launch<__nv_bfloat16, true>(xt, bank, idx, q, k, w_theta, b_theta, w_phi,
-                                            b_phi, sharpness, out, sel, stream)
-              : launch<__nv_bfloat16, false>(xt, bank, idx, q, k, w_theta, b_theta,
-                                             w_phi, b_phi, sharpness, out, sel, stream);
+    return hard ? launch_f32<true>(xt, bank, idx, q, k, w_theta, b_theta, w_phi, b_phi,
+                                   sharpness, out, sel, stream)
+                : launch_f32<false>(xt, bank, idx, q, k, w_theta, b_theta, w_phi, b_phi,
+                                    sharpness, out, sel, stream);
+  return hard ? launch_bf16<true>(xt, bank, idx, q, k, w_theta, b_theta, w_phi, b_phi,
+                                  sharpness, out, sel, scratch, stream)
+              : launch_bf16<false>(xt, bank, idx, q, k, w_theta, b_theta, w_phi, b_phi,
+                                   sharpness, out, sel, scratch, stream);
 }

@@ -1,6 +1,7 @@
 // Warp-level tensor-core and async-copy primitives for sm_90a, shared by
 // attention.cuh and decoder_tail.cu: the bf16 m16n8k16 product with float32
-// sums, ldmatrix, cp.async and the bf16 pair pack.
+// sums, ldmatrix, cp.async, the bf16 pair pack, and (gathered_attention_v1.cu)
+// the bulk asynchronous copy with the mbarrier that reports its arrival.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4), each
 // register a pair of bf16 with the lower index in the low half:
@@ -66,6 +67,86 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src)
 // this thread's cp.async copies have landed (a barrier publishes them)
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ---- bulk asynchronous copies and their barriers ----
+//
+// An mbarrier is a 64-bit word in shared memory that counts arrivals and,
+// for a bulk copy, the bytes still under way. A phase completes when both
+// reach zero; a waiter names the parity of the phase it waits for (the n-th
+// phase has parity n & 1). One thread starts a copy of a contiguous run:
+// the copy engine moves it and reports to the barrier, and no thread spends
+// registers or instructions on the bytes.
+
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// by one thread; `mbar_init_fence` and a block barrier before anyone uses it
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(shared_address(bar)),
+               "r"(arrivals)
+               : "memory");
+}
+
+// makes initialised barriers visible to the copy engine
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(shared_address(bar))
+               : "memory");
+}
+
+// one arrival that also announces `bytes` of bulk copies to this phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   shared_address(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed; what the copies of that
+// phase wrote is then visible to the caller
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned addr = shared_address(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned, reported to `bar`; by one thread
+__device__ __forceinline__ void bulk_copy_to_shared(void* dst, const void* src, unsigned bytes,
+                                                    uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(shared_address(dst)),
+      "l"(src), "r"(bytes), "r"(shared_address(bar))
+      : "memory");
+}
+
+// orders this thread's earlier loads and stores of shared memory before
+// later writes of the copy engine to the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 16 bytes of shared memory
+__device__ __forceinline__ uint4 load_shared16(const void* p) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(shared_address(p)));
+  return v;
 }
 
 }  // namespace rf_mma

@@ -50,7 +50,7 @@ KERNELS = {
     "knn": ("knn.cu", "rf_knn", [_p, _p, _p, _p, _i, _i, _i, _p]),
     "gathered_attention": ("gathered_attention.cu", "rf_gathered_attention", _GATHERED_ARGS),
     "gathered_attention_v1": ("gathered_attention_v1.cu", "rf_gathered_attention_v1",
-                              _GATHERED_ARGS),
+                              _GATHERED_ARGS[:-1] + [_p, _p]),  # + its scratch
     "patch_attention": ("patch_attention.cu", "rf_patch_attention",
                         [_i, _p, _p, _i, _i, _p, _p, _p, _p, _i, _f, _p, _p, _p]),
     "decoder_tail": ("decoder_tail.cu", "rf_decoder_tail",

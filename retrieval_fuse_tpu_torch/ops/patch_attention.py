@@ -12,27 +12,32 @@
                                `pallas_gathered_patch_attention_v2` (:249
                                `_gathered_kernel_v2`, :327); token `pallasg2`.
   gathered_patch_attention_v1  the same function; kernel
-                               csrc/gathered_attention_v1.cu, which stages a
-                               tile's K candidate tiles in shared memory,
-                               replacing `pallas_gathered_patch_attention`
-                               (:151 `_gathered_kernel`, :188); token `pallasg`.
+                               csrc/gathered_attention_v1.cu, which stages
+                               candidate tiles in shared memory with bulk
+                               asynchronous copies, replacing
+                               `pallas_gathered_patch_attention` (:151
+                               `_gathered_kernel`, :188); token `pallasg`.
 
 All three share one CUDA body (csrc/attention.cuh): theta MLP on x, phi MLP
 on every candidate, normalised scores, ReLU-of-max switch, hard argmax(25 s)
 or softmax(sharpness s) selection, blend; only the (T, F) output rows are
 written. Bound on the H100 at batch 128 (8192 tiles of 64 rows, K=4, bf16):
 279 GFLOP of MLP GEMMs, ~0.28 ms at the bf16 tensor-core rate, against
-~0.8 GB of rows, ~0.24 ms. In bf16, `patch_attention` and
-`gathered_patch_attention` run the body on the tensor cores
-(`mma.sync.m16n8k16`, bf16 products, float32 sums): persistent blocks, one
-per SM, keep theta's and phi's weights in shared memory in B-fragment order
-for all their tiles, a warp owns 16 rows, and the four-layer chain stays in
+~0.8 GB of rows, ~0.24 ms. In bf16 all three run the body on the tensor
+cores (`mma.sync.m16n8k16`, bf16 products, float32 sums): persistent blocks,
+one per SM, keep the MLP weights in shared memory in B-fragment order for
+all their tiles, a warp owns 16 rows, and the four-layer chain stays in
 registers (a layer's C fragments are the next layer's A fragments). What
 holds it then is shared-memory reads of the weight fragments, not the
-tensor rate (csrc/attention.cuh; times in PERF.md). In float32 (TF32 would
-cost ~3 decimal digits), and in `gathered_patch_attention_v1` in both types
-(its staged candidate tiles cannot share an SM with resident weights), the
-body multiplies with float32 FMAs from shared memory. Each wrapper's `.math`
+tensor rate (csrc/attention.cuh; times in PERF.md). `patch_attention` and
+`gathered_patch_attention` keep theta and phi resident and read rows from
+global memory; `gathered_patch_attention_v1` keeps phi resident, runs theta
+first on all of a block's tiles (the embeddings wait in a scratch tensor),
+and then turns theta's bytes into rings of candidate tiles that one thread
+a ring fills with `cp.async.bulk` ahead of the warps
+(csrc/gathered_attention_v1.cu). In float32 (TF32 would cost ~3 decimal
+digits) the body multiplies with float32 FMAs from shared memory; v1 then
+stages a tile's K candidates whole, which caps K at 4. Each wrapper's `.math`
 names the path of its last launch. The TPU workarounds are not carried
 over: the 512-row padding of N, the flattened index operand, the padding of
 Q to a group multiple.
@@ -52,7 +57,8 @@ from torch import nn
 from retrieval_fuse_tpu_torch.ops import _build
 
 KERNEL_ROWS, KERNEL_FEATURES, KERNEL_EMBED = 64, 128, 32
-V1_STAGE_BYTES = 128 * 1024  # shared memory for gathered_patch_attention_v1's staging
+#: shared memory for gathered_patch_attention_v1's float32 staging (K whole tiles)
+V1_STAGE_BYTES = 128 * 1024
 _LAYERS = ("fc0", "fc1", "fc2", "out")
 
 
@@ -143,11 +149,11 @@ def _pack(w: nn.Module, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]
 
 def kernel_math(kernel: str, dtype: torch.dtype) -> str:
     """The instruction path of attention kernel `kernel` (a `_build.KERNELS`
-    name) for rows of `dtype`: patch_attention.cu and gathered_attention.cu
-    send bf16 to the tensor-core body; float32, and gathered_attention_v1.cu
-    in both types, run the float32-FMA body."""
-    mma = dtype == torch.bfloat16 and kernel in ("patch_attention", "gathered_attention")
-    return "mma.bf16" if mma else "fma.f32"
+    name) for rows of `dtype`: the three kernels send bf16 to the tensor
+    cores and run float32 on FMAs."""
+    if kernel not in ("patch_attention", "gathered_attention", "gathered_attention_v1"):
+        raise ValueError(f"kernel_math: {kernel!r} is no attention kernel")
+    return "mma.bf16" if dtype == torch.bfloat16 else "fma.f32"
 
 
 def _check_kernel_operands(name: str, rows: torch.Tensor, cands: torch.Tensor, idx,
@@ -175,14 +181,17 @@ def _check_kernel_operands(name: str, rows: torch.Tensor, cands: torch.Tensor, i
 
 
 def _launch(kernel: str, rows: torch.Tensor, operands: tuple, theta, phi,
-            retrieval_mode: bool, sharpness: float, out: torch.Tensor, sel) -> str:
-    """Launch `kernel`; returns the instruction path it took."""
+            retrieval_mode: bool, sharpness: float, out: torch.Tensor, sel,
+            scratch: tuple = ()) -> str:
+    """Launch `kernel` (`scratch`: its scratch tensors, after the outputs);
+    returns the instruction path it took."""
     w_theta, b_theta = _pack(theta, rows.dtype)
     w_phi, b_phi = _pack(phi, rows.dtype)
     _build.launch(kernel, rows.device, 0 if rows.dtype == torch.float32 else 1, *operands,
                   w_theta.data_ptr(), b_theta.data_ptr(), w_phi.data_ptr(), b_phi.data_ptr(),
                   int(bool(retrieval_mode)), float(sharpness), out.data_ptr(),
-                  None if sel is None else sel.data_ptr())
+                  None if sel is None else sel.data_ptr(),
+                  *(None if t is None else t.data_ptr() for t in scratch))
     return kernel_math(kernel, rows.dtype)
 
 
@@ -215,9 +224,11 @@ def patch_attention(x: torch.Tensor, p: torch.Tensor, theta: nn.Module, phi: nn.
 
 
 def _gathered(wrapper, name: str, xt, bank_rows, top_idx, theta, phi, K, retrieval_mode,
-              sharpness, return_selection, max_stage_bytes=None):
+              sharpness, return_selection, staged: bool = False):
     """The checks and launch of the two gathered kernels (same operands), for
-    `wrapper`, whose launch count and instruction path it updates."""
+    `wrapper`, whose launch count and instruction path it updates. `staged`:
+    the kernel is v1, whose float32 launch stages K whole tiles and whose
+    bf16 launch takes a (Q, T, C) float32 scratch for theta's embeddings."""
     _check_kernel_operands(name, xt, bank_rows, top_idx, theta, phi)
     rows, feats = KERNEL_ROWS, KERNEL_FEATURES
     q = xt.shape[0]
@@ -228,15 +239,20 @@ def _gathered(wrapper, name: str, xt, bank_rows, top_idx, theta, phi, K, retriev
     if top_idx.dtype != torch.int32 or tuple(top_idx.shape) != (q, K) or not 1 <= K <= 8:
         raise ValueError(f"{name}: top_idx must be int32 ({q}, {K}) with 1 <= K <= 8, got "
                          f"{top_idx.dtype} {tuple(top_idx.shape)}")
-    if max_stage_bytes is not None and K * rows * feats * xt.element_size() > max_stage_bytes:
-        raise ValueError(f"{name}: K={K} candidate tiles of {xt.dtype} exceed the "
-                         f"{max_stage_bytes}-byte staging area (K <= 4 in float32)")
+    scratch = ()
+    if staged and xt.dtype == torch.float32:
+        if K * rows * feats * xt.element_size() > V1_STAGE_BYTES:
+            raise ValueError(f"{name}: K={K} float32 candidate tiles exceed the "
+                             f"{V1_STAGE_BYTES}-byte staging area (K <= 4 in float32)")
+        scratch = (None,)
+    elif staged:
+        scratch = (torch.empty((q, rows, KERNEL_EMBED), dtype=torch.float32, device=xt.device),)
     out = torch.empty_like(xt)
     sel = torch.empty((q, rows), dtype=torch.int32, device=xt.device) if return_selection else None
     if q > 0:
         wrapper.math = _launch(name, xt, (xt.data_ptr(), bank_rows.data_ptr(),
                                           top_idx.data_ptr(), q, K),
-                               theta, phi, retrieval_mode, sharpness, out, sel)
+                               theta, phi, retrieval_mode, sharpness, out, sel, scratch)
         wrapper.launches += 1
     return (out, sel) if return_selection else out
 
@@ -265,15 +281,15 @@ def gathered_patch_attention_v1(xt: torch.Tensor, bank_rows: torch.Tensor,
                                 K: int, retrieval_mode: bool = True,
                                 sharpness: float = 1024.0, return_selection: bool = False):
     """gathered_patch_attention's function, through the kernel that stages
-    each tile's K candidate tiles in shared memory (K <= 4 in float32,
-    K <= 8 in bf16)."""
+    candidate tiles in shared memory with bulk asynchronous copies (bf16: a
+    ring, K <= 8; float32: a tile's K candidates whole, K <= 4)."""
     if xt.device.type == "cpu" and bank_rows.device.type == "cpu":
         out, sel = gathered_patch_attention_v1_plain(xt, bank_rows, top_idx, theta, phi, K,
                                                      retrieval_mode, sharpness)
         return (out, sel) if return_selection else out
     return _gathered(gathered_patch_attention_v1, "gathered_attention_v1", xt, bank_rows,
                      top_idx, theta, phi, K, retrieval_mode, sharpness, return_selection,
-                     V1_STAGE_BYTES)
+                     staged=True)
 
 
 for _wrapper in (patch_attention, gathered_patch_attention, gathered_patch_attention_v1):

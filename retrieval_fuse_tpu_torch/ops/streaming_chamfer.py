@@ -3,11 +3,16 @@ distance matrix.
 
 Kernel: csrc/chamfer.cu, replacing the Pallas `pallas_chamfer`
 (retrieval_fuse_tpu/ops/pallas_chamfer.py:21 `_chamfer_kernel`, :50). Its
-bound on the H100 is the float32 operations: ~10 per valid point pair at
-67 TFLOP/s. A block holds 512 points of one set in registers and streams
-the other set through shared memory, both directions in one launch, so the
-minima need no atomics and no merge pass; tiles stop at the counts by index.
-The Pallas kernel takes one pair per call; this one takes the batch that
+bound on the H100 is the float32 operations at 67 TFLOP/s. A block holds
+256 points of one set in registers, two a thread, and streams the other
+set through shared memory, both directions in one launch; a pair costs three
+FMAs and a minimum, |q|² and the clamp being applied once a point, after
+the minimum. Where the batch alone does not fill the card (one pair per
+call in `evaluate`), the streamed set is cut in up to 8 runs over the
+blocks of a thread-block cluster, which merge their minima through
+distributed shared memory: still one launch, no atomics, and the same
+result whatever the split; tiles stop at the counts by index. The Pallas
+kernel takes one pair per call; this one takes the batch that
 ops/chamfer.chamfer_batch vmaps over, so one launch serves a whole
 Chamfer3D.update.
 

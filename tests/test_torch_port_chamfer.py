@@ -9,7 +9,9 @@ no tile multiple, one empty set (the 1e30 of the JAX kernel). On voxel
 bit-equal and only the means carry summation-order rounding (rtol 1e-6);
 on float coordinates rtol 1e-5. Metrics: rtol 1e-6, float32 reductions in
 another order. The CUDA kernel is held against the same plain version in
-test_torch_port_cuda.py.
+test_torch_port_cuda.py; here the identities its inner loop and its split of
+the streamed set rest on are pinned by a PyTorch function written in the
+kernel's order.
 """
 
 import warnings
@@ -24,7 +26,8 @@ from retrieval_fuse_tpu.ops import chamfer as jc
 from retrieval_fuse_tpu.ops.pallas_chamfer import pallas_chamfer
 from retrieval_fuse_tpu_torch.evaluation import metrics as tmet
 from retrieval_fuse_tpu_torch.ops import chamfer as tc
-from retrieval_fuse_tpu_torch.ops.streaming_chamfer import BIG, chamfer_minima
+from retrieval_fuse_tpu_torch.ops.streaming_chamfer import (
+    BIG, chamfer_minima, chamfer_minima_plain)
 
 # (n_a, n_b) per pair; caps 300 and 517 are no multiple of any tile
 COUNTS = [(300, 517), (1, 2), (77, 400), (250, 0), (0, 13)]
@@ -90,6 +93,72 @@ def test_minima_bit_equal_on_voxel_coordinates():
         d = np.asarray(jc.masked_pairwise_sqdist(jnp.asarray(a[i, :na]), jnp.asarray(b[i, :nb])))
         np.testing.assert_array_equal(min_ab[i, :na].numpy(), d.min(axis=1))
         np.testing.assert_array_equal(min_ba[i, :nb].numpy(), d.min(axis=0))
+
+
+def _kernel_order_one_way(q: torch.Tensor, o: torch.Tensor, splits: int) -> torch.Tensor:
+    """min over o of the squared distance from each point of q (n, 3), as
+    csrc/chamfer.cu computes it: the other set in `splits` even runs; in a
+    run the minimum of |v|² - 2q·v, summed onto |v|² one coordinate at a time
+    from z to x; then max(|q|² + min, 0), BIG for an empty run; the runs'
+    results merged by min."""
+    norm2 = lambda p: p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1] + p[:, 2] * p[:, 2]
+    n_o = o.shape[0]
+    run = -(-n_o // splits)
+    m = -2.0 * q
+    best = torch.full((q.shape[0],), BIG)
+    for s in range(splits):
+        v = o[min(s * run, n_o):min(s * run + run, n_o)]
+        if v.shape[0] == 0:
+            continue
+        inner = norm2(v)[None, :] + m[:, 2:3] * v[None, :, 2]
+        inner = inner + m[:, 1:2] * v[None, :, 1]
+        inner = inner + m[:, 0:1] * v[None, :, 0]
+        best = torch.minimum(best, torch.clamp(norm2(q) + inner.amin(dim=1), min=0.0))
+    return best
+
+
+def chamfer_minima_kernel_order(a, n_a, b, n_b, splits: int):
+    """chamfer_minima in the order of csrc/chamfer.cu's arithmetic."""
+    min_ab = torch.full(a.shape[:2], BIG)
+    min_ba = torch.full(b.shape[:2], BIG)
+    for i, (na, nb) in enumerate(zip(n_a.tolist(), n_b.tolist())):
+        min_ab[i, :na] = _kernel_order_one_way(a[i, :na], b[i, :nb], splits)
+        min_ba[i, :nb] = _kernel_order_one_way(b[i, :nb], a[i, :na], splits)
+    return min_ab, min_ba
+
+
+@pytest.mark.parametrize("splits", [1, 2, 8])
+@pytest.mark.parametrize("integer", [True, False], ids=["voxel", "float"])
+def test_kernel_order_minima_equal_the_plain_version(integer, splits):
+    """The clamp and |q|² moved out of the minimum, and the other set cut in
+    runs whose minima are merged (a run shorter than the others, sets smaller
+    than the number of runs, an empty set): bit-equal to the plain version on
+    voxel coordinates, where every term is an exact integer, and within 1e-5
+    on float coordinates."""
+    args = as_torch(*point_pairs(9, integer))
+    got = chamfer_minima_kernel_order(*args, splits)
+    want = chamfer_minima_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g == BIG, w == BIG)
+        if integer:
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["voxel", "float"])
+def test_kernel_order_chamfer_matches_jax_and_pallas(integer):
+    a, n_a, b, n_b = point_pairs(10, integer)
+    rtol = 1e-6 if integer else 1e-5
+    ta, tn_a, tb, tn_b = as_torch(a, n_a, b, n_b)
+    got = tc._symmetric(chamfer_minima_kernel_order(ta, tn_a, tb, tn_b, 4), tn_a, tn_b).numpy()
+    want = np.asarray(jc.chamfer_batch(jnp.asarray(a), jnp.asarray(n_a), jnp.asarray(b),
+                                       jnp.asarray(n_b)))
+    np.testing.assert_allclose(got, want, rtol=rtol)
+    for i in range(len(COUNTS)):
+        kernel = float(pallas_chamfer(jnp.asarray(a[i]), int(n_a[i]), jnp.asarray(b[i]),
+                                      int(n_b[i]), tile=256, interpret=True))
+        np.testing.assert_allclose(got[i], kernel, rtol=rtol)
 
 
 def test_masked_pairwise_sqdist_matches_jax():

@@ -211,10 +211,49 @@ def test_attention_float32_keeps_the_fma_body(cuda):
     args = [torch.from_numpy(a).to(cuda) for a in (xt, bank, idx)]
     with torch.no_grad():
         pa.gathered_patch_attention(*args, theta.to(cuda), phi.to(cuda), 4)
+        pa.gathered_patch_attention_v1(*args, theta.to(cuda), phi.to(cuda), 4)
+        assert pa.gathered_patch_attention.math == "fma.f32"
+        assert pa.gathered_patch_attention_v1.math == "fma.f32"
         pa.gathered_patch_attention_v1(*[a.bfloat16() for a in args[:2]], args[2],
                                        theta.to(cuda).bfloat16(), phi.to(cuda).bfloat16(), 4)
-    assert pa.gathered_patch_attention.math == "fma.f32"
-    assert pa.gathered_patch_attention_v1.math == "fma.f32"
+    assert pa.gathered_patch_attention_v1.math == "mma.bf16"
+
+
+@pytest.mark.parametrize("retrieval_mode", [True, False], ids=["hard", "softmax"])
+@pytest.mark.parametrize("q, k, idx_law", [
+    (3, 4, "random"), (500, 4, "random"), (5, 1, "random"), (450, 8, "random"),
+    (133, 4, "repeated"), (140, 8, "descending")],
+    ids=["under-the-grid", "past-the-grid", "K1", "past-the-grid-K8", "repeated-idx",
+         "descending-idx-K8"])
+def test_gathered_attention_v1_tensor_core_body(cuda, retrieval_mode, q, k, idx_law):
+    """The bf16 body over candidate tiles staged by bulk copies: fewer tiles
+    than a block has warp groups, tile counts that are no multiple of the
+    persistent grid (132 blocks on an H100) or of its groups, K = 1 and
+    K = 8 (more candidates than a ring has slots), a tile whose K candidates
+    are one bank row, and indices that run backwards through the bank."""
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(21), q, 50, 64, 128, k)
+    if idx_law == "repeated":
+        idx[:] = idx[:, :1]
+    elif idx_law == "descending":
+        idx[:] = (49 - (np.arange(q * k) % 50)).reshape(q, k)
+    args = [torch.from_numpy(a).to(cuda, torch.bfloat16) for a in (xt, bank)] + [
+        torch.from_numpy(idx).to(cuda)]
+    theta, phi = theta.to(cuda, torch.bfloat16), phi.to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        before = pa.gathered_patch_attention_v1.launches
+        out, sel = pa.gathered_patch_attention_v1(*args, theta, phi, k, retrieval_mode,
+                                                  return_selection=True)
+        torch.cuda.synchronize()
+        assert pa.gathered_patch_attention_v1.launches == before + 1
+        assert pa.gathered_patch_attention_v1.math == "mma.bf16"
+        want, want_sel = pa.gathered_patch_attention_v1_plain(*args, theta, phi, k,
+                                                              retrieval_mode)
+    assert out.shape == (q, 64, 128) and out.dtype == torch.bfloat16 and sel.shape == (q, 64)
+    assert int(sel.min()) >= 0 and int(sel.max()) < k
+    _agree(out, sel, want, want_sel, 0.99, _BF16_TOL[retrieval_mode])
+    assert float((out.float() - want.float()).abs().mean()) <= 1e-3
+    if idx_law == "repeated" and retrieval_mode:
+        assert int(sel.max()) == 0  # equal scores: the first candidate wins
 
 
 @pytest.mark.parametrize("retrieval_mode", [True, False], ids=["hard", "softmax"])
@@ -239,11 +278,24 @@ def test_gathered_attention_v1_kernel_matches_plain(cuda, retrieval_mode, dtype)
 
 
 def test_gathered_attention_v1_raises_past_its_staging_budget(cuda):
-    """K=5 float32 candidate tiles (160 KB) do not fit beside the activations."""
+    """K=5 float32 candidate tiles (160 KB) do not fit beside the activations;
+    bf16 stages candidate by candidate and takes every K the body does."""
     xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(13), 3, 9, 64, 128, 5)
     args = [torch.from_numpy(a).to(cuda) for a in (xt, bank, idx)]
     with pytest.raises(ValueError, match="staging"):
         pa.gathered_patch_attention_v1(*args, theta.to(cuda), phi.to(cuda), 5)
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(13), 3, 9, 64, 128, 8)
+    args = [torch.from_numpy(a).to(cuda).bfloat16() for a in (xt, bank)] + [
+        torch.from_numpy(idx).to(cuda)]
+    with torch.no_grad():
+        out = pa.gathered_patch_attention_v1(*args, theta.to(cuda).bfloat16(),
+                                             phi.to(cuda).bfloat16(), 8)
+        torch.cuda.synchronize()
+    assert out.shape == (3, 64, 128) and pa.gathered_patch_attention_v1.math == "mma.bf16"
+    with pytest.raises(ValueError, match="K <= 8"):
+        pa.gathered_patch_attention_v1(*args[:2], torch.zeros((3, 9), dtype=torch.int32,
+                                                              device=cuda),
+                                       theta.to(cuda).bfloat16(), phi.to(cuda).bfloat16(), 9)
 
 
 @pytest.mark.parametrize("nf, s", [(16, 5), (16, 33), (4, 7), (8, 3)])
@@ -330,6 +382,34 @@ def test_chamfer_kernel_matches_plain(cuda, integer):
     assert chamfer_minima.launches == before + 2
     torch.testing.assert_close(got, want, rtol=1e-6 if integer else 1e-5, atol=0)
     assert float(got[4]) == 0.0 and float(got[2]) == pytest.approx(1e30, rel=1e-5)
+
+
+@pytest.mark.parametrize("n_b", [20471, 20472, 20473, 3, 0],
+                         ids=["below-a-run-boundary", "at-a-run-boundary",
+                              "above-a-run-boundary", "fewer-than-splits", "empty"])
+def test_chamfer_kernel_splits_one_pair_across_blocks(cuda, n_b):
+    """B = 1 with 22,000 points against n_b: the kernel cuts the streamed set
+    in up to 8 even runs of ceil(n / 8) points over the blocks of a cluster
+    and merges their minima. 20,472 = 8 x 2,559: one point fewer or more
+    moves every run's boundary and leaves the last run ragged; 3 points leave
+    five runs empty. Voxel coordinates: bit-equal to the plain version."""
+    rng = np.random.default_rng(22)
+    n_a, cap = 22000, 24576
+    a = np.zeros((1, cap, 3), np.float32)
+    b = np.zeros((1, cap, 3), np.float32)
+    a[0, :n_a] = rng.integers(0, 64, (n_a, 3))
+    b[0, :n_b] = rng.integers(0, 64, (n_b, 3))
+    args = [torch.from_numpy(a).to(cuda), torch.tensor([n_a], dtype=torch.int32, device=cuda),
+            torch.from_numpy(b).to(cuda), torch.tensor([n_b], dtype=torch.int32, device=cuda)]
+    before = chamfer_minima.launches
+    got = chamfer_minima(*args)
+    torch.cuda.synchronize()
+    assert chamfer_minima.launches == before + 1
+    want = chamfer_minima_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((got[0][0, n_a:] == BIG).all()) and bool((got[1][0, n_b:] == BIG).all())
+    if n_b == 0:
+        assert bool((got[0] == BIG).all())
 
 
 def test_chamfer_kernel_rejects_what_it_does_not_take(cuda):

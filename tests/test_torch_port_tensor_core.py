@@ -28,16 +28,41 @@ def test_decoder_tail_math_follows_the_dispatch(dtype, nf, want):
 @pytest.mark.parametrize("kernel, dtype, want", [
     ("patch_attention", torch.bfloat16, "mma.bf16"),
     ("gathered_attention", torch.bfloat16, "mma.bf16"),
-    ("gathered_attention_v1", torch.bfloat16, "fma.f32"),
+    ("gathered_attention_v1", torch.bfloat16, "mma.bf16"),
     ("patch_attention", torch.float32, "fma.f32"),
     ("gathered_attention", torch.float32, "fma.f32"),
     ("gathered_attention_v1", torch.float32, "fma.f32")])
 def test_attention_math_follows_the_dispatch(kernel, dtype, want):
-    """patch_attention.cu and gathered_attention.cu send bf16 to the
-    tensor-core body; float32, and the staged kernel in both types, keep the
-    float32-FMA body."""
+    """The three attention kernels send bf16 to the tensor cores and keep
+    float32 on the FMA body."""
     assert kernel in _build.KERNELS
     assert pa.kernel_math(kernel, dtype) == want
+
+
+def test_attention_math_knows_only_the_attention_kernels():
+    with pytest.raises(ValueError, match="no attention kernel"):
+        pa.kernel_math("decoder_tail", torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_staged_kernel_on_cpu_tensors_takes_the_plain_version(dtype):
+    """gathered_patch_attention_v1 on CPU tensors: the plain version's rows
+    and selections, no launch counted, no instruction path reported; K = 8 is
+    inside the bf16 kernel's range and past the float32 kernel's staging,
+    which only a CUDA launch checks."""
+    rng = np.random.default_rng(1)
+    theta, phi = (AttentionFeatureEncoder(128, 32).to(dtype) for _ in range(2))
+    xt = torch.from_numpy(rng.standard_normal((2, 64, 128)).astype(np.float32)).to(dtype)
+    bank = torch.from_numpy(rng.standard_normal((9, 64, 128)).astype(np.float32)).to(dtype)
+    idx = torch.from_numpy(rng.integers(0, 9, (2, 8)).astype(np.int32))
+    before = (pa.gathered_patch_attention_v1.launches, pa.gathered_patch_attention_v1.math)
+    with torch.no_grad():
+        out, sel = pa.gathered_patch_attention_v1(xt, bank, idx, theta, phi, 8,
+                                                  return_selection=True)
+        want, want_sel = pa.gathered_patch_attention_v1_plain(xt, bank, idx, theta, phi, 8)
+    assert torch.equal(out, want) and torch.equal(sel, want_sel)
+    assert before == (pa.gathered_patch_attention_v1.launches,
+                      pa.gathered_patch_attention_v1.math)
 
 
 def test_cpu_tensors_take_the_plain_versions_and_report_no_path():

@@ -32,6 +32,7 @@ import argparse
 import functools
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -127,7 +128,9 @@ def main(argv=None) -> int:
 
     dictionary.batch_iterator = waited_batches
 
-    card = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    card = smi or torch.cuda.get_device_name(0)  # the name and the power limit
     rng = np.random.default_rng(args.seed)
     report = {"card": card}
     with tempfile.TemporaryDirectory() as tmp:
