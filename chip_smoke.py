@@ -9,14 +9,17 @@ latent 64, a 27,132-row database and feature bank; random weights and data
 from --seed; data are distance fields of random spheres and boxes, as the
 JAX package's synthetic scenes), holds each of six kernels against its
 plain PyTorch version at the serving shapes (float32, the algorithm check,
-and bf16; the attentions with hard and with softmax selection), times
+and bf16; the attentions with hard and with softmax selection; the kNN
+kernel also at k = 10, D = 96 and a ragged N), times
 kernel, plain version, a library call where one exists and the bound,
-records which instruction path each attention and decoder-tail launch took
-(bf16 on the tensor cores, float32 on FMAs), then drives the
+records which instruction path each attention, decoder-tail and kNN launch
+took (bf16 on the tensor cores; float32 on FMAs, or 3xTF32 for the kNN),
+then drives the
 serving paths, each with the kernel launch counts set to 0 just before and
 read just after:
   - serve_directory with the shipped variant (FAST_VARIANT, bf16) at batch
-    64 (dense kNN + the topk kernel) and batch 128 (the streaming kNN
+    64 and 128 (the streaming kNN kernel, which bf16 rows take from 1024
+    queries), with FAST_VARIANT+denseknn at batch 64 (dense kNN + the topk
     kernel), and with `fused+pallasp+topk1p+cdec` at batch 128;
   - the engine at batch 128 in bf16 and float32 for each of VARIANT_PATHS,
 checking each path's TSDF against the plain `base` engine in bf16 (MAE <
@@ -28,10 +31,12 @@ Then it drives the retrieval pipeline (retrieval/cli.py's map -> compose
 nf 32 and Patch32 nf 8 encoders, latent 64, K = 4; random weights from
 --seed) on a synthetic dataset made on the card, with as many train chunks
 as it takes for the dictionary to reach the flagship database's 27,132
-rows and 64 val chunks: the train queries run through the streaming kNN
-kernel in 8192-query batches and `evaluate` through the chamfer kernel,
-one launch per val scene. It checks the mapping of 2,048 sampled train
-queries against a dense float32 search, the chamfer launches, and the
+rows and 64 val chunks: the train and val queries run through the
+kNN in 8192-query batches, those of 4096 queries or more (the float32
+crossover) through the streaming kernel, and `evaluate` through the
+chamfer kernel, one launch per val scene. It checks the mapping of 2,048
+sampled train queries against a dense float32 search, the kNN and chamfer
+launches, and the
 metrics against the plain chamfer's; then holds the chamfer kernel against
 its plain version at the evaluate shape, on two pairs cut so that the
 kernel's split of the streamed set is ragged or mostly empty, and at 128
@@ -61,12 +66,14 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12       # float32 outside the tensor cores
 BF16_FLOPS = 989e12     # bf16 tensor cores
+TF32_FLOPS = 495e12     # TF32 tensor cores
 
 SEED_BANK_ROWS = 27132  # the ShapeNetV2 database (bench.py:196)
-DENSE_BATCH = 64        # Q = 4096 queries: dense kNN + the topk kernel
-STREAM_BATCH = 128      # Q = 8192 queries: the streaming kNN kernel
+DENSE_BATCH = 64        # Q = 4096 queries: bf16 streams, DENSE_VARIANT takes the topk kernel
+STREAM_BATCH = 128      # Q = 8192 queries: the streaming kNN kernel in bf16 and float32
 N_CHUNKS = 192          # chunk files served at each batch size (tail padded at 128)
 CDEC_VARIANT = "fused+pallasp+topk1p+cdec"
+DENSE_VARIANT = "fused+pallasg2+topk1p+denseknn"  # FAST_VARIANT with the dense kNN forced
 RETRIEVAL_MIN_ROWS = SEED_BANK_ROWS  # the retrieval pipeline's dictionary reaches this
 RETRIEVAL_VAL_CHUNKS = 64
 MAP_SAMPLE = 2048       # train queries checked against a dense search
@@ -77,21 +84,35 @@ CHAMFER_CAPACITY = 16384
 #: 700.00 W), printed beside this run's
 FMA_BODY_ENGINE_MS = {"fused+pallasg2+topk1p": 53.80, CDEC_VARIANT: 69.09,
                       "fused+pallasg+topk1p+packed": 51.80}
-#: kernel ms before two kernels were redesigned (same card and limit), printed
-#: beside this run's: gathered attention v1 in bf16 on float32 FMAs with K
-#: tiles staged by cp.async; the chamfer kernel with one block per 512 points
-#: walking the whole other set, per evaluate call and at 128 batched pairs
-EARLIER_KERNEL_MS = {"attention_v1": 13.109, "chamfer": 1.288, "chamfer_batch": 3.457}
-#: the engine's other serving paths, each run at STREAM_BATCH -> the kernels
-#: it must launch there (the streaming kNN kernel is auto-selected at Q=8192)
+#: kernel ms before three kernels were redesigned (same card and limit),
+#: printed beside this run's: gathered attention v1 in bf16 on float32 FMAs
+#: with K tiles staged by cp.async; the chamfer kernel with one block per 512
+#: points walking the whole other set, per evaluate call and at 128 batched
+#: pairs; the streaming kNN kernel on float32 register FMAs, float32 rows
+EARLIER_KERNEL_MS = {"attention_v1": 13.109, "chamfer": 1.288, "chamfer_batch": 3.457,
+                     "knn": 1.696}
+#: the engine's other serving paths, each run at STREAM_BATCH in bf16 and
+#: float32 -> the kernels it must launch there (the streaming kNN kernel is
+#: auto-selected at Q=8192: `knn` is its float32 launch, `knn_bf16` its bf16)
 VARIANT_PATHS = {
-    CDEC_VARIANT: ("knn", "patch_attention", "decoder_tail"),
-    "fused+pallasg+topk1p+packed": ("knn", "attention_v1"),
-    "pallas+dconv+fbb": ("knn", "patch_attention"),
-    "fused+flatg+pallasp": ("knn", "patch_attention"),
-    "phib+fused": ("knn",),
-    "approxk+fused": ("knn",),
+    CDEC_VARIANT: ("knn_bf16", "knn", "patch_attention", "decoder_tail"),
+    "fused+pallasg+topk1p+packed": ("knn_bf16", "knn", "attention_v1"),
+    "pallas+dconv+fbb": ("knn_bf16", "knn", "patch_attention"),
+    "fused+flatg+pallasp": ("knn_bf16", "knn", "patch_attention"),
+    "phib+fused": ("knn_bf16", "knn"),
+    "approxk+fused": ("knn_bf16", "knn"),
 }
+#: the streaming kNN kernel's off-flagship check: k = 10 (what `--K 5` asks
+#: of `map`), a width other than 64, N no multiple of any tile
+KNN_OFF_SHAPE = dict(q=1000, n=27129, d=96, k=10)
+#: the kNN kernel's hold against its plain version: max |similarity diff|
+KNN_SIM_TOL = 2e-6
+#: ... and the least share of queries whose order it holds (no two of the top
+#: k+1 similarities within KNN_TIE_GAP); 97.3% at the off-flagship k = 10
+KNN_MIN_ORDER_CLEAR = 0.95
+#: similarities closer than this may be ranked either way by float32 sums
+#: taken in another order
+KNN_TIE_GAP = 1e-5
 
 
 def flagship_config() -> dict:
@@ -337,6 +358,69 @@ def hold_attention(label: str, kernel, plain, args32: tuple, args16: tuple,
     return err, shares["hard"]
 
 
+def unit_rows(rng, n: int, d: int, dtype, device):
+    """n random unit rows of width d from `rng`, in dtype on device."""
+    import torch
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+
+def knn_bound(q: int, n: int, d: int, k: int, dtype) -> tuple[float, str]:
+    """The streaming kNN's bound: 2·Q·N·D flops on the bf16 tensor cores,
+    or three TF32 products of that size (3xTF32) for float32 rows; each row
+    read once, the (Q, k) values and indices written once."""
+    import torch
+    bf16 = dtype == torch.bfloat16
+    return bound((q + n) * d * (2 if bf16 else 4) + q * k * 8,
+                 2 * q * n * d * (1 if bf16 else 3), BF16_FLOPS if bf16 else TF32_FLOPS)
+
+
+def knn_index_agreement(i, pv, pi, k: int) -> tuple[bool, int, int]:
+    """The kernel's (Q, k) indices `i` against the plain version's top k+1
+    (similarities `pv`, indices `pi`). Where the k-th and (k+1)-th
+    similarities are more than KNN_TIE_GAP apart ("set-clear"), the kernel's
+    k rows must be the plain k rows; where all of the top k+1 are
+    ("order-clear"), in the same order too. Elsewhere the order of the
+    float32 sums decides. Returns (agree, set-clear queries, order-clear
+    queries)."""
+    import torch
+    gaps = pv[:, :-1] - pv[:, 1:] > KNN_TIE_GAP
+    set_clear, order_clear = gaps[:, k - 1], gaps.all(dim=1)
+    agree = (torch.equal(i[set_clear].sort(dim=1).values,
+                         pi[set_clear, :k].sort(dim=1).values)
+             and torch.equal(i[order_clear], pi[order_clear, :k]))
+    return agree, int(set_clear.sum()), int(order_clear.sum())
+
+
+def hold_knn(label: str, queries, database, k: int) -> tuple[float, int]:
+    """The streaming kNN kernel against its plain version: the rows of
+    knn_index_agreement, at least KNN_MIN_ORDER_CLEAR of the queries
+    order-clear, max |similarity diff| <= KNN_SIM_TOL, and the launch on the
+    dtype's tensor-core path. Returns (max |diff|, queries not order-clear)."""
+    import torch
+    from retrieval_fuse_tpu_torch.ops.streaming_knn import (
+        kernel_math, streaming_knn_sims, streaming_knn_sims_plain)
+    v, i = streaming_knn_sims(queries, database, k)
+    check(streaming_knn_sims.math == kernel_math(queries.dtype),
+          f"{label}: launch took {streaming_knn_sims.math}")
+    pv, pi = streaming_knn_sims_plain(queries, database, k + 1)
+    torch.cuda.synchronize()
+    agree, set_clear, order_clear = knn_index_agreement(i, pv, pi, k)
+    q = queries.shape[0]
+    check(agree, f"{label}: indices differ off near-ties")
+    check(order_clear >= KNN_MIN_ORDER_CLEAR * q,
+          f"{label}: only {order_clear} of {q} queries clear of near-ties")
+    err = float((v - pv[:, :k]).abs().max())
+    check(err <= KNN_SIM_TOL, f"{label}: similarities differ by {err}")
+    log(f"{label} [{streaming_knn_sims.math}] Q={q} N={database.shape[0]} "
+        f"D={queries.shape[1]} k={k}: the same top-k rows on {set_clear} queries (k-th to "
+        f"(k+1)-th gap > {KNN_TIE_GAP:g}), in the same order on {order_clear} (every gap of "
+        f"the top k+1 > {KNN_TIE_GAP:g}), of {q}; max |sim diff| {err:.2e} "
+        f"(<= {KNN_SIM_TOL:g})")
+    return err, q - order_clear
+
+
 #: float32 operations per valid point pair of the chamfer minima: the depth-3
 #: dot product (5), |a|² + |b|² (1), the ×2 and the subtraction (2), the clamp
 #: at 0 (1), and one min in each direction (2)
@@ -377,6 +461,22 @@ def hold_chamfer(label: str, args: list) -> float:
     log(f"chamfer {label}: {len(args)} calls, {pts} points: minima bit-equal, chamfer max "
         f"|diff| {worst:.2e} (<= 1e-6 relative)")
     return worst
+
+
+class DtypeLaunches:
+    """The launches of one dtype of a wrapper that counts them by dtype, as
+    a counter with `launches`."""
+
+    def __init__(self, fn, dtype):
+        self.fn, self.dtype = fn, dtype
+
+    @property
+    def launches(self) -> int:
+        return self.fn.dtype_launches[self.dtype]
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.fn.dtype_launches[self.dtype] = value
 
 
 class Subset:
@@ -446,8 +546,9 @@ def main(argv=None) -> int:
         from retrieval_fuse_tpu_torch.ops import decoder_tail as dt
         from retrieval_fuse_tpu_torch.ops import patch_attention as pa
         from retrieval_fuse_tpu_torch.ops.fused_decoder import depth_to_space_2x
+        from retrieval_fuse_tpu_torch.ops.knn import use_streaming_knn
         from retrieval_fuse_tpu_torch.ops.streaming_knn import (
-            streaming_knn_sims, streaming_knn_sims_plain)
+            kernel_math as knn_math, streaming_knn_sims, streaming_knn_sims_plain)
         from retrieval_fuse_tpu_torch.ops.topk import topk, topk_plain
         from retrieval_fuse_tpu_torch.serve import serve_directory
         from retrieval_fuse_tpu_torch.data import PatchedSceneDataset, SceneHandler
@@ -511,7 +612,7 @@ def main(argv=None) -> int:
             times[tag] = time.perf_counter() - t0
             check(torch.isfinite(base_.feature_bank).all().item(), f"{tag} feature bank")
             engines["base", tag] = base_
-            for variant in (FAST_VARIANT, *VARIANT_PATHS):
+            for variant in (FAST_VARIANT, DENSE_VARIANT, *VARIANT_PATHS):
                 engines[variant, tag] = RetrieveRefineEngine(
                     cfg, params, db, compute_dtype=dtype, device=dev,
                     feature_bank=base_.feature_bank, **variant_engine_kwargs(variant))
@@ -552,7 +653,7 @@ def main(argv=None) -> int:
         kernels = {}
         k = cfg["K"]
 
-        # 4a) topk at the dense path's shape (batch 64: Q = 4096)
+        # 4a) topk at the dense path's shape (DENSE_VARIANT at batch 64: Q = 4096)
         with torch.inference_mode():
             x64 = torch.from_numpy(chunks[:DENSE_BATCH, ..., None]).to(dev)
             sims = fast.embed_queries(x64).float() @ fast._database_f32.T
@@ -578,32 +679,34 @@ def main(argv=None) -> int:
             bound_ms=topk_bound[0], bound_by=topk_bound[1], shape=f"Q={q} N={n} k={k} f32")
         del sims
 
-        # 4b) streaming kNN at the streaming path's shape (batch 128: Q = 8192)
+        # 4b) streaming kNN at the streaming path's shape (batch 128: Q = 8192),
+        # on each engine's own rows: float32 (3xTF32) and bf16 (bf16 mma)
         with torch.inference_mode():
             x128 = torch.from_numpy(chunks[:STREAM_BATCH, ..., None]).to(dev)
-            z = fast.embed_queries(x128).float().contiguous()
-        db32 = fast._database_f32
-        q = z.shape[0]
-        v, i = streaming_knn_sims(z, db32, k)
-        pv, pi = streaming_knn_sims_plain(z, db32, k + 1)
-        torch.cuda.synchronize()
-        clear = (pv[:, k - 1] - pv[:, k]) > 1e-5
-        near = int((~clear).sum())
-        check(torch.equal(i[clear], pi[clear, :k]), "streaming kNN: indices differ off near-ties")
-        err = float((v - pv[:, :k]).abs().max())
-        check(err <= 2e-6, f"streaming kNN: similarities differ by {err}")
-        log(f"streaming kNN Q={q} N={n}: indices equal on {q - near} queries, "
-            f"{near} near-tie queries (k-th/(k+1)-th gap <= 1e-5) excluded; "
-            f"max |sim diff| {err:.2e}")
-        knn_bound = bound((q + n) * 64 * 4 + q * k * 8, 2 * q * n * 64, F32_FLOPS)
-        kernels["knn"] = dict(
-            name="streaming_knn", route="cuda", source="retrieval_fuse_tpu_torch/csrc/knn.cu",
-            replaces="retrieval_fuse_tpu/ops/pallas_knn.py:49", max_abs_err=err,
-            ms=cuda_ms(lambda: streaming_knn_sims(z, db32, k), 20),
-            plain_ms=cuda_ms(lambda: streaming_knn_sims_plain(z, db32, k), 5),
-            library_ms=cuda_ms(lambda: torch.topk(z @ db32.T, k), 20),
-            bound_ms=knn_bound[0], bound_by=knn_bound[1], near_ties=near,
-            shape=f"Q={q} N={n} D=64 k={k} f32")
+        for key, eng in (("knn", fast32), ("knn_bf16", fast)):
+            with torch.inference_mode():
+                z = eng.embed_queries(x128).contiguous()
+            db_rows = eng.database
+            err, near = hold_knn(f"streaming kNN {key}", z, db_rows, k)
+            kb = knn_bound(z.shape[0], n, 64, k, z.dtype)
+            kernels[key] = dict(
+                name=f"streaming_{key}", route="cuda", math=knn_math(z.dtype),
+                source="retrieval_fuse_tpu_torch/csrc/knn.cu",
+                replaces="retrieval_fuse_tpu/ops/pallas_knn.py:49", max_abs_err=err,
+                ms=cuda_ms(lambda: streaming_knn_sims(z, db_rows, k), 20),
+                plain_ms=cuda_ms(lambda: streaming_knn_sims_plain(z, db_rows, k), 5),
+                library_ms=cuda_ms(lambda: torch.topk(z.float() @ eng._database_f32.T, k), 20),
+                library_call="float32 matmul of the same rows + torch.topk",
+                earlier_ms=EARLIER_KERNEL_MS["knn"], near_ties=near,
+                bound_ms=kb[0], bound_by=kb[1],
+                shape=f"Q={z.shape[0]} N={n} D=64 k={k} {str(z.dtype)[6:]}")
+            # off the flagship: k = 10, D = 96, N no multiple of any tile
+            off = KNN_OFF_SHAPE
+            off_rng = np.random.default_rng(args.seed + 2)
+            qo, dbo = (unit_rows(off_rng, m, off["d"], z.dtype, dev) for m in (off["q"], off["n"]))
+            err_off, _ = hold_knn(f"streaming kNN {key} off the flagship", qo, dbo, off["k"])
+            kernels[key]["max_abs_err"] = max(err, err_off)
+            del z, qo, dbo
 
         # 4c-4e) the three attention kernels at batch 128 (Q = 8192 tiles of
         # 64 rows), on the FAST_VARIANT engine's rows and retrievals
@@ -734,8 +837,9 @@ def main(argv=None) -> int:
                 f"[{kr['shape']}; {card}]")
 
         # 5) serve through serve_directory: FAST_VARIANT bf16 at batch 64 and
-        # 128, and the cdec variant at batch 128
-        counters = {"topk": topk, "knn": streaming_knn_sims,
+        # 128, DENSE_VARIANT at batch 64, and the cdec variant at batch 128
+        counters = {"topk": topk, "knn": DtypeLaunches(streaming_knn_sims, torch.float32),
+                    "knn_bf16": DtypeLaunches(streaming_knn_sims, torch.bfloat16),
                     "attention": pa.gathered_patch_attention,
                     "attention_v1": pa.gathered_patch_attention_v1,
                     "patch_attention": pa.patch_attention, "decoder_tail": dt.decoder_tail,
@@ -764,9 +868,11 @@ def main(argv=None) -> int:
             for j, vol in enumerate(chunks):
                 np.savez_compressed(indir / f"chunk{j:04d}.npz", arr=vol)
             for variant, batch, needed in (
-                    (FAST_VARIANT, DENSE_BATCH, ("topk", "attention")),
-                    (FAST_VARIANT, STREAM_BATCH, ("knn", "attention")),
-                    (CDEC_VARIANT, STREAM_BATCH, VARIANT_PATHS[CDEC_VARIANT])):
+                    (FAST_VARIANT, DENSE_BATCH, ("knn_bf16", "attention")),
+                    (DENSE_VARIANT, DENSE_BATCH, ("topk", "attention")),
+                    (FAST_VARIANT, STREAM_BATCH, ("knn_bf16", "attention")),
+                    (CDEC_VARIANT, STREAM_BATCH, ("knn_bf16", "patch_attention",
+                                                  "decoder_tail"))):
                 eng = engines[variant, "bf16"]
                 eng(chunks[:batch, ..., None])  # warm-up: cuDNN plans, allocator
                 outdir = Path(tmp) / f"out-{variant}-{batch}"
@@ -860,14 +966,18 @@ def main(argv=None) -> int:
                 n_q = {split: len(m) for split, m in maps.items()}
                 q_batch = query_batch_size(n_rows)
                 full = n_q["train"] // q_batch
+                # the float32 query batches of both splits that cross over to the kernel
+                streamed = sum(use_streaming_knn(n_rows, n_queries=min(q_batch, m - s))
+                               for m in n_q.values() for s in range(0, m, q_batch))
                 retrieval.update(database_rows=n_rows, queries=n_q, metrics=outs["evaluate"])
                 log(f"retrieval: database {n_rows} rows, {n_q['train']} train queries "
-                    f"({full} full {q_batch}-query batches), {n_q['val']} val queries; metrics "
+                    f"({full} full {q_batch}-query batches), {n_q['val']} val queries; "
+                    f"{streamed} batches cross over to the kNN kernel; metrics "
                     f"[iou, chamfer, precision, recall] = {outs['evaluate']}")
                 check(n_rows >= RETRIEVAL_MIN_ROWS, f"retrieval: {n_rows} database rows")
-                check(full >= 2 and retrieval["map_launches"].get("knn") == full,
-                      f"retrieval map: {retrieval['map_launches']} kNN launches for {full} "
-                      "full query batches")
+                check(full >= 2 and retrieval["map_launches"].get("knn") == streamed,
+                      f"retrieval map: {retrieval['map_launches']} kNN launches for {streamed} "
+                      "query batches at or above the crossover")
                 ds_train = PatchedSceneDataset("train", rcfg["dataset_train"],
                                                SceneHandler("train", rcfg))
                 near = check_mapping(rcfg, tree, maps["train"], ds_train, rng, MAP_SAMPLE, dev)

@@ -1,7 +1,8 @@
 // Warp-level tensor-core and async-copy primitives for sm_90a, shared by
-// attention.cuh and decoder_tail.cu: the bf16 m16n8k16 product with float32
-// sums, ldmatrix, cp.async, the bf16 pair pack, and (gathered_attention_v1.cu)
-// the bulk asynchronous copy with the mbarrier that reports its arrival.
+// attention.cuh, decoder_tail.cu and knn.cu: the bf16 m16n8k16 and TF32
+// m16n8k8 products with float32 sums, ldmatrix, cp.async, the bf16 pair pack,
+// and (gathered_attention_v1.cu, knn.cu) the bulk asynchronous copy with the
+// mbarrier that reports its arrival.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4), each
 // register a pair of bf16 with the lower index in the low half:
@@ -32,12 +33,41 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a (16 x 8 tf32) . b (8 x 8 tf32), float32 sums (knn.cu). Fragments:
+//   A (16 x 8, row):  a0 = A[g][t]   a1 = A[g+8][t]   a2 = A[g][t+4]   a3 = A[g+8][t+4]
+//   B (8 x 8, col):   b0 = B[t][g]   b1 = B[t+4][g]
+//   C: as m16n8k16's. Each register is a float32 whose low 13 bits are ignored.
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (nearest, ties away from zero): a float32 bit pattern
+// whose low 13 bits are zero, so |x - result| <= 2^-11 |x|
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
 // Four 8 x 8 bf16 matrices from shared memory: lane l gives the shared-space
 // address (__cvta_generic_to_shared) of the 16-byte row l % 8 of matrix
 // l / 8; r[m] receives matrix m's element pair (row g, columns 2t, 2t+1).
+// Read as 32-bit words, r[m] is word t of matrix m's row g.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned smem_row) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_row));
+}
+
+// two matrices, addressed by lanes 0-15 as ldmatrix_x4's first two
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], unsigned smem_row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_row));
 }
 

@@ -15,8 +15,9 @@ Every variant token of the JAX engine is ported (`variant_engine_kwargs`):
 the attention paths `pallas`, `pallasp` (+ `flatg`), `pallasg`, `pallasg2`
 and `phib`, the decoders `fused`, `packed`, `dconv` and `cdec`, the fused
 backbone `fbb`, and the selects `topk1p`, `approxk`, `streamknn`,
-`denseknn`. The streaming kNN kernel is auto-selected at Q >= 8192 queries
-and N >= 16384 rows. Not ported yet: multi-device serving (`mesh`).
+`denseknn`. The streaming kNN kernel is auto-selected against N >= 16384
+rows at Q >= 4096 queries in float32 and at Q >= 1024 in bf16. Not ported
+yet: multi-device serving (`mesh`).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from retrieval_fuse_tpu_torch.ops.fused_backbone import FusedSuperres08Backbone
 from retrieval_fuse_tpu_torch.ops.fused_decoder import (
     DecomposedPackedDecoder, FusedFinalDecoder, PackedFinalDecoder)
 from retrieval_fuse_tpu_torch.ops.knn import iterative_topk, use_streaming_knn
-from retrieval_fuse_tpu_torch.ops.streaming_knn import streaming_knn_sims
+from retrieval_fuse_tpu_torch.ops.streaming_knn import knn_rows, streaming_knn_sims
 from retrieval_fuse_tpu_torch.ops.topk import topk
 
 #: attention paths: the plain modules, then the kernels' feeds
@@ -140,7 +141,8 @@ class RetrieveRefineEngine:
         self.topk_impl = topk_impl
         self.streaming_knn = streaming_knn
 
-        self.database = _tensor(database, self.device, cd)
+        # in the layout the kNN kernel reads in place (its row pitch)
+        self.database = knn_rows(_tensor(database, self.device, cd))
         # the kNN scores are float32 of the compute-dtype rows, as in JAX
         self._database_f32 = self.database.float()
 
@@ -208,7 +210,8 @@ class RetrieveRefineEngine:
     def _use_streaming(self, n_queries: int) -> bool:
         if self.streaming_knn is not None:
             return bool(self.streaming_knn)
-        return use_streaming_knn(self.database.shape[0], n_queries=n_queries)
+        return use_streaming_knn(self.database.shape[0], n_queries=n_queries,
+                                 dtype=self.compute_dtype)
 
     @torch.inference_mode()
     def embed_queries(self, raw_input: torch.Tensor) -> torch.Tensor:
@@ -225,7 +228,9 @@ class RetrieveRefineEngine:
         """(B, ics, ics, ics, 1) raw df -> (B·R³, K) int32 bank rows."""
         z = self.embed_queries(raw_input)
         if self._use_streaming(z.shape[0]):
-            return streaming_knn_sims(z.float().contiguous(), self._database_f32, self.K)[1]
+            # the compute-dtype rows: bf16 products are exact in the kernel's
+            # float32 sums, so this is the dense path's function
+            return streaming_knn_sims(z.contiguous(), self.database, self.K)[1]
         # float32 products of the compute-dtype values, as JAX's
         # dot(..., preferred_element_type=float32); a bf16 matmul would
         # return bf16 scores

@@ -2,8 +2,17 @@
 in the JAX package's ops/knn.py: squared-L2 neighbours are the top cosine
 similarities, d² = 2 - 2·(q·x).
 
-The crossover constants keep their JAX names and values. They were tuned on
-a TPU v5e; they stay until the H100 measures its own (ROADMAP "Speed").
+The crossover constants keep their JAX names and environment overrides; the
+query threshold is kept by the rows' dtype and was measured on the H100
+(PERF.md §6): the streaming kernel against the dense search (float32 matmul
++ the topk kernel) at 1024 to 8192 queries against 16,384 and 27,132 rows,
+at the k of its callers (serving's K = 4, `map`'s 2K = 8). It is selected
+where it wins by more than the 10% spread between chip calls at both:
+bf16 rows (bf16 `mma`, the bf16 engines) from 1024 queries, the smallest
+batch measured; float32 rows (3xTF32: `map` and the float32 engines) from
+4096, since at 2048 queries and k = 8 the dense search is faster.
+The row thresholds keep the v5e's values: below 16,384 rows nothing was
+measured, and the million-row threshold needs no query batch.
 The TPU tile sizes (SERVING_KNN_TILES) have no counterpart: the CUDA kernel
 (ops/streaming_knn.py) fixes its own tiling.
 """
@@ -15,7 +24,11 @@ import os
 import torch
 
 PALLAS_KNN_MIN_ROWS = int(os.environ.get("RF_PALLAS_KNN_MIN_ROWS", 1_000_000))
-PALLAS_KNN_MIN_QUERIES = int(os.environ.get("RF_PALLAS_KNN_MIN_QUERIES", 8192))
+#: the query crossover by the rows' dtype; RF_PALLAS_KNN_MIN_QUERIES sets float32's
+PALLAS_KNN_MIN_QUERIES = {
+    torch.float32: int(os.environ.get("RF_PALLAS_KNN_MIN_QUERIES", 4096)),
+    torch.bfloat16: 1024,
+}
 PALLAS_KNN_MIN_ROWS_BATCHED = int(os.environ.get("RF_PALLAS_KNN_MIN_ROWS_BATCHED", 16384))
 
 
@@ -48,13 +61,15 @@ def exact_knn(queries: torch.Tensor, database: torch.Tensor, k: int):
 
 
 def use_streaming_knn(n_rows: int, min_rows: int | None = None,
-                      n_queries: int | None = None) -> bool:
+                      n_queries: int | None = None, dtype: torch.dtype = torch.float32) -> bool:
     """True where the streaming kernel is the selected search: the database
     alone crosses the row threshold, or the query batch and the database
-    both cross the batched thresholds (the serving regime)."""
+    both cross the batched thresholds (the serving regime), the query
+    threshold being that of the rows' dtype."""
     if n_rows >= (PALLAS_KNN_MIN_ROWS if min_rows is None else min_rows):
         return True
-    return (n_queries is not None and n_queries >= PALLAS_KNN_MIN_QUERIES
+    min_queries = PALLAS_KNN_MIN_QUERIES.get(dtype)  # None: a dtype the kernel does not take
+    return (n_queries is not None and min_queries is not None and n_queries >= min_queries
             and n_rows >= PALLAS_KNN_MIN_ROWS_BATCHED)
 
 
@@ -63,7 +78,8 @@ def auto_exact_knn(queries: torch.Tensor, database: torch.Tensor, k: int,
     """Exact kNN with the engine chosen by use_streaming_knn: the streaming
     kernel at or above the crossovers, the dense path below. The same
     indices either way, up to float32 summation order on near-ties."""
-    if use_streaming_knn(database.shape[0], min_rows, n_queries=queries.shape[0]):
+    if use_streaming_knn(database.shape[0], min_rows, n_queries=queries.shape[0],
+                         dtype=database.dtype):
         from retrieval_fuse_tpu_torch.ops.streaming_knn import streaming_knn
         return streaming_knn(queries, database, k)
     return exact_knn(queries, database, k)

@@ -8,8 +8,8 @@ patch_name -> (K, 8) float64 rows `[scene_idx, x0,x1,y0,y1,z0,z1, sq_dist]`;
 pasted with lowest-distance priority where strides overlap.
 
 The search is exact: ops/knn.auto_exact_knn, which takes the streaming kNN
-kernel at query batches >= 8192 against >= 16,384 rows and the dense path
-below. The JAX package's C++ paste and its database sharding over a device
+kernel at float32 query batches >= 4096 against >= 16,384 rows and the dense
+path below. The JAX package's C++ paste and its database sharding over a device
 mesh are not ported (ROADMAP Queue 1 items 16 and 13).
 """
 
@@ -24,6 +24,7 @@ import torch
 from retrieval_fuse_tpu_torch.data.scene import SceneHandler
 from retrieval_fuse_tpu_torch.device import resolve_device
 from retrieval_fuse_tpu_torch.ops.knn import auto_exact_knn, demote_same_scene
+from retrieval_fuse_tpu_torch.ops.streaming_knn import knn_rows
 from retrieval_fuse_tpu_torch.utils.timer import Timer
 
 Q_BATCH = 8192  # queries per search, halved while the (Q, N) scores pass ~2 GB
@@ -51,7 +52,7 @@ def query_dictionary_using_features(query_config: dict, patch_names, input_featu
         [scene_to_id.get(s, -2) for s in dataset.get_scene_names_from_patches(patch_names)],
         dtype=torch.int32, device=dev)
     db_scene_ids = torch.from_numpy(database[:, 0].astype(np.int32)).to(dev)
-    db_embeddings = torch.from_numpy(np.ascontiguousarray(database[:, 7:])).to(dev)
+    db_embeddings = knn_rows(torch.from_numpy(np.ascontiguousarray(database[:, 7:])).to(dev))
     q_batch = query_batch_size(db_embeddings.shape[0])
     retrieval_mapping: dict = {}
     with Timer("ExactKNN", verbose=False):

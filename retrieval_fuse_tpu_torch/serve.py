@@ -2,8 +2,8 @@
 package's serve.serve_directory does.
 
 Not ported yet: building an engine from training artifacts
-(build_engine_from_artifacts), the CLI, and OBJ mesh output; they need the
-config, data and checkpoint layers (ROADMAP Queue 1 items 11-12).
+(build_engine_from_artifacts), the CLI, and OBJ mesh output (ROADMAP
+Queue 1 item 2).
 """
 
 from __future__ import annotations

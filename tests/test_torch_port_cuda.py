@@ -12,13 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import knn_index_agreement
 from retrieval_fuse_tpu_torch.models.attention import AttentionFeatureEncoder
 from retrieval_fuse_tpu_torch.ops import decoder_tail as dt
 from retrieval_fuse_tpu_torch.ops import patch_attention as pa
 from retrieval_fuse_tpu_torch.ops.chamfer import chamfer_batch, chamfer_batch_plain
 from retrieval_fuse_tpu_torch.ops.streaming_chamfer import (
     BIG, chamfer_minima, chamfer_minima_plain)
-from retrieval_fuse_tpu_torch.ops.streaming_knn import streaming_knn_sims, streaming_knn_sims_plain
+from retrieval_fuse_tpu_torch.ops.streaming_knn import (
+    knn_rows, streaming_knn_sims, streaming_knn_sims_plain)
 from retrieval_fuse_tpu_torch.ops.topk import topk, topk_plain
 
 
@@ -63,21 +65,88 @@ def test_topk_kernel_matches_plain(cuda):
         assert torch.equal(i, pi) and torch.equal(v, pv)
 
 
-def test_knn_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(6)
-    q = torch.nn.functional.normalize(torch.from_numpy(
-        rng.standard_normal((200, 64)).astype(np.float32)), dim=1).to(cuda)
-    db = torch.nn.functional.normalize(torch.from_numpy(
-        rng.standard_normal((3001, 64)).astype(np.float32)), dim=1).to(cuda)
+def unit_rows(rng, n, d, dtype, device):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return torch.from_numpy(x).to(device=device, dtype=dtype).contiguous()
+
+
+@pytest.mark.parametrize("d", [32, 64, 96])
+@pytest.mark.parametrize("k", [1, 4, 8, 10, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_knn_kernel_matches_plain(cuda, dtype, k, d):
+    """Q and N no tile multiples; N large enough for the kernel to split it
+    over a cluster. The top-k rows equal where the k-th and (k+1)-th
+    similarities are more than 1e-5 apart, and in order where all of the top
+    k+1 are (elsewhere the sums' order decides); similarities within 2e-6;
+    one launch, on the dtype's instruction path."""
+    rng = np.random.default_rng(6 + k + d)
+    q, db = unit_rows(rng, 200, d, dtype, cuda), unit_rows(rng, 3001, d, dtype, cuda)
     before = streaming_knn_sims.launches
-    v, i = streaming_knn_sims(q, db, 4)
+    v, i = streaming_knn_sims(q, db, k)
     torch.cuda.synchronize()
     assert streaming_knn_sims.launches == before + 1
-    pv, pi = streaming_knn_sims_plain(q, db, 5)
-    clear = (pv[:, 3] - pv[:, 4]) > 1e-5  # float32 sums differ in order
-    assert float(clear.float().mean()) > 0.9
-    assert torch.equal(i[clear], pi[clear, :4])
-    assert float((v - pv[:, :4]).abs().max()) <= 2e-6
+    assert streaming_knn_sims.math == {torch.float32: "mma.3xtf32",
+                                       torch.bfloat16: "mma.bf16"}[dtype]
+    assert v.shape == i.shape == (200, k) and i.dtype == torch.int32
+    pv, pi = streaming_knn_sims_plain(q, db, k + 1)
+    agree, _, order_clear = knn_index_agreement(i, pv, pi, k)
+    assert agree and order_clear > 0.8 * 200
+    assert float((v - pv[:, :k]).abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_knn_kernel_ties_go_to_the_lower_row(cuda, dtype):
+    """Duplicated database rows score alike: within one n8 tile (16, 17),
+    across tiles (100, 700) and across the cluster's slices (5, 2990). A
+    query equal to a duplicated row gets both, the lower row first, as the
+    plain version orders them."""
+    rng = np.random.default_rng(12)
+    db = unit_rows(rng, 3001, 64, dtype, cuda)
+    pairs = ((16, 17), (100, 700), (5, 2990))
+    for lo, hi in pairs:
+        db[hi] = db[lo]
+    q = torch.stack([db[lo] for lo, _ in pairs] + [db[hi] for _, hi in pairs]).contiguous()
+    v, i = streaming_knn_sims(q, db, 3)
+    pv, pi = streaming_knn_sims_plain(q, db, 3)
+    torch.cuda.synchronize()
+    want = torch.tensor([[lo, hi] for lo, hi in pairs] * 2, dtype=torch.int32, device=cuda)
+    assert torch.equal(i[:, :2], want) and torch.equal(pi[:, :2], want)
+    assert torch.equal(v[:, 0], v[:, 1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_knn_kernel_odd_widths_and_edges(cuda, dtype):
+    """Widths whose rows lack the tensor map's 16-byte pitch (D = 3, 77),
+    given as they are (the wrapper pads a copy) and through knn_rows (read in
+    place, the rest of a box zero-filled), the widest (256), one query,
+    N = k, and a query batch of Q = 0."""
+    rng = np.random.default_rng(13)
+    for qn, n, d, k in ((70, 1000, 3, 5), (70, 1000, 77, 16), (33, 700, 256, 32),
+                        (1, 9, 64, 9), (0, 100, 64, 4)):
+        q, db = unit_rows(rng, qn, d, dtype, cuda), unit_rows(rng, n, d, dtype, cuda)
+        pv, pi = streaming_knn_sims_plain(q, db, min(k + 1, n))
+        for rows in (db, knn_rows(db)):
+            v, i = streaming_knn_sims(q, rows, k)
+            torch.cuda.synchronize()
+            assert v.shape == (qn, k)
+            if qn == 0:
+                continue
+            assert float((v - pv[:, :k]).abs().max()) <= 2e-6
+            if k < n:
+                assert knn_index_agreement(i, pv, pi, k)[0]
+            else:
+                assert torch.equal(torch.sort(i, dim=1).values, torch.sort(pi, dim=1).values)
+
+
+@pytest.mark.parametrize("k, d, limit", [(33, 64, "1 <= k <= 32"), (4, 257, "1 <= D <= 256")])
+def test_knn_kernel_raises_past_its_limits(cuda, k, d, limit):
+    rng = np.random.default_rng(14)
+    q, db = unit_rows(rng, 8, d, torch.float32, cuda), unit_rows(rng, 100, d, torch.float32, cuda)
+    before = streaming_knn_sims.launches
+    with pytest.raises(ValueError, match=limit):
+        streaming_knn_sims(q, db, k)
+    assert streaming_knn_sims.launches == before
 
 
 @pytest.mark.parametrize("retrieval_mode", [True, False], ids=["hard", "softmax"])

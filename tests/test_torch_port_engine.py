@@ -19,6 +19,7 @@ from retrieval_fuse_tpu.models import (
     get_retrieval_networks, get_unet_backbone, get_decoder, get_retrieval_backbone,
     get_attention_block)
 from retrieval_fuse_tpu.ops.knn import exact_knn as jax_exact_knn
+from retrieval_fuse_tpu.ops.pallas_knn import pallas_exact_knn
 from retrieval_fuse_tpu_torch.inference import (
     FAST_VARIANT, RetrieveRefineEngine, variant_engine_kwargs)
 from retrieval_fuse_tpu_torch.serve import serve_directory
@@ -98,6 +99,47 @@ def test_engine_matches_jax(setup, jax_ref, variant):
     got = port(x).numpy()
     assert got.shape == want.shape == (2, 64, 64, 64, 1)
     np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_bf16_streaming_retrieve_matches_jax(setup, jax_ref):
+    """bf16 rows reach the streaming route: the port's bf16
+    FAST_VARIANT+streamknn engine retrieves the rows of the JAX engine of
+    the same variant and dtype, whose retrieval step (its pipeline lines
+    343-346 in bf16) ends in pallas_exact_knn, here in interpret mode.
+
+    The two frameworks' bf16 encoders round some embedding elements one
+    ulp apart, which moves a query's scores by up to m = max over the rows
+    of |(z_jax - z_port)·x|. So: on the port's own embeddings the indices
+    equal pallas_exact_knn's everywhere; against the JAX engine they are
+    equal on every query whose top K+1 scores are more than 2m apart."""
+    params, db, _, x = setup
+    k, variant = CFG["K"], FAST_VARIANT + "+streamknn"
+    eng = JaxEngine(CFG, params, db, None, compute_dtype=jnp.bfloat16,
+                    feature_bank=jnp.asarray(jax_ref[1]), **jax_variant_kwargs(variant))
+    z = eng.fenc_input.apply({"params": eng.params["fenc_input"]},
+                             eng._unfold_input_patches(jnp.asarray(x)).astype(jnp.bfloat16))
+    z = z.reshape(z.shape[0], -1)
+    z = z / jnp.maximum(jnp.linalg.norm(z.astype(jnp.float32), axis=1, keepdims=True),
+                        1e-12).astype(jnp.bfloat16)
+    db32 = eng.database.astype(jnp.float32)
+    want = np.asarray(pallas_exact_knn(z.astype(jnp.float32), db32, k, tile_n=128, tile_q=64,
+                                       interpret=True)[0])
+    port = _port_engine(setup, variant, torch.bfloat16)
+    assert port._use_streaming(z.shape[0]) and port.database.dtype == torch.bfloat16
+    got = port.retrieve(torch.from_numpy(x))
+    assert got.dtype == torch.int32
+
+    z_port = port.embed_queries(torch.from_numpy(x))
+    own = np.asarray(pallas_exact_knn(jnp.asarray(z_port.float().numpy()), db32, k, tile_n=128,
+                                      tile_q=64, interpret=True)[0])
+    np.testing.assert_array_equal(got.numpy(), own)
+
+    z_jax = np.asarray(z.astype(jnp.float32))
+    margin = np.abs((z_jax - z_port.float().numpy()) @ np.asarray(db32).T).max(axis=1) + 1e-6
+    top = -np.sort(-(z_jax @ np.asarray(db32).T), axis=1)[:, :k + 1]
+    clear = (np.diff(-top, axis=1) > 2 * margin[:, None]).all(axis=1)
+    assert clear.mean() > 0.75  # 106 of 128 queries at this seed
+    np.testing.assert_array_equal(got.numpy()[clear], want[clear])
 
 
 def test_attention_switch_opens_on_engine_features(setup):

@@ -23,7 +23,7 @@ from retrieval_fuse_tpu_torch.models.attention import AttentionFeatureEncoder
 from retrieval_fuse_tpu_torch.ops import decoder_tail as dt
 from retrieval_fuse_tpu_torch.ops import patch_attention as pa
 from retrieval_fuse_tpu_torch.ops.knn import auto_exact_knn, exact_knn, use_streaming_knn
-from retrieval_fuse_tpu_torch.ops.streaming_knn import streaming_knn
+from retrieval_fuse_tpu_torch.ops.streaming_knn import knn_rows, streaming_knn
 from retrieval_fuse_tpu_torch.ops.topk import topk
 from retrieval_fuse_tpu_torch.utils.flax_import import flax_to_state_dict
 from test_torch_port_cuda import attention_inputs, tied_scores
@@ -59,10 +59,102 @@ def test_knn_plain_matches_pallas_knn():
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=1e-5)
 
 
+def _unit_rows(rng, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def test_knn_bf16_rows_match_pallas_knn():
+    """bf16 rows, as the bf16 serving engine passes them: the float32
+    products of the bf16 values, as pallas_exact_knn scores the same values
+    cast to float32. Indices equal, distances within 1e-5."""
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(_unit_rows(rng, 80, 64)).bfloat16()
+    db = torch.from_numpy(_unit_rows(rng, 1300, 64)).bfloat16()
+    want_i, want_d = pallas_exact_knn(jnp.asarray(q.float().numpy()),
+                                      jnp.asarray(db.float().numpy()), 4, tile_n=512,
+                                      tile_q=32, interpret=True)
+    got_i, got_d = streaming_knn(q, db, 4)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [5, 10, 16])
+@pytest.mark.parametrize("d", [16, 96])
+def test_knn_widened_domain_matches_pallas_knn(d, k):
+    """Widths other than 64 and k past 8 (k = 10 is what `--K 5` asks of
+    `map`), N not a multiple of any tile: indices equal, distances within
+    float32."""
+    rng = np.random.default_rng(100 + d + k)
+    q, db = _unit_rows(rng, 50, d), _unit_rows(rng, 1100, d)
+    want_i, want_d = pallas_exact_knn(jnp.asarray(q), jnp.asarray(db), k, tile_n=512,
+                                      tile_q=32, interpret=True)
+    got_i, got_d = streaming_knn(torch.from_numpy(q), torch.from_numpy(db), k)
+    assert got_i.shape == (50, k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=1e-5)
+
+
+@pytest.mark.parametrize("shape_q, shape_db, db_dtype, k, match", [
+    ((4, 257), (40, 257), torch.float32, 4, "1 <= D <= 256"),
+    ((4, 64), (40, 64), torch.float32, 33, "1 <= k <= 32"),
+    ((4, 64), (3, 64), torch.float32, 4, "N >= k"),
+    ((4, 64), (40, 32), torch.float32, 4, "share dtype and width"),
+    ((4, 64), (40, 64), torch.bfloat16, 4, "share dtype and width")])
+def test_knn_outside_the_kernels_domain_raises(shape_q, shape_db, db_dtype, k, match):
+    """The domain is the kernel's on every device: the CPU route raises
+    where a launch would, naming the limit."""
+    with pytest.raises(ValueError, match=match):
+        streaming_knn(torch.zeros(shape_q), torch.zeros(shape_db, dtype=db_dtype), k)
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """float32 -> TF32 as cvt.rna.tf32.f32 gives it (and the kernel's
+    integer rounding of a database value): rounded to 10 mantissa bits,
+    ties away from zero, the low 13 bits zero."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _trunc_tf32(x: np.ndarray) -> np.ndarray:
+    """What the TF32 mma reads of a float32 register: its top 19 bits."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_3xtf32_scores_within_1e6_of_exact():
+    """The float32 path of csrc/knn.cu, emulated: each operand split into a
+    TF32 hi = tf32(x) and lo = x - hi; a query's lo rounded to TF32, a
+    database row's lo truncated by the mma; a score summed from lo·hi +
+    hi·lo + hi·hi. On 10,000 pairs of unit rows at D = 64 every product is
+    exact in float32, the score is within 2^-20 Σ|a_i b_i| of the exact dot
+    product, and within 1e-6 of it (also with float32 sums in the kernel's
+    order: k steps of 8, the small terms first)."""
+    rng = np.random.default_rng(4)
+    a, b = _unit_rows(rng, 10_000, 64), _unit_rows(rng, 10_000, 64)
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _trunc_tf32(b - bh)
+    for part in (ah, bh, al, bl):
+        assert not (part.view(np.uint32) & np.uint32(0x1FFF)).any()
+    terms = (al * bh, ah * bl, ah * bh)
+    for x, y, p in zip((al, ah, ah), (bh, bl, bh), terms):
+        np.testing.assert_array_equal(p.astype(np.float64), x.astype(np.float64) * y)
+    exact = (a.astype(np.float64) * b).sum(axis=1)
+    err = np.abs(sum(p.astype(np.float64) for p in terms).sum(axis=1) - exact)
+    assert (err <= 2.0 ** -20 * np.abs(a.astype(np.float64) * b).sum(axis=1)).all()
+    assert err.max() < 1e-6
+    acc = np.zeros(a.shape[0], np.float32)
+    for s in range(0, 64, 8):
+        for p in terms:
+            acc += p[:, s:s + 8].sum(axis=1, dtype=np.float32)
+    assert np.abs(acc.astype(np.float64) - exact).max() < 1e-6
+
+
 def test_exact_and_auto_knn_match_jax():
     """The dense search and both routes of auto_exact_knn against the JAX
-    exact_knn; the crossover picks the streaming path exactly where the
-    JAX selector does (batch >= 128 at the flagship database)."""
+    exact_knn; the crossover picks the streaming path for float32 rows at
+    the H100's threshold (4096 queries, batch >= 64 at the flagship
+    database; the JAX selector's v5e threshold was batch 128)."""
     rng = np.random.default_rng(5)
     q = rng.standard_normal((64, 16)).astype(np.float32)
     db = rng.standard_normal((1500, 16)).astype(np.float32)
@@ -74,9 +166,64 @@ def test_exact_and_auto_knn_match_jax():
                          auto_exact_knn(tq, tdb, 4, min_rows=1000)):
         np.testing.assert_array_equal(got_i.numpy(), want_i)
         np.testing.assert_allclose(got_d.numpy(), want_d, atol=1e-5)
-    assert use_streaming_knn(27132, n_queries=128 * 64)
-    assert not use_streaming_knn(27132, n_queries=64 * 64)
+    assert use_streaming_knn(27132, n_queries=64 * 64)
+    assert not use_streaming_knn(27132, n_queries=32 * 64)
     assert use_streaming_knn(1_000_000) and not use_streaming_knn(27132)
+
+
+def test_bf16_rows_cross_over_at_the_h100s_query_batch():
+    """bf16 rows take the streaming kernel from 1024 queries against
+    16,384 rows, float32 rows from 4096 (measured on the H100); the row
+    threshold is the same for both."""
+    bf16 = torch.bfloat16
+    assert use_streaming_knn(27132, n_queries=16 * 64, dtype=bf16)
+    assert use_streaming_knn(16384, n_queries=1024, dtype=bf16)
+    assert not use_streaming_knn(16383, n_queries=8192, dtype=bf16)
+    assert not use_streaming_knn(27132, n_queries=1023, dtype=bf16)
+    assert not use_streaming_knn(27132, n_queries=4095, dtype=torch.float32)
+    assert use_streaming_knn(16384, n_queries=4096, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_knn_rows_gives_the_tensor_maps_pitch(dtype):
+    """knn_rows returns a database that already has a 16-byte row pitch as
+    it is, and otherwise the same values in a zero-padded buffer of that
+    pitch, so that the kernel reads them in place."""
+    granule = 16 // torch.tensor([], dtype=dtype).element_size()
+    rng = np.random.default_rng(15)
+    aligned = torch.from_numpy(rng.standard_normal((50, 64)).astype(np.float32)).to(dtype)
+    assert knn_rows(aligned) is aligned
+    assert knn_rows(aligned[:, :3]).data_ptr() == aligned.data_ptr()  # the pitch is 64
+    for db in (aligned[:, 7:], torch.from_numpy(
+            rng.standard_normal((50, 77)).astype(np.float32)).to(dtype)):
+        rows = knn_rows(db)
+        assert torch.equal(rows, db) and rows.stride(1) == 1
+        assert rows.stride(0) % granule == 0 and rows.stride(0) < db.shape[1] + granule
+        padded = rows.as_strided((50, rows.stride(0)), (rows.stride(0), 1))
+        assert not padded[:, db.shape[1]:].any()
+        assert knn_rows(rows) is rows
+
+
+def test_knn_index_agreement_holds_sets_and_order_off_near_ties():
+    """chip_smoke's rule for the kernel's indices: a query whose k-th and
+    (k+1)-th similarities are apart must have the same k rows, in order too
+    where every gap of its top k+1 is; a swap of two near-equal rows inside
+    the top k passes, a wrong row does not."""
+    from chip_smoke import knn_index_agreement
+    pv = torch.tensor([[0.9, 0.8, 0.7], [0.9, 0.9 - 1e-7, 0.5], [0.9, 0.8, 0.8 - 1e-7]])
+    pi = torch.tensor([[1, 2, 3], [4, 5, 6], [7, 8, 9]], dtype=torch.int32)
+    same = pi[:, :2].clone()
+    assert knn_index_agreement(same, pv, pi, 2) == (True, 2, 1)
+    swapped = torch.tensor([[1, 2], [5, 4], [9, 7]], dtype=torch.int32)
+    assert knn_index_agreement(swapped, pv, pi, 2)[0]
+    for wrong in ([[2, 1], [4, 5], [7, 8]], [[1, 2], [4, 6], [7, 8]]):
+        assert not knn_index_agreement(torch.tensor(wrong, dtype=torch.int32), pv, pi, 2)[0]
+
+
+def test_knn_query_crossover_leaves_other_dtypes_dense():
+    """The kernel takes float32 and bf16 rows; other dtypes have no query
+    crossover and stay on the dense search at any batch."""
+    assert not use_streaming_knn(27132, n_queries=8192, dtype=torch.float64)
 
 
 def _flax_mlp(m):

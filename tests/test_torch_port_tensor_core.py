@@ -1,6 +1,7 @@
-"""The host side of the tensor-core kernels (csrc/decoder_tail.cu and the
-bf16 body of csrc/attention.cuh), on the CPU: which instruction path a
-launch is reported to take, and that CPU tensors take neither. The kernels
+"""The host side of the tensor-core kernels (csrc/decoder_tail.cu, the
+bf16 body of csrc/attention.cuh and csrc/knn.cu), on the CPU: which
+instruction path a launch is reported to take, and that CPU tensors take
+none. The kernels
 themselves run in tests/test_torch_port_cuda.py, on a CUDA card.
 """
 
@@ -12,6 +13,7 @@ from retrieval_fuse_tpu_torch.models.attention import AttentionFeatureEncoder
 from retrieval_fuse_tpu_torch.ops import _build
 from retrieval_fuse_tpu_torch.ops import decoder_tail as dt
 from retrieval_fuse_tpu_torch.ops import patch_attention as pa
+from retrieval_fuse_tpu_torch.ops import streaming_knn as sk
 
 
 @pytest.mark.parametrize("dtype, nf, want", [
@@ -82,3 +84,30 @@ def test_cpu_tensors_take_the_plain_versions_and_report_no_path():
     assert out.shape == x.shape and tail.shape == (1, 1, 1, 1, 8)
     assert before == (pa.patch_attention.launches, pa.patch_attention.math,
                       dt.decoder_tail.launches, dt.decoder_tail.math)
+
+
+@pytest.mark.parametrize("dtype, want", [(torch.bfloat16, "mma.bf16"),
+                                         (torch.float32, "mma.3xtf32")])
+def test_knn_math_follows_the_dtype(dtype, want):
+    """csrc/knn.cu scores bf16 rows with bf16 mma and float32 rows with three
+    TF32 products; both on the tensor cores."""
+    assert "knn" in _build.KERNELS and dtype in sk.KERNEL_DTYPES
+    assert sk.kernel_math(dtype) == want
+
+
+def test_knn_math_knows_only_the_kernels_dtypes():
+    with pytest.raises(ValueError, match="no kernel path"):
+        sk.kernel_math(torch.float16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_knn_on_cpu_tensors_takes_the_plain_version(dtype):
+    """The plain version's output, no launch counted, no path reported."""
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal((7, 96)).astype(np.float32)).to(dtype)
+    db = torch.from_numpy(rng.standard_normal((50, 96)).astype(np.float32)).to(dtype)
+    before = (sk.streaming_knn_sims.launches, sk.streaming_knn_sims.math)
+    v, i = sk.streaming_knn_sims(q, db, 10)
+    pv, pi = sk.streaming_knn_sims_plain(q, db, 10)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    assert before == (sk.streaming_knn_sims.launches, sk.streaming_knn_sims.math)

@@ -3,7 +3,7 @@
 switches, on one CUDA card.
 
     python tools/torch_port_kernel_probe.py [--seed 0] [--iters 10]
-                                            [--probe tail attention v1 chamfer]
+                                            [--probe tail attention v1 chamfer knn]
 
 At the batch-128 serving shapes (seeded random rows and weights):
   - csrc/decoder_tail.cu (bf16, nf = 16) as it is, without its slab copies
@@ -26,6 +26,16 @@ At the batch-128 serving shapes (seeded random rows and weights):
     kernel (the device's time alone); and the inner loop without its minimum
     (-DRF_PROBE_CHAMFER_NO_MIN), without its FMAs (-DRF_PROBE_CHAMFER_NO_FMA)
     and without both, whose outputs are meaningless and are not checked.
+  - csrc/knn.cu at the serving shape (Q = 8192 against 27,132 rows, D = 64,
+    k = 4 and 8, bf16 and float32), each variant built with
+    -DRF_PROBE_KNN_SERVING_ONLY (those shapes alone, so that a build takes
+    seconds): as shipped; the products without the select
+    (-DRF_PROBE_KNN_NO_SELECT, unchecked); the cluster's split count forced
+    (-DRF_PROBE_KNN_SPLITS=S, S in 1, 2, 3, 4, 6, 8); ring depths 2 and 4
+    (-DRF_PROBE_KNN_SLOTS); tiles of 32 and 128 rows (-DRF_PROBE_KNN_TILE);
+    each held against the plain version (indices off near-ties, 2e-6).
+    Before them, the wall time of the full build of knn.cu (every width
+    bucket and list size).
 Each variant is its own library (the flags are part of its name); the
 kernels the port loads afterwards are the unflagged ones. Needs a CUDA card.
 """
@@ -35,13 +45,14 @@ from __future__ import annotations
 import argparse
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
-PROBES = ("tail", "attention", "v1", "chamfer")
+PROBES = ("tail", "attention", "v1", "chamfer", "knn")
 
 
 def main(argv=None) -> int:
@@ -53,7 +64,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from chip_smoke import SEED_BANK_ROWS, cuda_ms
+    from chip_smoke import SEED_BANK_ROWS, cuda_ms, knn_index_agreement
     from retrieval_fuse_tpu_torch.device import resolve_device
     from retrieval_fuse_tpu_torch.models.attention import AttentionFeatureEncoder
     from retrieval_fuse_tpu_torch.ops import _build
@@ -165,8 +176,41 @@ def main(argv=None) -> int:
                              f"{' (MINIMA DIFFER)' if differ else ''}")
             print(f"chamfer {label}: {'; '.join(times)}; ptxas {ptxas} [{card}]", flush=True)
 
+    def probe_knn():
+        from retrieval_fuse_tpu_torch.ops.streaming_knn import (
+            streaming_knn_sims, streaming_knn_sims_plain)
+        from tools.torch_port_kernel_times import unit_rows
+        ops = {dtype: (unit_rows(gen, 8192, 64, dtype), unit_rows(gen, SEED_BANK_ROWS, 64, dtype))
+               for dtype in (torch.bfloat16, torch.float32)}
+        wants = {(dtype, k): streaming_knn_sims_plain(*ops[dtype], k + 1)
+                 for dtype in ops for k in (4, 8)}
+        t0 = time.perf_counter()
+        rebuilt("knn", ())
+        print(f"knn.cu, every instantiation: built in {time.perf_counter() - t0:.1f} s "
+              f"[{card}]", flush=True)
+        d = "-DRF_PROBE_KNN_"
+        variants = [("as shipped (3 slots, 64-row tiles, 3 blocks an SM wanted)", ())]
+        variants += [("the products alone, no select", (f"{d}NO_SELECT",))]
+        variants += [(f"{s_} splits", (f"{d}SPLITS={s_}",)) for s_ in (1, 2, 3, 4, 6, 8)]
+        variants += [(f"{n_} slots", (f"{d}SLOTS={n_}",)) for n_ in (2, 4)]
+        variants += [(f"{n_}-row tiles", (f"{d}TILE={n_}",)) for n_ in (32, 128)]
+        variants += [("as shipped, again", ())]
+        for label, flags in variants:
+            ptxas = rebuilt("knn", flags + (d + "SERVING_ONLY",))
+            times = []
+            for (dtype, k), (pv, pi) in wants.items():
+                v, i = streaming_knn_sims(*ops[dtype], k)
+                torch.cuda.synchronize()
+                ok = "NO_SELECT" in "".join(flags) or (
+                    knn_index_agreement(i, pv, pi, k)[0]
+                    and float((v - pv[:, :k]).abs().max()) <= 2e-6)
+                ms = cuda_ms(lambda: streaming_knn_sims(*ops[dtype], k), args.iters)
+                times.append(f"{str(dtype)[6:]} k={k} {ms:.4f} ms{'' if ok else ' (DIFFERS)'}")
+            print(f"knn Q=8192 N={SEED_BANK_ROWS} D=64, {label}: {'; '.join(times)}; "
+                  f"ptxas {ptxas} [{card}]", flush=True)
+
     probes = {"tail": probe_tail, "attention": probe_attention, "v1": probe_v1,
-              "chamfer": probe_chamfer}
+              "chamfer": probe_chamfer, "knn": probe_knn}
     try:
         with torch.inference_mode():
             for name in PROBES:

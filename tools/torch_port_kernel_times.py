@@ -2,10 +2,21 @@
 """Build, check and time the port's redesigned kernels alone, on one CUDA card.
 
     python tools/torch_port_kernel_times.py [--seed 0] [--batch 128] [--iters 10]
+                                            [--crossover]
 
-Builds csrc/gathered_attention.cu, gathered_attention_v1.cu,
-patch_attention.cu, decoder_tail.cu and chamfer.cu (printing what ptxas says
-of registers and spills), then at the serving shapes of `--batch` chunks
+Builds csrc/knn.cu, gathered_attention.cu, gathered_attention_v1.cu,
+patch_attention.cu, decoder_tail.cu and chamfer.cu (printing the build's
+wall time and what ptxas says of registers and spills). First the streaming
+kNN kernel on seeded random unit rows at the serving shape (Q = batch·64
+queries against 27,132 rows of width 64) with k = 4 (serving) and k = 8
+(`map`'s 2K), in bf16 and float32: indices equal to the plain version's off
+near-ties (chip_smoke.knn_index_agreement) and similarities within 2e-6,
+times beside the bound, the dense path the engine takes below the crossover
+(float32 matmul + the topk kernel) and the library call (matmul +
+torch.topk). With --crossover it times the kernel against the dense path at
+Q in {1024, 2048, 4096, 8192} x N in {16,384, 27,132}, both dtypes, k in
+{4, 8}: the table that sets
+ops/knn.py's crossovers. Then at the serving shapes of `--batch` chunks
 (batch·64 tiles of 64 rows x 128 features, K = 4, a 27,132-tile bank; decoder
 tail B = batch, S = 32, nf = 16), on seeded random rows and weights:
   - holds each kernel against its plain PyTorch version in bf16 (selection
@@ -32,6 +43,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -81,11 +93,100 @@ def chamfer_cases(gen, batch: int) -> list:
             for label, b, cap, n_a, n_b in CHAMFER_SIZES]
 
 
+#: the knn.cu instantiations of the serving shapes (D = 64; lists of 4 and 8),
+#: by their mangled names' template arguments
+KNN_SERVING_KERNELS = {"I13__nv_bfloat16Li4ELi4E": "bf16 D=64 k=4",
+                       "I13__nv_bfloat16Li4ELi8E": "bf16 D=64 k=8",
+                       "IfLi8ELi4E": "f32 D=64 k=4", "IfLi8ELi8E": "f32 D=64 k=8"}
+
+
+def print_knn_ptxas(report: str) -> None:
+    """knn.cu has 140 instantiations: the registers of the serving ones,
+    the range over all, and every spill."""
+    regs, entry = {}, ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "Used " in line:
+            n_regs = int(line.split("Used ")[1].split()[0])
+            regs[entry] = n_regs
+            for key, label in KNN_SERVING_KERNELS.items():
+                if key in entry:
+                    print(f"ptxas knn {label}: {line.strip()}", flush=True)
+        elif "spill" in line and "0 bytes spill" not in line:
+            print(f"ptxas knn {entry}: {line.strip()}", flush=True)
+    if regs:
+        print(f"ptxas knn: {len(regs)} entry functions, {min(regs.values())} to "
+              f"{max(regs.values())} registers", flush=True)
+
+
+def unit_rows(gen, n: int, d: int, dtype):
+    """n seeded random unit rows of width d on gen's device, in dtype."""
+    import torch
+    x = torch.randn((n, d), generator=gen, device=gen.device)
+    return (x / x.norm(dim=1, keepdim=True)).to(dtype).contiguous()
+
+
+def time_knn(gen, q: int, n: int, k: int, iters: int, card: str, hold) -> None:
+    """The kNN kernel at (Q, N, 64, k) in bf16 and float32: held against the
+    plain version, timed beside its bound, the engine's dense path (float32
+    matmul of the rows + the topk kernel) and matmul + torch.topk."""
+    import torch
+    from chip_smoke import (KNN_MIN_ORDER_CLEAR, KNN_SIM_TOL, cuda_ms, knn_bound,
+                            knn_index_agreement)
+    from retrieval_fuse_tpu_torch.ops.streaming_knn import (
+        streaming_knn_sims, streaming_knn_sims_plain)
+    from retrieval_fuse_tpu_torch.ops.topk import topk
+    for dtype in (torch.bfloat16, torch.float32):
+        qr, db = unit_rows(gen, q, 64, dtype), unit_rows(gen, n, 64, dtype)
+        v, i = streaming_knn_sims(qr, db, k)
+        pv, pi = streaming_knn_sims_plain(qr, db, k + 1)
+        torch.cuda.synchronize()
+        agree, set_clear, order_clear = knn_index_agreement(i, pv, pi, k)
+        err = float((v - pv[:, :k]).abs().max())
+        hold(f"knn {dtype} Q={q} N={n} k={k} [{streaming_knn_sims.math}]",
+             agree and order_clear >= KNN_MIN_ORDER_CLEAR * q and err <= KNN_SIM_TOL,
+             f"the same top-k rows on {set_clear} set-clear queries, in order on "
+             f"{order_clear} order-clear, of {q}; max |sim diff| {err:.3e}")
+        del pv, pi
+        ms = cuda_ms(lambda: streaming_knn_sims(qr, db, k), iters)
+        q32, db32 = qr.float(), db.float()
+        dense = cuda_ms(lambda: topk(q32 @ db32.T, k), iters)
+        library = cuda_ms(lambda: torch.topk(q32 @ db32.T, k), iters)
+        b_ms, by = knn_bound(q, n, 64, k, dtype)
+        print(f"knn {dtype} Q={q} N={n} D=64 k={k} [{streaming_knn_sims.math}]: kernel "
+              f"{ms:.4f} ms, bound {b_ms:.4f} ms ({by}), dense path {dense:.4f} ms, "
+              f"matmul + torch.topk {library:.4f} ms [{card}]", flush=True)
+
+
+def knn_crossover(gen, iters: int, card: str) -> None:
+    """The kernel against the dense path (float32 matmul + the topk kernel:
+    what the engine runs below the crossover), both dtypes, at serving's
+    k = 4 and `map`'s 2K = 8."""
+    import torch
+    from chip_smoke import cuda_ms
+    from retrieval_fuse_tpu_torch.ops.streaming_knn import streaming_knn_sims
+    from retrieval_fuse_tpu_torch.ops.topk import topk
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (16384, 27132):
+            db = unit_rows(gen, n, 64, dtype)
+            db32 = db.float()
+            for q in (1024, 2048, 4096, 8192):
+                qr = unit_rows(gen, q, 64, dtype)
+                for k in (4, 8):
+                    ms = cuda_ms(lambda: streaming_knn_sims(qr, db, k), iters)
+                    dense = cuda_ms(lambda: topk(qr.float() @ db32.T, k), iters)
+                    print(f"knn crossover {dtype} Q={q} N={n} k={k}: kernel {ms:.4f} ms, "
+                          f"dense path {dense:.4f} ms, kernel/dense {ms / dense:.3f} [{card}]",
+                          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--crossover", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -103,8 +204,14 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
-    for name, rep in _build.build_all(["gathered_attention", "gathered_attention_v1",
-                                       "patch_attention", "decoder_tail", "chamfer"]).items():
+    t0 = time.perf_counter()
+    reports = _build.build_all(["knn", "gathered_attention", "gathered_attention_v1",
+                                "patch_attention", "decoder_tail", "chamfer"])
+    print(f"build: {len(reports)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, rep in reports.items():
+        if name == "knn":
+            print_knn_ptxas(rep)
+            continue
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "warning" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
@@ -119,6 +226,10 @@ def main(argv=None) -> int:
             failed.append(label)
 
     with torch.inference_mode():
+        for knn_k in (4, 8):
+            time_knn(gen, q, SEED_BANK_ROWS, knn_k, args.iters, card, hold)
+        if args.crossover:
+            knn_crossover(gen, args.iters, card)
         torch.manual_seed(args.seed)
         theta, phi = AttentionFeatureEncoder(f, 32).to(dev), AttentionFeatureEncoder(f, 32).to(dev)
         mlps = {torch.float32: (theta, phi),
