@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and retrieval paths on one CUDA card.
+"""Drive the PyTorch port's serving, retrieval and training paths on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--out chiprun_out/chip_smoke.json]
 
@@ -26,26 +26,44 @@ checking each path's TSDF against the plain `base` engine in bf16 (MAE <
 1e-3, the budget of the JAX tests) and in float32 (MAE < 1e-5); the
 bf16-vs-float32 MAE of FAST_VARIANT is printed.
 
-Then it drives the retrieval pipeline (retrieval/cli.py's map -> compose
--> evaluate) at the full width of ShapeNetV2's retrieval config (Patch04
-nf 32 and Patch32 nf 8 encoders, latent 64, K = 4; random weights from
---seed) on a synthetic dataset made on the card, with as many train chunks
-as it takes for the dictionary to reach the flagship database's 27,132
-rows and 64 val chunks: the train and val queries run through the
-kNN in 8192-query batches, those of 4096 queries or more (the float32
-crossover) through the streaming kernel, and `evaluate` through the
-chamfer kernel, one launch per val scene. It checks the mapping of 2,048
-sampled train queries against a dense float32 search, the kNN and chamfer
-launches, and the
-metrics against the plain chamfer's; then holds the chamfer kernel against
-its plain version at the evaluate shape, on two pairs cut so that the
-kernel's split of the streamed set is ragged or mostly empty, and at 128
-batched pairs.
+Then, on a synthetic dataset made on the card (as many train chunks as it
+takes for the dictionary to reach the flagship database's 27,132 rows, and
+64 val chunks), at the full width of ShapeNetV2's retrieval config
+(Patch04 nf 32 and Patch32 nf 8 encoders, latent 64, batch 128, IoU
+scaling, Adam with weight decay 5e-5, K = 4; weights from --seed):
+  - trains the retrieval network: its first three steps on the card held
+    against the same steps on the CPU (float32, TF32 off; losses 1e-5
+    relative, step-1 gradients TRAIN_GRAD_TOL of each tensor's largest
+    magnitude; no kernel launched), one epoch through the trainer's CLI
+    (retrieval_trainer.main, which saves the checkpoint; its `fit` timed
+    for steps/s), and one validation: the val loss, then the retrieval validation, which
+    must launch the kNN or topk kernel and the chamfer kernel;
+  - drives the retrieval pipeline (retrieval/cli.py's map -> compose ->
+    evaluate) with the trained checkpoint: the train and val queries run
+    through the kNN in 8192-query batches, those of 4096 queries or more
+    (the float32 crossover) through the streaming kernel, the rest through
+    the topk kernel, and `evaluate` through the chamfer kernel, one launch
+    per val scene. It checks the mapping of 2,048 sampled train queries
+    against a dense float32 search, the kNN and chamfer launches, the
+    metrics against the plain chamfer's and against the trainer's
+    validation;
+  - serves the 64 val input chunks from those artifacts (the dictionary,
+    the trained checkpoint and a seeded random refinement checkpoint at
+    the flagship geometry) with FAST_VARIANT: the engine of
+    serve.build_engine_from_artifacts through serve_directory at batch 64
+    (its alignment guard on the card), held against engines built in
+    memory from the same weights, rows and tiles (float32 max |diff| 1e-5;
+    bf16 MAE < 1e-3 against `base`), then the serving CLI (serve.main) in
+    bf16 and float32 against the engine's TSDFs;
+then holds the chamfer kernel against its plain version at the evaluate
+shape, on two pairs cut so that the kernel's split of the streamed set is
+ragged or mostly empty, and at 128 batched pairs.
 
 Prints the card (nvidia-smi name and power limit), one line per check,
 a `{"kernels": [...]}` JSON line and, last, `{"ok": true, "device": ...}`.
-Any failed check exits non-zero. Needs one CUDA card; exits non-zero
-without one, or without the retrieval_fuse_tpu_torch package beside it.
+Any failed check exits non-zero. Needs one CUDA card and PyYAML; exits
+non-zero without them, or without the retrieval_fuse_tpu_torch package
+beside it.
 """
 
 from __future__ import annotations
@@ -79,6 +97,14 @@ RETRIEVAL_VAL_CHUNKS = 64
 MAP_SAMPLE = 2048       # train queries checked against a dense search
 CHAMFER_PAIRS = 128     # the chamfer kernel's batched check
 CHAMFER_CAPACITY = 16384
+TRAIN_HOLD_STEPS = 3  # train steps held against the CPU
+#: step-1 gradients, card against CPU, by target encoder: the largest share
+#: of a tensor's largest magnitude held (float32, TF32 off). Measured by
+#: tools/torch_port_train_precision.py on the H100 (PERF.md section 6): the
+#: plain encoder's worst 2.6e-4 / 2.9e-4 (cuDNN's weight gradients), with
+#: TF32 1.1e-2 / 1.3e-2; the BatchNorm one's 4.2e-3 / 3.0e-4 (float32 itself:
+#: the CPU lies as far from float64), with TF32 4.0e-2 / 8.0e-2
+TRAIN_GRAD_TOL = {"16+8": 1e-3, "16+8N": 1e-2}
 #: engine ms per batch-128 call in bf16 while the path's decoder tail and
 #: attention body still multiplied bf16 on float32 FMAs (NVIDIA H100 80GB HBM3,
 #: 700.00 W), printed beside this run's
@@ -234,6 +260,81 @@ def retrieval_config(root, retrieval_ckpt, k: int = 4) -> dict:
         "dictionary": {"batch_size": 512, "num_workers": 8},
         "query": {"batch_size": 512, "num_workers": 8, "K": k, "flann_num_workers": 0},
     }
+
+
+def serving_config(root, retrieval_ckpt) -> dict:
+    """retrieval_config with the refinement networks of
+    config/super_resolution/ShapeNetV2/refinement_008_064.yaml (on
+    base/refinement_superresolution.yaml): the keys the serving engine
+    reads, which are flagship_config's, merged as
+    data/synthetic.make_synthetic_config merges the two YAMLs (the
+    retrieval config's keys win)."""
+    cfg = retrieval_config(root, retrieval_ckpt)
+    for key, value in flagship_config().items():
+        if key not in ("dataset_train", "retrieval_model"):
+            cfg.setdefault(key, value)
+    return cfg
+
+
+def first_batches(dataset, batch_size: int, n: int) -> list:
+    """The first n batches of the trainer's epoch-0 order (shuffled with
+    seed 0, last partial batch dropped), made on this thread."""
+    from retrieval_fuse_tpu_torch.data import batch_iterator
+    it = batch_iterator(dataset, batch_size, shuffle=True, drop_last=True, seed=0, prefetch=0)
+    return [b for _, b in zip(range(n), it)]
+
+
+def batchnorm_fed_biases(net) -> set:
+    """Names of the conv biases that a BatchNorm follows: their gradient is
+    zero in exact arithmetic, so both devices' are rounding noise."""
+    if not getattr(net, "use_batchnorm", False):
+        return set()
+    return {f"conv{j}.bias" for j in range(net.n_conv)}
+
+
+def hold_train_steps(cfg: dict, dev, n_steps: int):
+    """The retrieval trainer's first n_steps steps on the card against the
+    same steps of the port on the CPU: the same seeded weights (the
+    trainer's init from cfg["seed"]), the same batches and learning rates,
+    float32 with TF32 off. The loss of each step within 1e-5 relative, the
+    step-1 gradients within TRAIN_GRAD_TOL (by target encoder) of each
+    tensor's largest magnitude (those of batchnorm_fed_biases below 1e-2 of
+    the encoder's largest gradient). Returns (the card's trainer after the steps, losses, worst
+    gradient error relative to its tensor's largest magnitude)."""
+    import torch
+    from retrieval_fuse_tpu_torch.train import schedule as sched
+    from retrieval_fuse_tpu_torch.train.retrieval_trainer import RetrievalTrainer
+    card, cpu = RetrievalTrainer(cfg, device=dev), RetrievalTrainer(cfg, device="cpu")
+    grad_tol = TRAIN_GRAD_TOL[cfg["retrieval_model"]["network_target"]]
+    losses, grad_err = [], 0.0
+    for i, batch in enumerate(first_batches(card.train_dataset, card.batch_size, n_steps)):
+        lr = sched.current_lr(card.base_lr, card.milestones, i, 0)
+        got = float(card._train_step(card._device_batch(batch), lr)[0])
+        want = float(cpu._train_step(cpu._device_batch(batch), lr)[0])
+        check(np.isfinite(got) and abs(got - want) <= 1e-5 * abs(want),
+              f"train step {i + 1}: loss {got} on the card, {want} on the CPU")
+        losses.append((got, want))
+        if i == 0:
+            for name, net in card.encoders.items():
+                theirs = dict(cpu.encoders[name].named_parameters())
+                net_scale = max(float(p.grad.abs().max()) for p in theirs.values())
+                before_bn = batchnorm_fed_biases(net)
+                for key, param in net.named_parameters():
+                    g, w = param.grad.cpu(), theirs[key].grad
+                    if key in before_bn:
+                        noise = max(float(g.abs().max()), float(w.abs().max()))
+                        check(noise <= 1e-2 * net_scale,
+                              f"train step 1: gradient of {name}.{key} (before a BatchNorm) "
+                              f"is {noise:.2e}, not below 1e-2 of {net_scale:.2e}")
+                        continue
+                    scale = float(w.abs().max())
+                    err = float((g - w).abs().max()) / max(scale, 1e-30)
+                    check(torch.isfinite(g).all().item() and err <= grad_tol,
+                          f"train step 1: gradient of {name}.{key} differs by {err:.2e} of "
+                          f"its largest magnitude {scale:.2e}")
+                    grad_err = max(grad_err, err)
+        card.global_step = cpu.global_step = i + 1
+    return card, losses, grad_err
 
 
 def patch_occupancy(df64, voxel_size: float):
@@ -550,21 +651,23 @@ def main(argv=None) -> int:
         from retrieval_fuse_tpu_torch.ops.streaming_knn import (
             kernel_math as knn_math, streaming_knn_sims, streaming_knn_sims_plain)
         from retrieval_fuse_tpu_torch.ops.topk import topk, topk_plain
+        from retrieval_fuse_tpu_torch import serve
         from retrieval_fuse_tpu_torch.serve import serve_directory
         from retrieval_fuse_tpu_torch.data import PatchedSceneDataset, SceneHandler
         from retrieval_fuse_tpu_torch.evaluation import metrics as metrics_mod
-        from retrieval_fuse_tpu_torch.models import get_retrieval_networks, init_module_params
         from retrieval_fuse_tpu_torch.ops.chamfer import (
             chamfer_batch_plain, occupancy_to_point_buffer)
         from retrieval_fuse_tpu_torch.ops.streaming_chamfer import (
             chamfer_minima, chamfer_minima_plain)
         from retrieval_fuse_tpu_torch.retrieval.cli import retrievals_to_disk
         from retrieval_fuse_tpu_torch.retrieval.engine import query_batch_size
-        from retrieval_fuse_tpu_torch.train.checkpoint import save_checkpoint
-        from retrieval_fuse_tpu_torch.train.retrieval_trainer import get_metrics_for_retrieval
+        from retrieval_fuse_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+        from retrieval_fuse_tpu_torch.train.retrieval_trainer import (
+            RetrievalTrainer, get_metrics_for_retrieval, main as train_main)
         from retrieval_fuse_tpu_torch.utils.misc import get_retrievals_dir, get_tree_path
+        import yaml  # the trainer's and the serving CLI's configs
     except ImportError as e:
-        print(f"chip_smoke: the port package is missing ({e})", file=sys.stderr)
+        print(f"chip_smoke: the port package or PyYAML is missing ({e})", file=sys.stderr)
         return 1
     import torch.nn.functional as F
 
@@ -928,10 +1031,11 @@ def main(argv=None) -> int:
                 f"bf16 = {rec['engine_chunks_per_s']:.1f} chunks/s; launches {counts} [{card}]")
         results["paths"] = paths
 
-        # 7) the retrieval pipeline, map -> compose -> evaluate, at the full
-        # width of ShapeNetV2's retrieval config, on a synthetic dataset whose
-        # dictionary reaches the flagship database's rows
-        retrieval = {}
+        # 7) the retrieval trainer, then the retrieval pipeline (map ->
+        # compose -> evaluate) with its checkpoint, then serving from those
+        # artifacts, at the full width of ShapeNetV2's configs, on a synthetic
+        # dataset whose dictionary reaches the flagship database's rows
+        retrieval, training, from_artifacts = {}, {}, {}
         with tempfile.TemporaryDirectory() as tmp:
             root = Path(tmp)
             t0 = time.perf_counter()
@@ -940,15 +1044,98 @@ def main(argv=None) -> int:
             retrieval["data_s"] = time.perf_counter() - t0
             log(f"retrieval data: {len(made['train'])} train and {len(made['val'])} val chunks "
                 f"(64³ targets, 8³ inputs) made and written in {retrieval['data_s']:.1f} s")
-            wrng = np.random.default_rng(args.seed + 1)
-            nets = get_retrieval_networks(retrieval_config(root, "")["retrieval_model"])
-            ckpt = save_checkpoint(root / "runs" / "chip_smoke", 0, {
-                name: init_module_params(net, wrng)
-                for name, net in zip(("fenc_input", "fenc_target"), nets)})
-            rcfg = retrieval_config(root / "data", ckpt)
             cwd = os.getcwd()
-            os.chdir(root)  # the dictionary's scratch tree is relative: runs/retrieval_scratch
+            os.chdir(root)  # runs/ (metrics, checkpoints, the dictionary's scratch tree)
             try:
+                # 7a) the retrieval trainer: its first steps against the CPU,
+                # steps/s through fit, one epoch through its CLI, one validation
+                tcfg = dict(retrieval_config(root / "data", ""), seed=args.seed,
+                            experiment="chip_smoke_steps")
+                before = {name: c.launches for name, c in counters.items()}
+                t0 = t_train = time.perf_counter()
+                trainer, step_losses, grad_err = hold_train_steps(tcfg, dev, TRAIN_HOLD_STEPS)
+                check({name: c.launches for name, c in counters.items()} == before,
+                      "the train steps launched a kNN, topk or chamfer kernel")
+                training.update(hold_s=time.perf_counter() - t0, hold_losses=step_losses,
+                                hold_grad_err=grad_err, batch=trainer.batch_size,
+                                train_patches=len(trainer.train_dataset))
+                log(f"train steps 1-{TRAIN_HOLD_STEPS} on the card against the CPU (float32, "
+                    f"TF32 off): losses {[round(a, 6) for a, _ in step_losses]} within 1e-5 "
+                    f"relative, step-1 gradients within {grad_err:.1e} of each tensor's "
+                    f"largest magnitude (<= "
+                    f"{TRAIN_GRAD_TOL[tcfg['retrieval_model']['network_target']]:g}); no kernel "
+                    f"launched")
+                # device time of a step on a resident batch (no loader)
+                resident = trainer._device_batch(first_batches(
+                    trainer.train_dataset, trainer.batch_size, 1)[0])
+                training["step_device_ms"] = cuda_ms(
+                    lambda: trainer._train_step(resident, trainer.current_learning_rate), 10)
+                del trainer, resident
+                # one epoch through the CLI, which saves its checkpoint; its
+                # fit is timed (synchronised) for steps/s, loader included
+                cfg_path = root / "retrieval.yaml"
+                cfg_path.write_text(yaml.safe_dump(retrieval_config(root / "data", "")))
+                os.environ.pop("experiment", None)
+                fit, fit_s = RetrievalTrainer.fit, []
+
+                def timed_fit(self, *a, **kw):
+                    torch.cuda.synchronize()
+                    t_fit = time.perf_counter()
+                    out = fit(self, *a, **kw)
+                    torch.cuda.synchronize()
+                    fit_s.append(time.perf_counter() - t_fit)
+                    return out
+
+                t0 = time.perf_counter()
+                try:
+                    RetrievalTrainer.fit = timed_fit
+                    trainer, counts = drive("train CLI epoch", (), lambda: train_main([
+                        "--config", str(cfg_path), "--max_epoch", "1", "--val_check_interval",
+                        "100", "--seed", str(args.seed), "--experiment", "chip_smoke_train"]))
+                finally:
+                    RetrievalTrainer.fit = fit
+                    os.environ.pop("experiment", None)
+                run = Path("runs") / trainer.config["experiment"]
+                recs = [json.loads(line) for line in (run / "metrics.jsonl").read_text()
+                        .splitlines()]
+                ckpt = (run / "ckpt_epoch=0").resolve()
+                training.update(main_s=time.perf_counter() - t0, epoch_steps=trainer.global_step,
+                                fit_s=fit_s[0], steps_per_s=trainer.global_step / fit_s[0],
+                                first_loss=step_losses[0][0],
+                                last_loss=recs[-1]["train/total_loss"], launches=counts)
+                check(trainer.global_step == training["train_patches"] // trainer.batch_size
+                      and np.isfinite(training["last_loss"]) and (ckpt / "params.pt").exists(),
+                      f"train CLI epoch: {trainer.global_step} steps, last loss "
+                      f"{training['last_loss']}, checkpoint {ckpt}")
+                log(f"train CLI epoch (retrieval_trainer.main): {trainer.global_step} steps in "
+                    f"{training['main_s']:.1f} s wall (construction, data and checkpoint "
+                    f"included); loss {training['first_loss']:.4f} (step 1) -> "
+                    f"{training['last_loss']:.4f} (step {trainer.global_step}); launches "
+                    f"{counts} [{card}]")
+                log(f"train steps: {training['steps_per_s']:.2f} steps/s of batch "
+                    f"{training['batch']} through the CLI's fit ({trainer.global_step} steps "
+                    f"in {training['fit_s']:.1f} s, loader and checkpoint included, "
+                    f"synchronised); {training['step_device_ms']:.2f} ms a step on a "
+                    f"resident batch [{card}]")
+                t0 = time.perf_counter()
+                training["val_loss"] = trainer.validate(0, run_retrieval_validation=False)
+                val_metrics, counts = drive("train validation", ("chamfer",),
+                                            lambda: trainer.retrieval_validation(0))
+                training.update(validation_s=time.perf_counter() - t0,
+                                validation_launches=counts, metrics=val_metrics)
+                check(counts.get("knn", 0) + counts.get("topk", 0) > 0,
+                      f"train validation launched no kNN or topk kernel: {counts}")
+                check(np.isfinite(training["val_loss"])
+                      and all(np.isfinite(v) for m in val_metrics.values() for v in m),
+                      f"train validation: val loss {training['val_loss']}, {val_metrics}")
+                log(f"train validation: val loss {training['val_loss']:.4f}; val [iou, "
+                    f"chamfer, precision, recall] = {val_metrics['val']}; "
+                    f"{training['validation_s']:.1f} s wall; launches {counts} [{card}]")
+                del trainer
+                training["phase_s"] = time.perf_counter() - t_train
+                rcfg = retrieval_config(root / "data", ckpt)
+
+                # 7b) the retrieval pipeline with the trained checkpoint
                 outs = {}
                 for mode, needed in (("map", ("knn",)), ("compose", ()),
                                      ("evaluate", ("chamfer",))):
@@ -1010,9 +1197,116 @@ def main(argv=None) -> int:
                           f"{plain_metrics} with the plain chamfer")
                 log(f"retrieval evaluate: metrics equal the plain chamfer's within 1e-6 "
                     f"relative ({plain_metrics})")
+                for got, want in zip(outs["evaluate"], training["metrics"]["val"]):
+                    check(abs(got - want) <= 1e-6 * abs(want),
+                          f"retrieval evaluate: metrics {outs['evaluate']} against the "
+                          f"trainer's val metrics {training['metrics']['val']}")
+                log("retrieval evaluate: metrics equal the trainer's retrieval validation's "
+                    "val metrics within 1e-6 relative")
+
+                # 7c) serving from the artifacts: phase 7's dictionary and train
+                # scenes, the trained retrieval checkpoint and a seeded random
+                # refinement checkpoint at the flagship geometry
+                t_serve = time.perf_counter()
+                scfg = serving_config(root / "data", ckpt)
+                sparams = flagship_params(scfg, args.seed + 3)
+                fckpt = save_checkpoint(root / "runs" / "chip_smoke_refine", 0, {
+                    k: v for k, v in sparams.items() if k != "fenc_input"})
+                database = np.load(tree / "database.npy")
+                scene_list = json.loads((tree / "index.json").read_text())
+                rtrained = load_checkpoint(ckpt)["params"]
+                from_artifacts["min_cos"] = serve.verify_bank_database_alignment(
+                    scfg, rtrained["fenc_target"], database, scene_list, ds_train, device=dev)
+                art, t0 = {}, time.perf_counter()
+                for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+                    art[tag] = serve.build_engine_from_artifacts(
+                        scfg, ckpt, fckpt, compute_dtype=dtype, device=dev, variant=FAST_VARIANT)
+                torch.cuda.synchronize()
+                from_artifacts["build_s"] = time.perf_counter() - t0
+                bank = serve.build_patch_bank_from_database(database, scene_list, ds_train)
+                mparams = dict(sparams, fenc_input=rtrained["fenc_input"])
+                mem = {tag: RetrieveRefineEngine(scfg, mparams, database[:, 7:], bank,
+                                                 compute_dtype=dtype, device=dev, **kw)
+                       for tag, dtype, kw in (
+                           ("f32", torch.float32, variant_engine_kwargs(FAST_VARIANT)),
+                           ("base_bf16", torch.bfloat16, {}))}
+                del bank
+                vin = root / "serve_in"
+                vin.mkdir()
+                for name in made["val"]:
+                    (vin / f"{name}.npz").symlink_to(root / "data" / "sdf_008" / "SynthSet"
+                                                     / f"{name}.npz")
+                xv = np.stack([np.load(vin / f"{name}.npz")["arr"] for name in sorted(made["val"])]
+                              )[..., None].astype(np.float32)
+                eng = art["bf16"]
+                eng(xv)  # warm-up: cuDNN plans, allocator
+                t0 = time.perf_counter()
+                done, counts = drive("serve from artifacts", ("knn_bf16", "attention"),
+                                     lambda: serve_directory(eng, vin, root / "serve_out",
+                                                             batch_size=len(made["val"])))
+                wall = time.perf_counter() - t0
+                check(done == sorted(made["val"]), f"serve from artifacts: served {len(done)}")
+                served = np.stack([np.load(root / "serve_out" / f"{n}_pred.npz")["arr"]
+                                   for n in done]).astype(np.float32)
+                with torch.inference_mode():
+                    got = {tag: e(xv) for tag, e in art.items()}
+                    want = {tag: e(xv) for tag, e in mem.items()}
+                for tag, o in got.items():
+                    check(o.shape == (len(done), 64, 64, 64, 1) and torch.isfinite(o).all().item(),
+                          f"serve from artifacts {tag}: TSDF not finite or of shape "
+                          f"{tuple(o.shape)}")
+                served_err = float(np.abs(served - got["bf16"][..., 0].cpu().numpy()).max())
+                f32_err = float((got["f32"] - want["f32"]).abs().max())
+                bf16_mae = float((got["bf16"] - want["base_bf16"]).abs().mean())
+                from_artifacts.update(
+                    chunks=len(done), wall_s=wall, chunks_per_s=len(done) / wall,
+                    launches=counts, served_file_max_err=served_err, f32_max_abs=f32_err,
+                    bf16_mae_vs_base=bf16_mae, engine_ms=cuda_ms(lambda: eng(xv), 5))
+                check(served_err <= 1e-3, f"serve from artifacts: files differ by {served_err}")
+                check(f32_err <= 1e-5, f"serve from artifacts f32: max |diff| {f32_err} against "
+                      "the engine built in memory")
+                check(bf16_mae < 1e-3, f"serve from artifacts bf16: MAE {bf16_mae} against the "
+                      "bf16 base engine built in memory")
+                log(f"serve from artifacts ({FAST_VARIANT}, bf16): alignment guard min cosine "
+                    f"{from_artifacts['min_cos']:.6f}; two engines built in "
+                    f"{from_artifacts['build_s']:.1f} s; {len(done)} val chunks in {wall:.2f} s "
+                    f"= {len(done) / wall:.1f} chunks/s through serve_directory (npz I/O "
+                    f"included), engine {from_artifacts['engine_ms']:.2f} ms/batch of "
+                    f"{len(done)}; launches {counts} [{card}]")
+                log(f"serve from artifacts: f32 TSDF equal to the engine built in memory "
+                    f"(max |diff| {f32_err:.1e} <= 1e-5); bf16 MAE {bf16_mae:.2e} against the "
+                    f"bf16 base engine (< 1e-3); files within {served_err:.1e} (float16)")
+                # the serving CLI on the same artifacts, in bf16 and float32
+                scfg_path = root / "serving.yaml"
+                scfg_path.write_text(yaml.safe_dump(
+                    {k: v for k, v in scfg.items() if k != "retrieval_ckpt"}))
+                for tag, extra, needed in (("bf16", [], ("knn_bf16", "attention")),
+                                           ("f32", ["--f32"], ("knn", "attention"))):
+                    argv = ["--config", str(scfg_path), "--retrieval_ckpt", str(ckpt),
+                            "--refinement_ckpt", str(fckpt), "--input", str(vin), "--output",
+                            str(root / f"cli_{tag}"), "--batch_size", str(len(made["val"])),
+                            "--fast", *extra]
+                    t0 = time.perf_counter()
+                    done, counts = drive(f"serve CLI {tag}", needed, lambda: serve.main(argv))
+                    cli_s = time.perf_counter() - t0
+                    files = np.stack([np.load(root / f"cli_{tag}" / f"{n}_pred.npz")["arr"]
+                                      for n in done]).astype(np.float32)
+                    err = float(np.abs(files - got[tag][..., 0].cpu().numpy()).max())
+                    from_artifacts[f"cli_{tag}"] = dict(max_err=err, launches=counts, wall_s=cli_s)
+                    check(done == sorted(made["val"]) and err <= 1e-4,
+                          f"serve CLI {tag}: {len(done)} chunks, files differ by {err} from "
+                          "the engine from artifacts")
+                    log(f"serve CLI (serve.main --fast{' --f32' if extra else ''}): "
+                        f"{len(done)} chunks in {cli_s:.1f} s wall (engine build included), "
+                        f"files within {err:.1e} of the engine from artifacts (float16 "
+                        f"files); launches {counts} [{card}]")
+                del art, mem, eng
+                from_artifacts["phase_s"] = time.perf_counter() - t_serve
+                log(f"phase 7a (training) {training['phase_s']:.1f} s, phase 7c (serving from "
+                    f"artifacts) {from_artifacts['phase_s']:.1f} s wall [{card}]")
             finally:
                 os.chdir(cwd)
-        results["retrieval"] = retrieval
+        results.update(retrieval=retrieval, training=training, from_artifacts=from_artifacts)
 
         # 8) the chamfer kernel against its plain version at the evaluate shape
         # (B = 1 per val scene) and at a batched shape

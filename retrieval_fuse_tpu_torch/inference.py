@@ -22,11 +22,14 @@ yet: multi-device serving (`mesh`).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from retrieval_fuse_tpu_torch.device import resolve_device
 from retrieval_fuse_tpu_torch.models import build_modules
+from retrieval_fuse_tpu_torch.ops import decoder_tail as dt
 from retrieval_fuse_tpu_torch.ops import patch_attention as pa
 from retrieval_fuse_tpu_torch.ops.decoder_tail import CompactPackedDecoder
 from retrieval_fuse_tpu_torch.ops.fold3d import fold3d, unfold3d
@@ -47,8 +50,79 @@ DECODERS = {"modules": None, "fused": FusedFinalDecoder, "packed": PackedFinalDe
 TOPK_IMPLS = ("iterative", "single_pass", "approx", "top_k")
 
 
+#: variant token -> attention path / decoder, in the JAX engine's precedence
+ATTENTION_TOKENS = (("phib", "phibank"), ("pallasg2", "gathered2"), ("pallasg", "gathered"),
+                    ("pallasp", "packedrows"), ("pallas", "patches"))
+DECODER_TOKENS = (("cdec", "compact"), ("dconv", "decomposed"), ("packed", "packed"),
+                  ("fused", "fused"))
+
+
 def _tensor(x, device, dtype) -> torch.Tensor:
     return torch.as_tensor(x).to(device=device, dtype=dtype)
+
+
+class EngineGeometry(NamedTuple):
+    """The engine's patch geometry, read from a config once."""
+
+    t_patch_size: int  # dictionary rows tile the target chunk at this size
+    n_fold: int  # target tiles per chunk axis
+    attn_extent: int  # e: the attention patch's coarse extent
+    attn_num_patch: int  # attention patches per chunk axis
+    coarse_grid: int  # S: the decoder's coarse grid
+
+
+def engine_geometry(config: dict) -> EngineGeometry:
+    # the retrieval target patch size is 16 in every shipped config
+    target = config["dataset_train"]["target_chunk_size"]
+    t_patch_size = int(config.get("retrieval_patch_size_target", 16))
+    return EngineGeometry(t_patch_size, target // t_patch_size,
+                          config.get("attn_patch_extent", 4) // 2,
+                          config.get("attn_num_patch", 16), target // 2)
+
+
+def check_kernel_limits(config: dict, device, attention: str, decoder: str,
+                        compute_dtype: torch.dtype = torch.bfloat16) -> None:
+    """Raise ValueError when an engine on `device` would launch a CUDA
+    kernel whose limits `config` breaks: the attention kernels of paths
+    `patches` / `packedrows` (patch_attention), `gathered` (v1) and
+    `gathered2` (v2) take F features a row, an F -> hidden -> hidden ->
+    hidden -> C MLP, K candidates, and the gathered ones T rows a tile; the
+    decoder tail (`compact`) takes nf and a coarse grid S. The limits are
+    the constants the kernel wrappers check. On the CPU every path runs the
+    plain versions, which take any width."""
+    if torch.device(device).type != "cuda":
+        return
+    token = dict((v, t) for t, v in ATTENTION_TOKENS + DECODER_TOKENS)
+    nf, k = config["nf"], config["K"]
+    geo = engine_geometry(config)
+    if attention in ("patches", "packedrows", "gathered", "gathered2"):
+        e = geo.attn_extent
+        t = (geo.attn_num_patch // geo.n_fold) ** 3
+        gathered = attention in ("gathered", "gathered2")
+        max_k = pa.KERNEL_MAX_K
+        if attention == "gathered" and compute_dtype == torch.float32:
+            max_k = pa.V1_F32_MAX_K
+        if (nf * e ** 3 != pa.KERNEL_FEATURES or not 1 <= k <= max_k
+                or (gathered and t != pa.KERNEL_ROWS)):
+            kernel = {"patches": "patch_attention", "packedrows": "patch_attention",
+                      "gathered": "gathered_attention_v1",
+                      "gathered2": "gathered_attention"}[attention]
+            raise ValueError(
+                f"variant token {token[attention]!r} (attention {attention!r}) runs the "
+                f"{kernel} kernel, which takes F = {pa.KERNEL_FEATURES} features a row, "
+                f"hidden {pa.KERNEL_HIDDEN}, C = {pa.KERNEL_EMBED}, K <= {max_k}"
+                + (f", T = {pa.KERNEL_ROWS} rows a tile" if gathered else "")
+                + f"; this config gives F = nf·e³ = {nf * e ** 3}, K = {k}"
+                + (f", T = {t}" if gathered else "")
+                + "; serve it with another attention path or on the CPU")
+    if decoder == "compact":
+        s = geo.coarse_grid
+        if nf not in dt.KERNEL_NF or s > dt.KERNEL_MAX_S:
+            raise ValueError(
+                f"variant token {token[decoder]!r} (decoder {decoder!r}) runs the "
+                f"decoder_tail kernel, which takes nf in {dt.KERNEL_NF} and S <= "
+                f"{dt.KERNEL_MAX_S}; this config gives nf = {nf}, S = {s}; serve it "
+                f"with another decoder or on the CPU")
 
 
 class RetrieveRefineEngine:
@@ -88,17 +162,15 @@ class RetrieveRefineEngine:
                  plain tie-exact select) or 'single_pass' (the topk kernel).
         """
         self.device = resolve_device(device)
+        check_kernel_limits(config, self.device, attention, decoder, compute_dtype)
         self.compute_dtype = cd = compute_dtype
         self.K = config["K"]
         dtr = config["dataset_train"]
-        # target tiles per chunk axis: dictionary rows tile the target chunk
-        # at the retrieval target patch size (16 in every shipped config)
-        self.t_patch_size = int(config.get("retrieval_patch_size_target", 16))
-        self.n_fold = dtr["target_chunk_size"] // self.t_patch_size
+        geo = engine_geometry(config)
+        self.t_patch_size, self.n_fold = geo.t_patch_size, geo.n_fold
         self.r_patch_size = config.get("retrieval_patch_size_input", 2)
         self.r_ctx = config.get("retrieval_patch_context_input", 1)
-        self.attn_extent = config.get("attn_patch_extent", 4) // 2
-        self.attn_num_patch = config.get("attn_num_patch", 16)
+        self.attn_extent, self.attn_num_patch = geo.attn_extent, geo.attn_num_patch
         self.attn_retrieval_mode = config.get("attn_retrieval_mode", True)
         self.nf = config["nf"]
 
@@ -416,11 +488,9 @@ def variant_engine_kwargs(variant: str) -> dict:
         return next((value for tok, value in table if tok in toks), default)
 
     return dict(
-        attention=first((("phib", "phibank"), ("pallasg2", "gathered2"), ("pallasg", "gathered"),
-                         ("pallasp", "packedrows"), ("pallas", "patches")), "modules"),
+        attention=first(ATTENTION_TOKENS, "modules"),
         flat_gather="flatg" in toks,
-        decoder=first((("cdec", "compact"), ("dconv", "decomposed"), ("packed", "packed"),
-                       ("fused", "fused")), "modules"),
+        decoder=first(DECODER_TOKENS, "modules"),
         fused_backbone="fbb" in toks,
         streaming_knn=first((("streamknn", True), ("denseknn", False)), None),
         topk_impl=first((("approxk", "approx"), ("topk1p", "single_pass")), "iterative"))

@@ -1,10 +1,10 @@
 """Retrieval patch encoders, as in the JAX package's models/encoders.py.
 
-Ported: the MLP encoders (Patch04 is the query encoder, network code
-"2+1") and the conv encoders of CONV_SPECS (Patch32, code "16+8", encodes
-the target patches into the dictionary): valid-padding conv stacks with
-LeakyReLU(0.2) and a final Linear to the latent width. The BatchNorm
-variants (PatchNorm*) are not ported yet.
+The MLP encoders (Patch04 is the query encoder, network code "2+1") and
+the conv encoders of CONV_SPECS (Patch32, code "16+8", encodes the target
+patches into the dictionary): valid-padding conv stacks with LeakyReLU(0.2)
+and a final Linear to the latent width. The PatchNorm* variants put a
+BatchNorm with flax's semantics after each conv (`BatchNorm3d` here).
 
 Layout is channels-last: input (B, D, H, W, 1), output (B, 1, 1, 1, z).
 The MLP flattens its input in that order, and the conv stack's final map
@@ -65,18 +65,58 @@ TARGET_CODE_TO_ENCODER = {
 }
 
 
-class ConvPatchEncoder(nn.Module):
-    """Valid-padding conv stack + LeakyReLU(0.2) + final Linear -> latent.
-    Each spec collapses its patch size to a 1³ map, so the Linear reads the
-    last conv's channels."""
+class BatchNorm3d(nn.Module):
+    """flax's nn.BatchNorm(momentum=0.9, epsilon=1e-5) on NCDHW input.
 
-    def __init__(self, nf: int, z_dim: int, spec: Sequence[tuple[int, int, int]]):
+    In training mode it normalises with the batch statistics over (N, D, H,
+    W): the mean and the biased variance max(0, E[x²] - E[x]²), as flax
+    computes it; and it updates the running statistics with those same
+    values, running = 0.9 · running + 0.1 · batch (nn.BatchNorm3d would
+    update the variance with the unbiased one). In eval mode it normalises
+    with the running statistics. Buffers and parameters carry
+    nn.BatchNorm3d's names, without num_batches_tracked."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1, 1, 1, 1)
+        if self.training:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3, 4))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3, 4)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean)
+                self.running_var.mul_(m).add_((1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)) \
+            .to(x.dtype)
+
+
+class ConvPatchEncoder(nn.Module):
+    """Valid-padding conv stack (+ BatchNorm with use_batchnorm) +
+    LeakyReLU(0.2) + final Linear -> latent. Each spec collapses its patch
+    size to a 1³ map, so the Linear reads the last conv's channels."""
+
+    def __init__(self, nf: int, z_dim: int, spec: Sequence[tuple[int, int, int]],
+                 use_batchnorm: bool = False):
         super().__init__()
         self.z_dim = z_dim
         self.n_conv = len(spec)
+        self.use_batchnorm = use_batchnorm
         in_ch = 1
         for i, (mult, k, s) in enumerate(spec):
             self.add_module(f"conv{i}", nn.Conv3d(in_ch, nf * mult, k, stride=s))
+            if use_batchnorm:
+                self.add_module(f"bn{i}", BatchNorm3d(nf * mult))
             in_ch = nf * mult
         self.final_layer = nn.Linear(in_ch, z_dim)
 
@@ -84,7 +124,10 @@ class ConvPatchEncoder(nn.Module):
         b = x.shape[0]
         x = x.permute(0, 4, 1, 2, 3)
         for i in range(self.n_conv):
-            x = F.leaky_relu(getattr(self, f"conv{i}")(x), negative_slope=0.2)
+            x = getattr(self, f"conv{i}")(x)
+            if self.use_batchnorm:
+                x = getattr(self, f"bn{i}")(x)
+            x = F.leaky_relu(x, negative_slope=0.2)
         x = x.permute(0, 2, 3, 4, 1).reshape(b, -1)  # flax's channels-last flatten
         return self.final_layer(x).reshape(b, 1, 1, 1, self.z_dim)
 
@@ -111,12 +154,11 @@ class MLPPatchEncoder(nn.Module):
 
 
 def make_encoder(name: str, nf: int, z_dim: int) -> nn.Module:
-    """Instantiate an encoder by its reference class name."""
+    """Instantiate an encoder by its reference class name (PatchNorm* are
+    the Patch* conv stacks with BatchNorm)."""
     if name in MLP_SPECS:
         in_size, hidden = MLP_SPECS[name]
         return MLPPatchEncoder(nf, z_dim, in_size, hidden)
-    if name in CONV_SPECS:
-        return ConvPatchEncoder(nf, z_dim, CONV_SPECS[name])
-    raise NotImplementedError(
-        f"encoder {name!r}: the BatchNorm encoders are not ported yet "
-        "(ROADMAP Queue 1 item 3.3)")
+    use_bn = name.startswith("PatchNorm")
+    return ConvPatchEncoder(nf, z_dim, CONV_SPECS[name.replace("PatchNorm", "Patch")],
+                            use_batchnorm=use_bn)

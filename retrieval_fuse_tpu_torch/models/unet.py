@@ -8,9 +8,10 @@ these state_dicts key for key (utils/flax_import.py).
 
 Ported: the 'c', 'g', 'r', 'l', 'e' layer orders, DoubleConv,
 StepDownDoubleConv, max-pool Encoder, nearest-upsample + concat Decoder,
-DecoderNoJoining and UNet3D with `remove_n_final_layers`. BatchNorm ('b'),
-ExtResNetBlock / ResidualUNet3D and the final 1x1 conv are not on the
-serving path and are not ported yet.
+DecoderNoJoining (and its fused upsample-conv, FusedUpsampleSingleConv)
+and UNet3D with `remove_n_final_layers`. BatchNorm ('b'), ExtResNetBlock /
+ResidualUNet3D and the final 1x1 conv are not on the 8³ super-resolution
+path and are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from retrieval_fuse_tpu_torch.ops.fused_decoder import fuse_upsample_conv_kernel_torch
 
 
 def number_of_features_per_level(init_channel_number: int, num_levels: int) -> list[int]:
@@ -141,18 +144,70 @@ class Decoder(nn.Module):
         return self.basic_module(x)
 
 
+class FusedUpsampleSingleConv(nn.Module):
+    """A 'gcr' SingleConv of nearest-2x-upsampled input, computed on the
+    grid before the upsample: GroupNorm (nearest repeats leave the
+    statistics unchanged) -> one 3³ conv with the fused kernel
+    (fuse_upsample_conv_kernel_torch of the canonical weight, 8·C_out
+    channels) -> ReLU -> depth-to-space. The function and the state_dict
+    ('groupnorm', 'conv.weight') of upsample_nearest_2x + SingleConv."""
+
+    def __init__(self, in_channels: int, out_channels: int, num_groups: int = 8):
+        super().__init__()
+        self.out_channels = out_channels
+        self.groupnorm = nn.GroupNorm(_adapt_num_groups(in_channels, num_groups), in_channels,
+                                      eps=1e-5)
+        self.conv = nn.Conv3d(in_channels, out_channels, 3, padding=1, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C_in, S, S, S) -> (B, C_out, 2S, 2S, 2S)."""
+        w = fuse_upsample_conv_kernel_torch(self.conv.weight.permute(2, 3, 4, 1, 0))
+        y = F.relu(F.conv3d(self.groupnorm(x), w.permute(4, 3, 0, 1, 2), padding=1))
+        b, _, s = y.shape[:3]
+        c = self.out_channels
+        # channel o_idx·C + c, o_idx = o0·4 + o1·2 + o2 -> voxel (2i+o0, 2j+o1, 2k+o2)
+        y = y.reshape(b, 2, 2, 2, c, s, s, s).permute(0, 4, 5, 1, 6, 2, 7, 3)
+        return y.reshape(b, c, 2 * s, 2 * s, 2 * s)
+
+
+class _FusedUpsampleDoubleConv(nn.Module):
+    """Decoder-side DoubleConv whose first SingleConv is the fused
+    upsample-conv (conv1 has out_channels, the encoder=False branch)."""
+
+    def __init__(self, in_channels: int, out_channels: int, order: str = "gcr",
+                 num_groups: int = 8):
+        super().__init__()
+        self.SingleConv1 = FusedUpsampleSingleConv(in_channels, out_channels, num_groups)
+        self.SingleConv2 = SingleConv(out_channels, out_channels, 3, order, num_groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.SingleConv2(self.SingleConv1(x))
+
+
 class DecoderNoJoining(nn.Module):
-    """Upsample 2x + basic module, no skip connection."""
+    """Upsample 2x + basic module, no skip connection. fused_upsample runs
+    the upsample and the first conv fused on the coarse grid
+    (_FusedUpsampleDoubleConv; DoubleConv and 'gcr' only): the same
+    function and state_dict."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  basic_module: str = "DoubleConv", conv_layer_order: str = "crg",
-                 num_groups: int = 8):
+                 num_groups: int = 8, fused_upsample: bool = False):
         super().__init__()
-        self.basic_module = _BASIC_MODULES[basic_module](
-            in_channels, out_channels, encoder=False, order=conv_layer_order,
-            num_groups=num_groups)
+        self.fused_upsample = fused_upsample
+        if fused_upsample:
+            if basic_module != "DoubleConv" or conv_layer_order != "gcr":
+                raise ValueError("fused_upsample supports the DoubleConv / 'gcr' decoder")
+            self.basic_module = _FusedUpsampleDoubleConv(in_channels, out_channels,
+                                                         conv_layer_order, num_groups)
+        else:
+            self.basic_module = _BASIC_MODULES[basic_module](
+                in_channels, out_channels, encoder=False, order=conv_layer_order,
+                num_groups=num_groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused_upsample:
+            return self.basic_module(x)
         return self.basic_module(upsample_nearest_2x(x))
 
 

@@ -41,6 +41,7 @@ from retrieval_fuse_tpu_torch.ops import _build
 from retrieval_fuse_tpu_torch.ops.fused_decoder import FusedFinalDecoder, _groups
 
 KERNEL_NF = (4, 8, 16)  # the kernel's conv widths
+KERNEL_MAX_S = 80  # the largest coarse grid whose slab fits a block's shared memory
 MMA_NF = 16             # the width whose bf16 launch runs on the tensor cores
 
 
@@ -133,6 +134,8 @@ def decoder_tail(hn_pad: torch.Tensor, w2: torch.Tensor, wh: torch.Tensor,
     nf = c8 // 8
     if c8 % 8 or nf not in KERNEL_NF:
         raise ValueError(f"decoder_tail: the kernel takes nf in {KERNEL_NF}, got {c8} channels")
+    if s > KERNEL_MAX_S:
+        raise ValueError(f"decoder_tail: the kernel takes S <= {KERNEL_MAX_S}, got S = {s}")
     if tuple(w2.shape) != (3, 3, 3, nf, nf) or tuple(wh.shape) != (nf,):
         raise ValueError(f"decoder_tail: w2 must be (3, 3, 3, {nf}, {nf}) and wh ({nf},), "
                          f"got {tuple(w2.shape)}, {tuple(wh.shape)}")

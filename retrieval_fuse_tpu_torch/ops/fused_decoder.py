@@ -63,6 +63,32 @@ def fuse_upsample_conv_kernel(w: np.ndarray, dtype: torch.dtype = torch.float32)
     return fused
 
 
+def _upsample_tap_map() -> np.ndarray:
+    """(27 taps k, 27 coarse offsets d, 8 output sub-positions o) 0/1 map:
+    fuse_upsample_conv_kernel adds tap k of w into slot (d, o)."""
+    m = np.zeros((27, 27, 8), np.float32)
+    for o in itertools.product((0, 1), repeat=3):
+        o_idx = o[0] * 4 + o[1] * 2 + o[2]
+        for k in itertools.product(range(3), repeat=3):
+            d = tuple((oo + kk - 1) // 2 + 1 for oo, kk in zip(o, k))
+            m[k[0] * 9 + k[1] * 3 + k[2], d[0] * 9 + d[1] * 3 + d[2], o_idx] = 1.0
+    return m
+
+
+_UPSAMPLE_TAP_MAP = _upsample_tap_map()
+
+
+def fuse_upsample_conv_kernel_torch(w: torch.Tensor) -> torch.Tensor:
+    """fuse_upsample_conv_kernel of a DHWIO torch weight (3,3,3,Cin,Cout) ->
+    (3,3,3,Cin,8·Cout), differentiable: one fixed linear map of w, so
+    gradients reach the canonical weight and checkpoints keep the unfused
+    layout (training-time fusion, FusedUpsampleSingleConv)."""
+    c_in, c_out = w.shape[3], w.shape[4]
+    m = torch.from_numpy(_UPSAMPLE_TAP_MAP).to(device=w.device, dtype=w.dtype)
+    fused = torch.einsum("kdo,kic->dioc", m, w.reshape(27, c_in, c_out))
+    return fused.reshape(3, 3, 3, c_in, 8 * c_out)
+
+
 def pack_conv_kernel_2x(w: np.ndarray, dtype: torch.dtype = torch.float32) -> np.ndarray:
     """(3,3,3,Cin,Cout) SAME conv kernel on the 2x grid -> (3,3,3,8·Cin,8·Cout)
     kernel on the space-to-depth-packed coarse grid.

@@ -53,10 +53,14 @@ def iterative_topk(sims: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tens
 
 def exact_knn(queries: torch.Tensor, database: torch.Tensor, k: int):
     """Top-k rows of `database` for each query (both L2-normalised), dense:
-    one float32 score matrix, then the tie-exact select. Returns
-    (int32 indices, sq_dists = max(2 - 2·cos, 0))."""
+    one float32 score matrix, then the tie-exact select: the topk kernel
+    (ops/topk.py) for the k it takes, the iterative select above it, as
+    jax.lax.top_k takes any k. Returns (int32 indices,
+    sq_dists = max(2 - 2·cos, 0))."""
+    from retrieval_fuse_tpu_torch.ops.topk import TOPK_MAX_K, topk
     sims = queries.float() @ database.float().T
-    top_sims, top_idx = iterative_topk(sims, k)
+    select = topk if k <= TOPK_MAX_K else iterative_topk
+    top_sims, top_idx = select(sims, k)
     return top_idx, torch.clamp(2.0 - 2.0 * top_sims, min=0.0)
 
 

@@ -56,9 +56,14 @@ from torch import nn
 
 from retrieval_fuse_tpu_torch.ops import _build
 
-KERNEL_ROWS, KERNEL_FEATURES, KERNEL_EMBED = 64, 128, 32
+#: what the kernels take (the plain versions take any): T rows a tile (the
+#: gathered kernels), F features a row, MLP hidden width, C embedding width,
+#: and K candidates
+KERNEL_ROWS, KERNEL_FEATURES, KERNEL_HIDDEN, KERNEL_EMBED = 64, 128, 128, 32
+KERNEL_MAX_K = 8
 #: shared memory for gathered_patch_attention_v1's float32 staging (K whole tiles)
 V1_STAGE_BYTES = 128 * 1024
+V1_F32_MAX_K = V1_STAGE_BYTES // (KERNEL_ROWS * KERNEL_FEATURES * 4)
 _LAYERS = ("fc0", "fc1", "fc2", "out")
 
 
@@ -172,11 +177,12 @@ def _check_kernel_operands(name: str, rows: torch.Tensor, cands: torch.Tensor, i
     if rows.data_ptr() % 16 or cands.data_ptr() % 16:
         raise ValueError(f"{name}: rows and candidates must be 16-byte aligned")
     for w in (theta, phi):
-        if (tuple(w.fc0.weight.shape) != (128, KERNEL_FEATURES)
-                or tuple(w.fc1.weight.shape) != (128, 128)
-                or tuple(w.fc2.weight.shape) != (128, 128)
-                or tuple(w.out.weight.shape) != (KERNEL_EMBED, 128)):
-            raise ValueError(f"{name}: the kernel takes {KERNEL_FEATURES}->128->128->128->"
+        h = KERNEL_HIDDEN
+        if (tuple(w.fc0.weight.shape) != (h, KERNEL_FEATURES)
+                or tuple(w.fc1.weight.shape) != (h, h)
+                or tuple(w.fc2.weight.shape) != (h, h)
+                or tuple(w.out.weight.shape) != (KERNEL_EMBED, h)):
+            raise ValueError(f"{name}: the kernel takes {KERNEL_FEATURES}->{h}->{h}->{h}->"
                              f"{KERNEL_EMBED} MLPs")
 
 
@@ -210,10 +216,10 @@ def patch_attention(x: torch.Tensor, p: torch.Tensor, theta: nn.Module, phi: nn.
     _check_kernel_operands("patch_attention", x, p, None, theta, phi)
     n = x.shape[0]
     if (x.dim() != 2 or x.shape[1] != KERNEL_FEATURES
-            or tuple(p.shape) != (n, K, KERNEL_FEATURES) or not 1 <= K <= 8):
+            or tuple(p.shape) != (n, K, KERNEL_FEATURES) or not 1 <= K <= KERNEL_MAX_K):
         raise ValueError(f"patch_attention: the kernel takes x (N, {KERNEL_FEATURES}) and p "
-                         f"(N, K, {KERNEL_FEATURES}) with 1 <= K <= 8, got {tuple(x.shape)} "
-                         f"and {tuple(p.shape)}")
+                         f"(N, K, {KERNEL_FEATURES}) with 1 <= K <= {KERNEL_MAX_K}, got "
+                         f"{tuple(x.shape)} and {tuple(p.shape)}")
     out = torch.empty_like(x)
     sel = torch.empty((n,), dtype=torch.int32, device=x.device) if return_selection else None
     if n > 0:
@@ -236,14 +242,16 @@ def _gathered(wrapper, name: str, xt, bank_rows, top_idx, theta, phi, K, retriev
             or tuple(bank_rows.shape[1:]) != (rows, feats)):
         raise ValueError(f"{name}: the kernel takes (·, {rows}, {feats}) rows, got "
                          f"{tuple(xt.shape)} and {tuple(bank_rows.shape)}")
-    if top_idx.dtype != torch.int32 or tuple(top_idx.shape) != (q, K) or not 1 <= K <= 8:
-        raise ValueError(f"{name}: top_idx must be int32 ({q}, {K}) with 1 <= K <= 8, got "
-                         f"{top_idx.dtype} {tuple(top_idx.shape)}")
+    if (top_idx.dtype != torch.int32 or tuple(top_idx.shape) != (q, K)
+            or not 1 <= K <= KERNEL_MAX_K):
+        raise ValueError(f"{name}: top_idx must be int32 ({q}, {K}) with 1 <= K <= "
+                         f"{KERNEL_MAX_K}, got {top_idx.dtype} {tuple(top_idx.shape)}")
     scratch = ()
     if staged and xt.dtype == torch.float32:
-        if K * rows * feats * xt.element_size() > V1_STAGE_BYTES:
+        if K > V1_F32_MAX_K:
             raise ValueError(f"{name}: K={K} float32 candidate tiles exceed the "
-                             f"{V1_STAGE_BYTES}-byte staging area (K <= 4 in float32)")
+                             f"{V1_STAGE_BYTES}-byte staging area (K <= {V1_F32_MAX_K} in "
+                             f"float32)")
         scratch = (None,)
     elif staged:
         scratch = (torch.empty((q, rows, KERNEL_EMBED), dtype=torch.float32, device=xt.device),)

@@ -19,6 +19,8 @@ import torch
 from retrieval_fuse_tpu_torch.ops import _build
 from retrieval_fuse_tpu_torch.ops.knn import iterative_topk
 
+TOPK_MAX_K = 8  # the largest k the kernel takes
+
 
 def topk_plain(sims: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version: (values float32, indices int32)."""
@@ -36,8 +38,9 @@ def topk(sims: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"topk: needs a contiguous 2-D float32 matrix, got "
                          f"{sims.dtype} {tuple(sims.shape)}")
     q, n = sims.shape
-    if not 1 <= k <= 8 or n < k:
-        raise ValueError(f"topk: the kernel takes 1 <= k <= 8 and N >= k (k={k}, N={n})")
+    if not 1 <= k <= TOPK_MAX_K or n < k:
+        raise ValueError(f"topk: the kernel takes 1 <= k <= {TOPK_MAX_K} and N >= k "
+                         f"(k={k}, N={n})")
     vals = torch.empty((q, k), dtype=torch.float32, device=sims.device)
     idx = torch.empty((q, k), dtype=torch.int32, device=sims.device)
     if q == 0:

@@ -9,8 +9,9 @@ pasted with lowest-distance priority where strides overlap.
 
 The search is exact: ops/knn.auto_exact_knn, which takes the streaming kNN
 kernel at float32 query batches >= 4096 against >= 16,384 rows and the dense
-path below. The JAX package's C++ paste and its database sharding over a device
-mesh are not ported (ROADMAP Queue 1 items 16 and 13).
+path below (a float32 matmul and the topk kernel, for k <= 8). The JAX
+package's C++ paste and its database sharding over a device mesh are not
+ported (ROADMAP Queue 1 items 16 and 13).
 """
 
 from __future__ import annotations

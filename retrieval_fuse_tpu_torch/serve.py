@@ -1,16 +1,173 @@
-"""Serve a directory of raw input chunks through the engine, as the JAX
-package's serve.serve_directory does.
+"""Serving CLI, as in the JAX package's serve.py: batch-process raw low-res
+input chunks into 64³ TSDFs with the retrieve + refine engine, built from
+the training artifacts: the dictionary's database rows become the kNN
+database, the train-set target tiles the patch bank (row-aligned with the
+database, zero-patch row included), and the two checkpoints the weights.
 
-Not ported yet: building an engine from training artifacts
-(build_engine_from_artifacts), the CLI, and OBJ mesh output (ROADMAP
-Queue 1 item 2).
+    python -m retrieval_fuse_tpu_torch.serve --config <resolved.yaml> \\
+        --retrieval_ckpt runs/<exp>/ckpt_epoch=N \\
+        --refinement_ckpt runs/<exp2>/ckpt_epoch=M \\
+        --input <dir of <scene>.npz raw input chunks> --output <dir> \\
+        [--batch_size 8] [--f32] [--fast | --variant V] [--device cpu]
+
+Writes <scene>_pred.npz (key "arr", float16 TSDF). The checkpoints are in
+the port's layout (train/checkpoint.py). The dictionary is the one `map`
+built for the retrieval checkpoint (retrieval/cli.py), found where
+utils/misc.get_tree_path puts it, relative to the working directory.
+`--obj` (marching-cubes meshes) is not ported yet (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 from pathlib import Path
 
 import numpy as np
+import torch
+
+from retrieval_fuse_tpu_torch.data import SceneHandler, PatchedSceneDataset
+from retrieval_fuse_tpu_torch.device import resolve_device
+from retrieval_fuse_tpu_torch.train.checkpoint import load_checkpoint
+from retrieval_fuse_tpu_torch.utils.misc import get_tree_path
+
+OBJ_NOT_PORTED = "--obj needs marching cubes, which is not ported yet (ROADMAP Queue 1 item 8)"
+
+
+def dictionary_patch_size(database: np.ndarray) -> int:
+    """The target patch size the dictionary was built with, from its first
+    row's stored extent (every row, the zero-patch row too, stores an
+    unpadded [x0, x1, ...] extent of that size)."""
+    if database.shape[0] == 0:
+        raise ValueError("empty dictionary database")
+    return int(database[0, 2] - database[0, 1])
+
+
+def build_patch_bank_from_database(database: np.ndarray, scene_list, dataset_train,
+                                   patch_size: int | None = None) -> np.ndarray:
+    """(N_rows, ps, ps, ps) raw df tiles row-aligned with the dictionary
+    database: row i crops its unpadded train scene by the row's stored
+    extent; the zero-patch row (scene index -1) becomes a trunc-filled tile,
+    what compose pastes for it. `patch_size` defaults to the dictionary's
+    own and must equal it."""
+    n = database.shape[0]
+    db_ps = dictionary_patch_size(database)
+    patch_size = db_ps if patch_size is None else patch_size
+    if db_ps != patch_size:
+        raise ValueError(
+            f"dictionary was built with {db_ps}³ target patches; the serving "
+            f"engine folds {patch_size}³ tiles — build the map with the "
+            f"RETRIEVAL patch geometry (patch_size_target={patch_size}), not "
+            f"the refinement chunk geometry")
+    bank = np.empty((n, patch_size, patch_size, patch_size), np.float32)
+    cache: dict = {}
+    trunc = float(dataset_train.scene_handler.target_trunc)
+    for i in range(n):
+        idx = int(database[i, 0])
+        if idx < 0:
+            bank[i] = trunc
+            continue
+        if idx not in cache:
+            cache[idx] = dataset_train.get_scene_target(scene_list[idx])
+        x0, x1, y0, y1, z0, z1 = database[i, 1:7].astype(np.int64)
+        bank[i] = cache[idx][x0:x1, y0:y1, z0:z1]
+    return bank
+
+
+def verify_bank_database_alignment(config: dict, fenc_target_params: dict, database: np.ndarray,
+                                   scene_list, dataset_train, n_sample: int = 8,
+                                   min_cos: float = 0.999, device=None) -> float:
+    """Refuse to serve wrong patches: re-embed a sample of the bank's source
+    patches through the target encoder (on `device`) and require a cosine
+    of at least `min_cos` with their stored database rows. A dictionary
+    built from other scene data, ordering or normalisation than this config
+    reads fails here. Returns the least cosine of the sample."""
+    from retrieval_fuse_tpu_torch.models import get_retrieval_networks
+
+    dev = resolve_device(device)
+    rm = config["retrieval_model"]
+    fenc_target = get_retrieval_networks(rm)[1]
+    fenc_target.load_state_dict(fenc_target_params)
+    fenc_target.to(dev).eval()
+    ps, ctx = (int(v) for v in rm["network_target"].replace("pc_", "").split("+"))
+    dtr = config["dataset_train"]
+    t_mean = config.get("retrieval_norm", {}).get("target_mean", dtr["target_mean"])
+    t_std = config.get("retrieval_norm", {}).get("target_std", dtr["target_std"])
+    trunc = float(dataset_train.scene_handler.target_trunc)
+
+    real_rows = np.flatnonzero(database[:, 0] >= 0)
+    if real_rows.size == 0:
+        return 1.0
+    sample = real_rows[np.linspace(0, real_rows.size - 1,
+                                   min(n_sample, real_rows.size)).astype(int)]
+    patches, rows = [], []
+    for i in sample:
+        scene = scene_list[int(database[i, 0])]
+        vol = np.pad(dataset_train.get_scene_target(scene).astype(np.float32),
+                     ctx, constant_values=trunc)
+        x0, x1, y0, y1, z0, z1 = database[i, 1:7].astype(np.int64)
+        # stored extents are unpadded: in the padded volume the patch spans
+        # [x0, x1 + 2·ctx), as the dataset slices its padded scenes
+        patch = vol[x0: x1 + 2 * ctx, y0: y1 + 2 * ctx, z0: z1 + 2 * ctx]
+        if patch.shape != (ps + 2 * ctx,) * 3:
+            raise ValueError(
+                f"bank/database geometry mismatch at row {i}: patch {patch.shape} "
+                f"vs encoder input {(ps + 2 * ctx,) * 3}")
+        patches.append((patch - t_mean) / t_std)
+        rows.append(database[i, 7:])
+    x = torch.from_numpy(np.stack(patches)[..., None].astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        z = fenc_target(x).reshape(x.shape[0], -1).float()
+    z = z / torch.clamp(torch.linalg.vector_norm(z, dim=1, keepdim=True), min=1e-12)
+    cos = np.sum(z.cpu().numpy() * np.stack(rows), axis=1)
+    worst = float(cos.min())
+    if worst < min_cos:
+        raise ValueError(
+            f"serve-time bank/database row alignment check FAILED: re-embedded "
+            f"target patches disagree with their database rows (min cosine "
+            f"{worst:.4f} < {min_cos}); the dictionary was built from different "
+            f"scene data, ordering, or normalization than this serving config")
+    return worst
+
+
+def build_engine_from_artifacts(config: dict, retrieval_ckpt, refinement_ckpt,
+                                compute_dtype: torch.dtype = torch.bfloat16, device=None,
+                                use_fused_decoder: bool = False,
+                                use_pallas_attention: bool = False,
+                                variant: str | None = None, verify_alignment: bool = True):
+    """The engine from on-disk artifacts: the dictionary (database.npy and
+    index.json under the tree path of config + retrieval_ckpt, as `map`
+    wrote them), the train scenes (the patch bank) and the two checkpoints
+    (the refinement networks, and fenc_input from the retrieval one).
+    `variant` is a variant string (inference.variant_engine_kwargs, e.g.
+    inference.FAST_VARIANT) and overrides the two boolean options, which
+    are the `fused` and `pallas` tokens. `verify_alignment`
+    re-embeds a sample of the bank against its database rows first."""
+    from retrieval_fuse_tpu_torch.inference import RetrieveRefineEngine, variant_engine_kwargs
+
+    dev = resolve_device(device)
+    config = dict(config)
+    config["retrieval_ckpt"] = str(retrieval_ckpt)
+    tree_path = Path(get_tree_path(config))
+    database = np.load(tree_path / "database.npy")
+    scene_list = json.loads((tree_path / "index.json").read_text())
+    config["retrieval_patch_size_target"] = dictionary_patch_size(database)
+
+    ds_train = PatchedSceneDataset("train", config["dataset_train"], SceneHandler("train", config))
+    bank = build_patch_bank_from_database(database, scene_list, ds_train)
+
+    retrieval_params = load_checkpoint(retrieval_ckpt)["params"]
+    params = dict(load_checkpoint(refinement_ckpt)["params"])
+    params["fenc_input"] = retrieval_params["fenc_input"]
+    if verify_alignment:
+        verify_bank_database_alignment(config, retrieval_params["fenc_target"], database,
+                                       scene_list, ds_train, device=dev)
+    if variant is None:
+        variant = "+".join(["base"] + ["fused"] * use_fused_decoder
+                           + ["pallas"] * use_pallas_attention)
+    return RetrieveRefineEngine(config, params, database[:, 7:], bank,
+                                compute_dtype=compute_dtype, device=dev, use_feature_bank=True,
+                                **variant_engine_kwargs(variant))
 
 
 def serve_directory(engine, input_dir, output_dir, batch_size: int = 8) -> list[str]:
@@ -36,3 +193,52 @@ def serve_directory(engine, input_dir, output_dir, batch_size: int = 8) -> list[
             np.savez_compressed(output_dir / f"{f.stem}_pred.npz", arr=vol.astype(np.float16))
             done.append(f.stem)
     return done
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", type=str, required=True)
+    parser.add_argument("--retrieval_ckpt", type=str, required=True)
+    parser.add_argument("--refinement_ckpt", type=str, required=True)
+    parser.add_argument("--input", type=str, required=True,
+                        help="dir of <scene>.npz raw input chunks")
+    parser.add_argument("--output", type=str, required=True)
+    parser.add_argument("--batch_size", type=int, default=8)
+    parser.add_argument("--K", type=int, default=None)
+    parser.add_argument("--f32", action="store_true", help="serve in float32 (default bf16)")
+    parser.add_argument("--obj", action="store_true", help="also write marching-cubes meshes "
+                        "(not ported yet)")
+    parser.add_argument("--fused_decoder", action="store_true")
+    parser.add_argument("--pallas_attention", action="store_true")
+    parser.add_argument("--variant", type=str, default=None,
+                        help="variant string, e.g. 'fused+pallasp+topk1p' (overrides the "
+                             "two boolean flags)")
+    parser.add_argument("--fast", action="store_true",
+                        help="serve with the shipped configuration (inference.FAST_VARIANT)")
+    parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    if args.obj:
+        raise NotImplementedError(OBJ_NOT_PORTED)
+
+    from retrieval_fuse_tpu_torch.config import read_config
+    from retrieval_fuse_tpu_torch.inference import FAST_VARIANT
+
+    config = read_config(args.config)
+    if args.K is not None:
+        config["K"] = args.K
+    config["no_retrievals"] = True  # the engine retrieves on the device
+    variant = args.variant
+    if args.fast and variant is None:
+        variant = FAST_VARIANT
+    engine = build_engine_from_artifacts(
+        config, args.retrieval_ckpt, args.refinement_ckpt,
+        compute_dtype=torch.float32 if args.f32 else torch.bfloat16, device=args.device,
+        use_fused_decoder=args.fused_decoder, use_pallas_attention=args.pallas_attention,
+        variant=variant)
+    done = serve_directory(engine, args.input, args.output, args.batch_size)
+    print(f"served {len(done)} chunks -> {args.output}")
+    return done
+
+
+if __name__ == "__main__":
+    main()

@@ -1,15 +1,275 @@
-"""Retrieval training, as in the JAX package's train/retrieval_trainer.py.
+"""Retrieval-network trainer, as in the JAX package's
+train/retrieval_trainer.py: contrastive embedding of input and target
+patches.
 
-Ported so far: `get_metrics_for_retrieval`, which the retrieval CLI's
-`evaluate` runs. The trainer itself comes with the trainers slice (ROADMAP
-Queue 1 item 15).
+Adam (weight decay 5e-5, coupled) with MultiStepLR(0.5) and a 1500-step
+linear warm-up (train/schedule.py), optional Gaussian input and code noise,
+NT-Xent with the optional IoU-scaled temperature, and a validation stage
+that rebuilds the patch dictionary, runs retrieval for train_eval (with and
+without same-scene exclusion) and val, and logs the four rough metrics.
+
+One eager step: both encoders, the loss, `loss.backward()`,
+`optimizer.step()`, on the trainer's device (the CUDA card unless "cpu" is
+asked for). The retrieval validation runs the port's dictionary, kNN (the
+kNN or topk kernel on the card) and chamfer kernel on that device.
+
+Not ported yet: the rendered visualisations (`enable_vis`; they need
+marching cubes and a renderer, ROADMAP Queue 1 item 8) and data-parallel
+training over several cards (Queue 1 item 10).
 """
 
 from __future__ import annotations
 
-import numpy as np
+from pathlib import Path
 
+import numpy as np
+import torch
+
+from retrieval_fuse_tpu_torch.data import SceneHandler, PatchedSceneDataset, batch_iterator
+from retrieval_fuse_tpu_torch.device import resolve_device
 from retrieval_fuse_tpu_torch.evaluation.metrics import Chamfer3D, IoU, Precision, Recall
+from retrieval_fuse_tpu_torch.models import get_retrieval_networks, init_module_params
+from retrieval_fuse_tpu_torch.models.losses import nt_xent_loss
+from retrieval_fuse_tpu_torch.retrieval.dictionary import create_dictionary, make_encoder_apply
+from retrieval_fuse_tpu_torch.retrieval.engine import RetrievalInterface
+from retrieval_fuse_tpu_torch.train import schedule as sched
+from retrieval_fuse_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from retrieval_fuse_tpu_torch.utils.logger import MetricsLogger
+from retrieval_fuse_tpu_torch.utils.misc import get_iou_matrix
+
+ENCODERS = ("fenc_input", "fenc_target")
+VIS_NOT_PORTED = ("the retrieval trainer's visualisations need marching cubes and the "
+                  "renderer, which are not ported yet (ROADMAP Queue 1 item 8); "
+                  "pass enable_vis=False")
+
+
+class RetrievalTrainer:
+
+    def __init__(self, config: dict, device=None, enable_vis: bool = False):
+        if enable_vis:
+            raise NotImplementedError(VIS_NOT_PORTED)
+        self.config = config
+        self.device = resolve_device(device)
+        rt = config["retrieval_training"]
+        self.temperature = rt["temprature"]
+        self.base_lr = rt["lr"]
+        self.milestones = rt["scheduler"]
+        self.batch_size = rt["batch_size"]
+        self.iou_scaling = rt["iou_scaling"]
+        self.w_contrastive = rt["loss"]["contrastive"]
+        self.latent_dim = config["retrieval_model"]["latent_dim"]
+        dtr = config["dataset_train"]
+        self.target_mean, self.target_std = dtr["target_mean"], dtr["target_std"]
+        # the raw config value, not its float16 round-trip: the reference's
+        # IoU gate reads voxel_size_target directly
+        self.occ_threshold = 0.75 * dtr["voxel_size_target"]
+        self.input_noise_std = rt["input_noise"] * dtr["voxel_size_target"]
+        self.code_noise_std = rt["code_noise"]
+
+        self.scene_handlers = {"train": SceneHandler("train", config),
+                               "val": SceneHandler("val", config)}
+        self.train_dataset = self.dataset("train")
+        self.retrieval_handler = RetrievalInterface(config["query"], self.latent_dim,
+                                                    device=self.device)
+
+        seed = config.get("seed", 0) or 0
+        rng = np.random.default_rng(seed)
+        self.encoders = dict(zip(ENCODERS, get_retrieval_networks(config["retrieval_model"])))
+        for net in self.encoders.values():
+            net.load_state_dict(init_module_params(net, rng))
+            net.to(self.device)
+        self.fenc_input = self.encoders["fenc_input"]
+        self.fenc_target = self.encoders["fenc_target"]
+        self.optimizer = self._new_optimizer()
+        # the input and code noise (0 in every shipped config)
+        self.noise = torch.Generator(device=self.device)
+        self.noise.manual_seed(seed)
+        self.current_learning_rate = self.base_lr
+        self.global_step = 0
+
+    def dataset(self, split: str) -> PatchedSceneDataset:
+        """The patched dataset of `split` ("train", "val", "train_eval", ...)."""
+        base = split.split("_")[0]
+        return PatchedSceneDataset(split, self.config[f"dataset_{base}"],
+                                   self.scene_handlers[base])
+
+    def _new_optimizer(self) -> torch.optim.Adam:
+        params = [p for net in self.encoders.values() for p in net.parameters()]
+        return torch.optim.Adam(params, lr=self.base_lr, weight_decay=sched.WEIGHT_DECAY)
+
+    def params(self) -> dict:
+        """{'fenc_input': state_dict, 'fenc_target': state_dict}."""
+        return {name: net.state_dict() for name, net in self.encoders.items()}
+
+    def load_params(self, params: dict) -> None:
+        """Load both encoders' state_dicts (running BatchNorm statistics
+        included) and start a new optimizer."""
+        for name, net in self.encoders.items():
+            net.load_state_dict(params[name])
+        self.optimizer = self._new_optimizer()
+
+    # ------------------------------------------------------------------ steps
+
+    def _embed(self, batch: dict, train: bool):
+        """(f_in, f_tgt, the target the encoder saw): both embeddings
+        (B, latent) L2-normalised, noised in training where configured."""
+        target = batch["target"]
+        if train and self.input_noise_std > 0:
+            target = target + torch.randn(target.shape, generator=self.noise,
+                                          device=self.device) * self.input_noise_std
+        f_in = self.fenc_input(batch["input"])
+        f_tgt = self.fenc_target(target)
+        f_in = f_in.reshape(f_in.shape[0], -1)
+        f_tgt = f_tgt.reshape(f_tgt.shape[0], -1)
+        f_in = f_in / torch.clamp(torch.linalg.vector_norm(f_in, dim=1, keepdim=True), min=1e-12)
+        f_tgt = f_tgt / torch.clamp(torch.linalg.vector_norm(f_tgt, dim=1, keepdim=True),
+                                    min=1e-12)
+        if train and self.code_noise_std > 0:
+            f_in = f_in + torch.randn(f_in.shape, generator=self.noise,
+                                      device=self.device) * self.code_noise_std
+            f_tgt = f_tgt + torch.randn(f_tgt.shape, generator=self.noise,
+                                        device=self.device) * self.code_noise_std
+        return f_in, f_tgt, target
+
+    def _loss_fn(self, batch: dict, train: bool):
+        """(total loss, contrastive loss). The IoU temperatures come from the
+        target the encoder saw (noised in training, as the reference noises
+        the batch in place before it computes them)."""
+        f_in, f_tgt, target = self._embed(batch, train)
+        iou_matrix = None
+        if self.iou_scaling:
+            occ = target * self.target_std + self.target_mean <= self.occ_threshold
+            iou_matrix = get_iou_matrix(occ[..., 0]).repeat(2, 2)
+        contrastive = nt_xent_loss(f_in, f_tgt, self.temperature, iou_matrix)
+        return contrastive * self.w_contrastive, contrastive
+
+    def _train_step(self, batch: dict, lr: float):
+        """One optimizer step at learning rate `lr`; the gradients stay in
+        the parameters' .grad. Returns the (total, contrastive) loss before
+        the step."""
+        sched.set_lr(self.optimizer, lr)
+        for net in self.encoders.values():
+            net.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        total, contrastive = self._loss_fn(batch, train=True)
+        total.backward()
+        self.optimizer.step()
+        return total.detach(), contrastive.detach()
+
+    def _eval_step(self, batch: dict):
+        for net in self.encoders.values():
+            net.eval()
+        with torch.no_grad():
+            return self._loss_fn(batch, train=False)
+
+    def _device_batch(self, batch: dict) -> dict:
+        return {k: torch.from_numpy(batch[k]).to(self.device) for k in ("input", "target")}
+
+    # ------------------------------------------------------------------ loops
+
+    def fit(self, max_epochs: int, val_check_interval: int = 1, save_epoch: int = 1,
+            run_retrieval_validation: bool = True, max_steps_per_epoch: int | None = None):
+        logger = MetricsLogger(self.config["experiment"])
+        run_dir = Path("runs") / self.config["experiment"]
+        for epoch in range(max_epochs):
+            n = 0
+            total = contrastive = None
+            lr = self.current_learning_rate
+            for batch in batch_iterator(self.train_dataset, self.batch_size, shuffle=True,
+                                        drop_last=True, seed=epoch):
+                lr = sched.current_lr(self.base_lr, self.milestones, self.global_step, epoch)
+                self.current_learning_rate = lr
+                total, contrastive = self._train_step(self._device_batch(batch), lr)
+                self.global_step += 1
+                n += 1
+                if max_steps_per_epoch and n >= max_steps_per_epoch:
+                    break
+            if total is not None:
+                logger.log({"train/total_loss": float(total),
+                            "train/contrastive_loss": float(contrastive),
+                            "learning_rate": lr, "epoch": epoch}, step=self.global_step)
+            if (epoch + 1) % max(1, int(val_check_interval)) == 0:
+                self.validate(epoch, logger, run_retrieval_validation)
+            if (epoch + 1) % save_epoch == 0:
+                self.save(run_dir, epoch)
+        logger.close()
+        return self
+
+    def validate(self, epoch: int, logger=None, run_retrieval_validation: bool = True,
+                 max_batches: int | None = None) -> float:
+        """Mean val loss over the val batches (the last one padded, as the
+        loader pads it), then the retrieval validation."""
+        ds_val = self.dataset("val")
+        totals = []
+        if max_batches is None:
+            max_batches = self._val_batch_limit(len(ds_val))
+        for bi, batch in enumerate(batch_iterator(ds_val, self.batch_size, shuffle=False,
+                                                  drop_last=False)):
+            if max_batches is not None and bi >= max_batches:
+                break
+            totals.append(float(self._eval_step(self._device_batch(batch))[0]))
+        if logger:
+            logger.log({"val/total_loss": float(np.mean(totals)), "epoch": epoch},
+                       step=self.global_step)
+        if run_retrieval_validation:
+            self.retrieval_validation(epoch, logger)
+        return float(np.mean(totals)) if totals else float("nan")
+
+    def _val_batch_limit(self, n_items: int) -> int | None:
+        """`val_check_percent` -> the most validation batches to run."""
+        pct = float(self.config.get("val_check_percent", 1.0) or 1.0)
+        if pct >= 1.0:
+            return None
+        n_batches = -(-n_items // self.batch_size)
+        return max(1, int(n_batches * pct))
+
+    # ------------------------------------------------ full retrieval pipeline
+
+    def encoder_apply_fns(self):
+        """Apply functions of both encoders (eval mode, no grad, on the
+        trainer's device): numpy batch -> output tensor."""
+        return (make_encoder_apply(self.fenc_input, self.device),
+                make_encoder_apply(self.fenc_target, self.device))
+
+    def retrieval_validation(self, epoch: int, logger=None) -> dict:
+        """Dictionary -> kNN -> compose -> metrics for train_eval (without
+        and with the query's own scene) and val; returns {split: [iou, cd,
+        precision, recall]}."""
+        output_dir = (Path("runs") / self.config["experiment"] / "visualization"
+                      / f"epoch_{epoch:04d}")
+        output_dir.mkdir(exist_ok=True, parents=True)
+        ds_train, ds_val, ds_train_eval = (self.dataset(s) for s in ("train", "val", "train_eval"))
+        encode_in, encode_tgt = self.encoder_apply_fns()
+        create_dictionary(encode_tgt, self.config["dictionary"], self.latent_dim, ds_train,
+                          output_dir)
+        results = {}
+        for key, ds, ignore_source in [("train", ds_train_eval, True),
+                                       ("traingt", ds_train_eval, False),
+                                       ("val", ds_val, False)]:
+            retrievals = self.retrieval_handler.create_mapping_and_retrieve_nearest_scenes_for_all(
+                encode_in, output_dir, ds_train_eval, ds, 1, ignore_source)
+            metrics = get_metrics_for_retrieval(retrievals, ds, device=self.device)
+            results[key] = metrics
+            if logger:
+                logger.log({f"{key}/{m}": v for m, v in
+                            zip(["iou", "cd", "precision", "recall"], metrics)},
+                           step=self.global_step)
+            print(f"[{key}] rough IoU: {metrics[0]:.3f} | CD: {metrics[1]:.3f} | "
+                  f"P: {metrics[2]:.3f} | R: {metrics[3]:.3f}")
+        return results
+
+    # ------------------------------------------------------------ checkpoints
+
+    def save(self, run_dir, epoch: int) -> Path:
+        return save_checkpoint(run_dir, epoch, self.params(),
+                               extra={"global_step": self.global_step})
+
+    def load(self, ckpt_path) -> None:
+        """Both encoders from a checkpoint, a new optimizer, and the saved
+        global step."""
+        restored = load_checkpoint(ckpt_path)
+        self.load_params(restored["params"])
+        self.global_step = int(restored.get("meta", {}).get("global_step", 0))
 
 
 def get_metrics_for_retrieval(retrievals: np.ndarray, dataset, device=None) -> list[float]:
@@ -23,3 +283,44 @@ def get_metrics_for_retrieval(retrievals: np.ndarray, dataset, device=None) -> l
         for metric in metrics:
             metric.update(nn1, target)
     return [m.compute() for m in metrics]
+
+
+def main(argv=None):
+    """The retrieval trainer's CLI, with the JAX package's flags (plus
+    `--device`):
+
+        python -m retrieval_fuse_tpu_torch.train.retrieval_trainer --config C.yaml \\
+            [--max_epoch N] [--sanity_steps S] [--val_check_interval I] [--device cpu]
+
+    One card. Visualisations are off: the trainer runs with
+    enable_vis=False (ROADMAP Queue 1 item 8)."""
+    from retrieval_fuse_tpu_torch.config.arguments import parse_arguments
+    from retrieval_fuse_tpu_torch.utils.logger import FilesystemLogger
+
+    config = parse_arguments(argv)
+    device = resolve_device(config.get("device"))  # before anything is written
+    config["no_retrievals"] = True
+    np.random.seed(config["seed"])
+    FilesystemLogger(config)
+    print("[retrieval trainer] visualisations off: marching cubes and the renderer are "
+          "not ported yet (ROADMAP Queue 1 item 8)")
+    trainer = RetrievalTrainer(config, device=device, enable_vis=False)
+    if config.get("resume"):
+        trainer.load(config["resume"])
+    if config.get("sanity_steps"):
+        # as Lightning's num_sanity_val_steps: N > 0 runs N val batches before
+        # fitting; -1 runs the full validation (with the retrieval pipeline)
+        # and stops
+        if config["sanity_steps"] == -1:
+            trainer.validate(0, run_retrieval_validation=True)
+            return trainer
+        trainer.validate(0, run_retrieval_validation=False,
+                         max_batches=int(config["sanity_steps"]))
+    trainer.fit(max_epochs=config["max_epoch"],
+                val_check_interval=max(1, int(config.get("val_check_interval", 1))),
+                save_epoch=config["save_epoch"])
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

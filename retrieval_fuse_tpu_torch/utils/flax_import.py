@@ -6,8 +6,9 @@ leaf is its state_dict key; only the leaf names and layouts change:
 
   Conv   kernel (kD, kH, kW, I, O) -> weight (O, I, kD, kH, kW)
   Dense  kernel (I, O)             -> weight (O, I)
-  GroupNorm scale                  -> weight
+  GroupNorm / BatchNorm scale      -> weight
   bias, sig_scale, sig_shift       -> unchanged
+  batch_stats mean, var            -> running_mean, running_var
 
 The port keeps the JAX channels-last flatten order wherever a Dense layer
 reads a flattened patch (patch encoder, attention MLPs), so no channel
@@ -22,9 +23,14 @@ import numpy as np
 import torch
 
 
-def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """Nested mapping of arrays (flax params of one module) -> flat
-    float32 state_dict for the port's module of the same structure."""
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def flax_to_state_dict(params: Mapping, batch_stats: Mapping | None = None
+                       ) -> dict[str, torch.Tensor]:
+    """Nested mapping of arrays (flax params of one module, and its
+    BatchNorm `batch_stats` if it has any) -> flat float32 state_dict for
+    the port's module of the same structure."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: str) -> None:
@@ -45,6 +51,10 @@ def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
             out[prefix + name] = torch.from_numpy(np.ascontiguousarray(a))
 
     walk(params, "")
+    if batch_stats:
+        for key, value in flax_to_state_dict(batch_stats).items():
+            prefix, _, name = key.rpartition(".")
+            out[f"{prefix}.{_STAT_NAMES[name]}"] = value
     return out
 
 

@@ -1,5 +1,5 @@
-"""Host-side helpers (list IO, grids, artifact paths), as in the JAX
-package's utils/misc.py, with the same artifact addressing."""
+"""Helpers (list IO, grids, artifact paths, the batch IoU matrix), as in the
+JAX package's utils/misc.py, with the same artifact addressing."""
 
 from __future__ import annotations
 
@@ -57,3 +57,13 @@ def get_tree_path(config: dict) -> Path:
         "runs", "retrieval_scratch", task_dir, config["dataset_train"]["dataset_name"],
         config["dataset_train"]["splits_dir"], ckpt_experiment, ckpt_epoch, str(config["K"]),
     )
+
+
+def get_iou_matrix(batch_occupancy):
+    """(N, N) pairwise IoU of a batch of boolean occupancy grids (N, D, H, W)
+    or (N, D, H, W, 1): intersection / (union + 1e-5), in float32."""
+    occ = batch_occupancy.float().reshape(batch_occupancy.shape[0], -1)
+    inter = occ @ occ.T
+    sums = occ.sum(dim=1)
+    union = sums[:, None] + sums[None, :] - inter
+    return inter / (union + 1e-5)

@@ -5,7 +5,10 @@ neither JAX nor the JAX package, so it runs where only PyTorch is:
     python -m pytest --noconftest tests/test_torch_port_cuda.py
 
 (--noconftest: tests/conftest.py sets up JAX). chip_smoke.py holds the same
-kernels against the same plain versions at the serving shapes.
+kernels against the same plain versions at the serving shapes. Also on the
+card: the retrieval trainer's first steps against the CPU, the BatchNorm
+encoders in train mode, and the engine's refusal, at build, of a kernel
+path whose limits its config breaks.
 """
 
 import numpy as np
@@ -490,3 +493,72 @@ def test_chamfer_kernel_rejects_what_it_does_not_take(cuda):
         chamfer_minima(pts.double(), n, pts, n)
     with pytest.raises(ValueError, match="one CUDA device"):
         chamfer_minima(pts, n.cpu(), pts, n)
+
+
+# ------------------------------------------------------------ training
+
+
+def test_retrieval_trainer_steps_on_the_card_match_the_cpu(cuda, tmp_path, monkeypatch):
+    """Three train steps on the card against the same steps on the CPU
+    (chip_smoke.hold_train_steps: seeded weights, same batches, float32;
+    losses within 1e-5 relative), at chip_smoke's config (ShapeNetV2's
+    retrieval width, batch 128) on a small synthetic dataset, with the plain
+    and the BatchNorm target encoder. TF32 is off by its flags. The step-1
+    gradients are held by chip_smoke.TRAIN_GRAD_TOL, set per encoder between
+    float32's rounding and TF32's, as tools/torch_port_train_precision.py
+    measured them on this data: plain 2.6e-4 (TF32 1.1e-2) -> 1e-3;
+    BatchNorm 4.2e-3, the CPU's own float32 as far from float64 (TF32
+    4.0e-2) -> 1e-2."""
+    from chip_smoke import TRAIN_GRAD_TOL, hold_train_steps, retrieval_config
+    from retrieval_fuse_tpu_torch.data.synthetic import generate_synthetic_dataset
+    assert not torch.backends.cudnn.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    monkeypatch.chdir(tmp_path)
+    generate_synthetic_dataset(tmp_path / "data", n_train=12, n_val=2, seed=3)
+    for target_code in ("16+8", "16+8N"):
+        cfg = dict(retrieval_config(tmp_path / "data", ""), seed=5, experiment="card_steps")
+        cfg["retrieval_model"]["network_target"] = target_code
+        trainer, losses, grad_err = hold_train_steps(cfg, cuda, 3)
+        assert len(losses) == 3 and grad_err <= TRAIN_GRAD_TOL[target_code]
+        assert trainer.fenc_target.use_batchnorm == target_code.endswith("N")
+
+
+def test_batchnorm_encoder_train_mode_on_the_card(cuda):
+    """PatchNorm32 in train mode (batch statistics, running statistics
+    updated) and then eval mode: the card equals the CPU."""
+    from retrieval_fuse_tpu_torch.models import init_module_params
+    from retrieval_fuse_tpu_torch.models.encoders import make_encoder
+    cpu = make_encoder("PatchNorm32", 4, 16)
+    cpu.load_state_dict(init_module_params(cpu, np.random.default_rng(3)))
+    card = make_encoder("PatchNorm32", 4, 16).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(4)
+    for i in range(4):
+        x = torch.from_numpy(rng.standard_normal((6, 32, 32, 32, 1)).astype(np.float32) * (i + 1))
+        if i == 3:
+            cpu.eval(), card.eval()
+        with torch.no_grad():
+            want, got = cpu(x), card(x.to(cuda)).cpu()
+        assert float((got - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+    for key, value in cpu.state_dict().items():
+        assert torch.allclose(card.state_dict()[key].cpu(), value, rtol=1e-5, atol=1e-6), key
+
+
+@pytest.mark.parametrize("nf, variant, kernel", [
+    (4, "fused+pallasg2+topk1p", "gathered_attention"),
+    (12, "fused+pallasp+topk1p+cdec", "patch_attention"),
+    (12, "cdec", "decoder_tail")])
+def test_engine_build_refuses_kernel_limits_on_the_card(cuda, nf, variant, kernel):
+    """An engine on the card whose kernel path breaks a kernel's limits
+    raises at construction, naming the kernel, before any launch."""
+    from chip_smoke import flagship_config
+    from retrieval_fuse_tpu_torch.inference import RetrieveRefineEngine, variant_engine_kwargs
+    cfg = dict(flagship_config(), nf=nf)
+    launches = (pa.gathered_patch_attention.launches, pa.patch_attention.launches,
+                dt.decoder_tail.launches)
+    with pytest.raises(ValueError, match=kernel):
+        RetrieveRefineEngine(cfg, {}, np.zeros((4, 64), np.float32), device=cuda,
+                             feature_bank=np.zeros((4, 8, 8, 8, nf), np.float32),
+                             **variant_engine_kwargs(variant))
+    assert launches == (pa.gathered_patch_attention.launches, pa.patch_attention.launches,
+                        dt.decoder_tail.launches)

@@ -235,8 +235,10 @@ def test_retrieval_networks_match_jax_factory():
     ji, jt = jax_retrieval_networks(cfg)
     assert ji.name == "Patch04" and jt.name == "Patch32"
     assert tm.get_retrieval_networks({**cfg, "network_target": "none"})[1] is None
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        tm.get_retrieval_networks({**cfg, "network_target": "16+8N"})
+    # the BatchNorm code: Patch32 with BatchNorm, as JAX's PatchNorm32
+    bn = tm.get_retrieval_networks({**cfg, "network_target": "16+8N"})[1]
+    assert isinstance(bn, tm.ConvPatchEncoder) and bn.use_batchnorm
+    assert jax_retrieval_networks({**cfg, "network_target": "16+8N"})[1].name == "PatchNorm32"
 
 
 def test_demote_same_scene_matches_jax():
@@ -256,13 +258,33 @@ def test_demote_same_scene_matches_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_retrieval_entry_points_default_to_cuda():
+def test_retrieval_entry_points_default_to_cuda(synth_superres_root, tmp_path):
+    """The retrieval CLI, the retrieval trainer and its CLI, and serving
+    from artifacts and its CLI raise without CUDA unless the CPU is asked
+    for, before they read or write anything else."""
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is the card")
+    from retrieval_fuse_tpu_torch import serve as tserve
+    from retrieval_fuse_tpu_torch.train import retrieval_trainer as trt
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         RetrievalInterface({"K": 2, "batch_size": 8}, 16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcli.retrievals_to_disk("evaluate", {})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trt.RetrievalTrainer({})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tserve.build_engine_from_artifacts({}, "runs/x/ckpt_epoch=0", "runs/y/ckpt_epoch=0")
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(yaml.safe_dump(jsynth.make_synthetic_config(synth_superres_root)))
+    os.environ.pop("experiment", None)
+    with working_dir(tmp_path), pytest.raises(RuntimeError, match="CUDA is not available"):
+        trt.main(["--config", str(cfg_path), "--seed", "1"])
+    os.environ.pop("experiment", None)
+    assert not (tmp_path / "runs").exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tserve.main(["--config", str(cfg_path), "--retrieval_ckpt", "runs/x/ckpt_epoch=0",
+                     "--refinement_ckpt", "runs/y/ckpt_epoch=0", "--input", str(tmp_path),
+                     "--output", str(tmp_path / "out")])
 
 
 # ------------------------------------------------------------ round trip
@@ -425,3 +447,21 @@ def test_chip_smoke_patch_occupancy_counts_dictionary_rows(synth_superres_root, 
     got = chip_smoke.patch_occupancy(targets, cfg["dataset_train"]["voxel_size_target"])
     assert got.tolist() == [len(ds.patch_from_scene_lookup[s]) for s in ds.scenes]
     assert 0 < int(got.sum()) < 64 * len(ds.scenes)
+
+
+def test_chip_smoke_serving_config_is_the_shapenet_yamls(tmp_path):
+    """chip_smoke.py's serving config: its retrieval config with the
+    refinement networks of the packaged ShapeNetV2 refinement config, merged
+    as data/synthetic.make_synthetic_config merges the two YAMLs."""
+    import chip_smoke
+    got = chip_smoke.serving_config(tmp_path, "runs/x/ckpt_epoch=0")
+    refine = tconfig.read_config(
+        tconfig.CONFIG_ROOT / "super_resolution" / "ShapeNetV2" / "refinement_008_064.yaml")
+    retrieval = chip_smoke.retrieval_config(tmp_path, "runs/x/ckpt_epoch=0")
+    added = {k: v for k, v in got.items() if k not in retrieval}
+    assert added and all(refine[k] == v for k, v in added.items())
+    assert {k: got[k] for k in retrieval} == retrieval
+    assert refine["retrieval_model"] == got["retrieval_model"] and refine["K"] == got["K"]
+    from retrieval_fuse_tpu_torch.models import build_modules
+    assert set(build_modules(got)) == {"fenc_input", "unet_backbone", "decoder",
+                                       "retrieval_backbone", "patched_attention_block"}

@@ -103,3 +103,38 @@ def test_kernel_paths_need_the_feature_bank(setup):
             RetrieveRefineEngine(CFG, flax_engine_params(params), db, bank,
                                  compute_dtype=torch.float32, device="cpu",
                                  use_feature_bank=False, attention=attention)
+
+
+@pytest.mark.parametrize("cfg_over, variant, dtype, names", [
+    ({"nf": 4}, "fused+pallasg2+topk1p", torch.bfloat16,
+     ("'pallasg2'", "gathered_attention kernel", "F = 128", "T = 64", "F = nf·e³ = 32")),
+    ({"nf": 12}, "fused+pallasp+topk1p+cdec", torch.bfloat16,
+     ("'pallasp'", "patch_attention kernel", "F = nf·e³ = 96")),
+    ({"nf": 12}, "cdec", torch.bfloat16, ("'cdec'", "decoder_tail", "(4, 8, 16)", "nf = 12")),
+    ({"nf": 16, "K": 5}, "fused+pallasg+topk1p", torch.float32,
+     ("'pallasg'", "gathered_attention_v1", "K <= 4", "K = 5")),
+    ({"nf": 16, "K": 9}, "fused+pallas", torch.bfloat16, ("'pallas'", "K <= 8", "K = 9")),
+])
+def test_kernel_limits_raise_at_engine_build_on_cuda(cfg_over, variant, dtype, names):
+    """On a CUDA device an engine whose kernel path breaks a kernel's
+    limits is refused at build, naming the kernel, its limits and the
+    variant token; the check needs no card."""
+    from retrieval_fuse_tpu_torch.inference import check_kernel_limits
+    kw = variant_engine_kwargs(variant)
+    cfg = {**CFG, **cfg_over}
+    with pytest.raises(ValueError) as err:
+        check_kernel_limits(cfg, torch.device("cuda"), kw["attention"], kw["decoder"], dtype)
+    for name in names:
+        assert name in str(err.value), (name, str(err.value))
+    check_kernel_limits(cfg, torch.device("cpu"), kw["attention"], kw["decoder"], dtype)
+
+
+@pytest.mark.parametrize("variant", ["fused+pallasg2+topk1p", "fused+pallasp+topk1p+cdec",
+                                     "fused+pallasg+topk1p+packed", "pallas+dconv+fbb",
+                                     "phib+fused", "base"])
+def test_flagship_geometry_is_inside_the_kernel_limits(variant):
+    from retrieval_fuse_tpu_torch.inference import check_kernel_limits
+    kw = variant_engine_kwargs(variant)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_kernel_limits({**CFG, "nf": 16, "K": 4}, torch.device("cuda"), kw["attention"],
+                            kw["decoder"], dtype)

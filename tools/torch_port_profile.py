@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's serving engine spends its device time.
+"""Where the PyTorch port's serving engine, or its retrieval trainer,
+spends its device time.
 
     python tools/torch_port_profile.py [--seed 0] [--variant V] [--out chiprun_out/profile]
+    python tools/torch_port_profile.py --train
 
 Builds the flagship engine of --variant (default FAST_VARIANT) in bf16 on
 one CUDA card (weights and data as chip_smoke.py draws them), then traces
-three engine calls at batch 64 and at batch 128 with torch.profiler. Prints
-per batch: the host time per call (ending in a synchronize), the summed
-device time of the CUDA kernels, the device's idle share of the traced
-window, and the device time by kernel group (convolutions, GroupNorm, the
-port's kernels, the rest) and for the top kernels. Writes a Chrome trace per batch under
---out. Needs a CUDA card.
+three engine calls at batch 64 and at batch 128 with torch.profiler. With
+--train it traces three retrieval train steps instead, at chip_smoke.py's
+config (ShapeNetV2's retrieval width, batch 128, float32) on one resident
+batch of a small synthetic dataset (no loader). Prints per batch or step:
+the host time per call (ending in a synchronize), the summed device time of
+the CUDA kernels, the device's idle share of the traced window, and the
+device time by kernel group (convolutions, GroupNorm, the port's kernels,
+the rest) and for the top kernels. Writes a Chrome trace per engine batch
+under --out (none for the train steps). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -47,12 +52,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--variant", default=None, help="engine variant (default FAST_VARIANT)")
     ap.add_argument("--out", default="chiprun_out/profile")
+    ap.add_argument("--train", action="store_true",
+                    help="trace the retrieval trainer's steps instead of the engine")
     args = ap.parse_args(argv)
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import (SEED_BANK_ROWS, flagship_config, flagship_data,
                             flagship_params, synthetic_df)
@@ -62,6 +67,14 @@ def main(argv=None) -> int:
     from retrieval_fuse_tpu_torch.ops import _build
 
     dev = resolve_device("cuda")
+    out = Path(args.out).resolve()
+    out.mkdir(parents=True, exist_ok=True)
+    import subprocess
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+          or torch.cuda.get_device_name(0), flush=True)
+    if args.train:
+        return profile_train()
     _build.build_all()
     cfg = flagship_config()
     rng = np.random.default_rng(args.seed)
@@ -71,47 +84,88 @@ def main(argv=None) -> int:
                                **variant_engine_kwargs(args.variant or FAST_VARIANT))
     del bank
     chunks = synthetic_df(rng, 128, 8, cfg["dataset_train"]["voxel_size_input"], dev)[..., None]
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    import subprocess
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-          or torch.cuda.get_device_name(0), flush=True)
     for batch in (64, 128):
         x = chunks[:batch]
-        for _ in range(2):
-            eng(x)
-        torch.cuda.synchronize()
+        trace(lambda: eng(x), f"batch {batch}", out / f"trace_b{batch}.json")
+    return 0
+
+
+def trace(fn, label: str, path: Path | None, calls: int = 3) -> None:
+    """Warm fn up, time `calls` calls on the host clock, trace `calls` more
+    with torch.profiler, and print the device time by group and kernel;
+    write the Chrome trace to `path` unless it is None."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / calls * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            eng(x)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) / 3 * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                eng(x)
-            torch.cuda.synchronize()
-            window_ms = (time.perf_counter() - t0) * 1e3
-        prof.export_chrome_trace(str(out / f"trace_b{batch}.json"))
-        kernels = defaultdict(float)
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                kernels[e.name] += e.device_time_total / 1e3 / 3  # ms per call
-        device_ms = sum(kernels.values())
-        groups = defaultdict(float)
-        for name, ms in kernels.items():
-            groups[group_of(name)] += ms
-        print(f"batch {batch}: host {host_ms:.2f} ms per call; device kernels "
-              f"{device_ms:.2f} ms per call; idle share of the traced window "
-              f"{1 - 3 * device_ms / window_ms:.1%}")
-        if device_ms == 0:
-            print("  the profiler recorded no device time")
-            continue
-        for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-            print(f"  {group:42s} {ms:8.3f} ms  {ms / device_ms:6.1%}")
-        for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
-            print(f"    {ms:8.3f} ms  {name[:110]}")
+        window_ms = (time.perf_counter() - t0) * 1e3
+    if path is not None:
+        prof.export_chrome_trace(str(path))
+    kernels = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.name] += e.device_time_total / 1e3 / calls  # ms per call
+    device_ms = sum(kernels.values())
+    groups = defaultdict(float)
+    for name, ms in kernels.items():
+        groups[group_of(name)] += ms
+    print(f"{label}: host {host_ms:.2f} ms per call; device kernels "
+          f"{device_ms:.2f} ms per call; idle share of the traced window "
+          f"{1 - calls * device_ms / window_ms:.1%}")
+    if device_ms == 0:
+        print("  the profiler recorded no device time")
+        return
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {group:42s} {ms:8.3f} ms  {ms / device_ms:6.1%}")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {ms:8.3f} ms  {name[:110]}")
+
+
+def profile_train() -> int:
+    """Trace three retrieval train steps at chip_smoke.py's config on one
+    resident batch of a synthetic dataset, with cuDNN and without it."""
+    import os
+    import tempfile
+
+    import torch
+
+    from chip_smoke import first_batches, retrieval_config
+    from retrieval_fuse_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from retrieval_fuse_tpu_torch.train.retrieval_trainer import RetrievalTrainer
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        generate_synthetic_dataset(Path(tmp) / "data", n_train=12, n_val=2, seed=3)
+        os.chdir(tmp)
+        try:
+            cfg = dict(retrieval_config(Path(tmp) / "data", ""), seed=0, experiment="profile")
+            trainer = RetrievalTrainer(cfg, device="cuda")
+            batch = trainer._device_batch(first_batches(
+                trainer.train_dataset, trainer.batch_size, 1)[0])
+            step = lambda: trainer._train_step(batch, trainer.base_lr)  # noqa: E731
+            # no trace files: without cuDNN one step records ~10^5 events
+            trace(step, f"retrieval train step, batch {trainer.batch_size}", None)
+            torch.backends.cudnn.enabled = False  # only this flag; TF32 stays off
+            try:
+                trace(step, f"retrieval train step, batch {trainer.batch_size}, cuDNN off "
+                      "(PyTorch's own convolution kernels)", None)
+            finally:
+                torch.backends.cudnn.enabled = True
+        finally:
+            os.chdir(cwd)
     return 0
 
 

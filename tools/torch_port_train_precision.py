@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""How far the retrieval trainer's step-1 gradients on the card lie from
+float64 gradients, beside the CPU's float32 ones.
+
+    python tools/torch_port_train_precision.py [--out chiprun_out/train_precision.json]
+
+One batch of the trainer's epoch-0 order, from the same seeded weights, in
+these cases: the CPU tests' geometry (nf 4 / 4, latent 16, batch 16, the
+synthetic config's normalisation) and chip_smoke.py's (ShapeNetV2's
+retrieval width, batch 128), each with the plain target encoder (16+8) and
+the BatchNorm one (16+8N), on a small synthetic dataset (data/synthetic.py,
+12 train chunks: the card tests' data); and chip_smoke.py's geometry with
+both encoders on data made as chip_smoke.py's phase 7 makes it
+(write_retrieval_dataset, 576 train chunks). For each, the loss gradient of
+every encoder tensor: float32 on the card as the port runs it
+(device.resolve_device's flags), and with one cuDNN setting changed
+(deterministic algorithms; TF32 allowed; the fp32_precision "ieee" of
+torch.backends.cudnn.conv; cuDNN off, so that PyTorch's own convolution
+kernels run), float32 on the CPU, and float64 on the CPU, the reference.
+Prints the flags, max |g - g64| / max |g64| per tensor and the worst of
+each, the card's float32 against the CPU's (what chip_smoke.hold_train_steps
+holds), and the card's name and power limit. The conv biases that a
+BatchNorm follows have no gradient in exact arithmetic: they are left out
+of the worst and printed as their largest magnitude over the encoder's
+largest float64 gradient. Needs a CUDA card and PyYAML.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import copy
+import json
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from retrieval_fuse_tpu_torch.data.synthetic import (  # noqa: E402
+    generate_synthetic_dataset, make_synthetic_config)
+from retrieval_fuse_tpu_torch.train.retrieval_trainer import RetrievalTrainer  # noqa: E402
+
+
+def step1_grads(trainer, batch, dtype) -> dict:
+    """{name.key: gradient (float64, on the CPU)} of the train-mode loss on
+    `batch`, with the trainer's encoders in `dtype` (copies)."""
+    nets = {name: copy.deepcopy(net).to(dtype).train()
+            for name, net in trainer.encoders.items()}
+    saved = trainer.fenc_input, trainer.fenc_target
+    trainer.fenc_input, trainer.fenc_target = nets["fenc_input"], nets["fenc_target"]
+    try:
+        total, _ = trainer._loss_fn({k: v.to(dtype) for k, v in batch.items()}, train=True)
+        total.backward()
+    finally:
+        trainer.fenc_input, trainer.fenc_target = saved
+    return {f"{name}.{key}": p.grad.detach().double().cpu()
+            for name, net in nets.items() for key, p in net.named_parameters()}
+
+
+@contextlib.contextmanager
+def cudnn_setting(name: str):
+    """Change one cuDNN setting for the block ("" changes none)."""
+    import torch.backends.cudnn as cudnn
+    saved = (cudnn.deterministic, cudnn.allow_tf32, cudnn.enabled, cudnn.conv.fp32_precision)
+    try:
+        if name == "deterministic":
+            cudnn.deterministic = True
+        elif name == "allow_tf32":
+            cudnn.allow_tf32 = True
+        elif name == "conv fp32_precision ieee":
+            cudnn.conv.fp32_precision = "ieee"
+        elif name == "cuDNN off":
+            cudnn.enabled = False
+        yield
+    finally:
+        (cudnn.deterministic, cudnn.allow_tf32, cudnn.enabled,
+         cudnn.conv.fp32_precision) = saved
+
+
+SETTINGS = ("", "deterministic", "allow_tf32", "conv fp32_precision ieee", "cuDNN off")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="chiprun_out/train_precision.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_port_train_precision: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        card = ""
+    card = card or "nvidia-smi gave no card name and power limit"
+    print(card)
+    results = {"card": card}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        generate_synthetic_dataset(root / "data", n_train=12, n_val=2, seed=3)
+        chip_smoke.write_retrieval_dataset(
+            root / "phase7", np.random.default_rng(0), chip_smoke.RETRIEVAL_MIN_ROWS,
+            chip_smoke.RETRIEVAL_VAL_CHUNKS, "cuda")
+        tests_cfg = make_synthetic_config(root / "data")
+        tests_cfg["retrieval_model"].update(nf_input=4, nf_target=4, latent_dim=16)
+        tests_cfg["retrieval_training"]["batch_size"] = 16
+        configs = {}
+        for code in ("16+8", "16+8N"):
+            for label, cfg in (
+                    ("tests (nf 4/4, latent 16, batch 16)", tests_cfg),
+                    ("chip_smoke (nf 32/8, latent 64, batch 128)",
+                     chip_smoke.retrieval_config(root / "data", "")),
+                    ("chip_smoke on phase 7's data",
+                     chip_smoke.retrieval_config(root / "phase7", ""))):
+                cfg = copy.deepcopy(cfg)
+                cfg["retrieval_model"]["network_target"] = code
+                configs[f"{label}, target {code}"] = cfg
+        os.chdir(root)
+        try:
+            for label, cfg in configs.items():
+                cfg = dict(cfg, seed=5, experiment="precision")
+                cpu = RetrievalTrainer(cfg, device="cpu")
+                gpu = RetrievalTrainer(cfg, device="cuda")
+                batch = chip_smoke.first_batches(cpu.train_dataset, cpu.batch_size, 1)[0]
+                host = {k: torch.from_numpy(batch[k]) for k in ("input", "target")}
+                dev = {k: v.cuda() for k, v in host.items()}
+                cudnn = torch.backends.cudnn
+                print(f"flags: cudnn.allow_tf32 {cudnn.allow_tf32}, cudnn.conv.fp32_precision "
+                      f"{cudnn.conv.fp32_precision!r}, cudnn.fp32_precision "
+                      f"{cudnn.fp32_precision!r}, float32 matmul precision "
+                      f"{torch.get_float32_matmul_precision()!r}, torch {torch.__version__}")
+                ref = step1_grads(cpu, host, torch.float64)
+                grads = {}
+                for name in SETTINGS:
+                    with cudnn_setting(name):
+                        grads[f"card float32{', ' + name if name else ''}"] = step1_grads(
+                            gpu, dev, torch.float32)
+                grads["CPU float32"] = step1_grads(cpu, host, torch.float32)
+                noise = {f"{name}.{key}" for name, net in cpu.encoders.items()
+                         for key in chip_smoke.batchnorm_fed_biases(net)}
+                largest = {name: max(float(r.abs().max()) for k, r in ref.items()
+                                     if k.startswith(name + "."))
+                           for name in cpu.encoders}
+                rec = {}
+                for way, g in grads.items():
+                    rec[way] = {k: float((g[k] - r).abs().max() / r.abs().max())
+                                for k, r in ref.items() if k not in noise}
+                    worst = max(rec[way], key=rec[way].get)
+                    print(f"{label}, {way}: worst {rec[way][worst]:.2e} ({worst}) of the "
+                          f"float64 gradient's largest magnitude [{card}]")
+                    if noise:
+                        rec[way]["batchnorm-fed biases"] = max(
+                            float(g[k].abs().max()) / largest[k.split(".")[0]] for k in noise)
+                        print(f"{label}, {way}: batchnorm-fed conv biases at most "
+                              f"{rec[way]['batchnorm-fed biases']:.2e} of their encoder's "
+                              f"largest float64 gradient")
+                held = grads["card float32"]
+                cpu32 = grads["CPU float32"]
+                rec["card float32 vs CPU float32"] = {
+                    k: float((held[k] - cpu32[k]).abs().max() / cpu32[k].abs().max())
+                    for k in ref if k not in noise}
+                worst = max(rec["card float32 vs CPU float32"],
+                            key=rec["card float32 vs CPU float32"].get)
+                print(f"{label}, card float32 vs CPU float32 (the hold): worst "
+                      f"{rec['card float32 vs CPU float32'][worst]:.2e} ({worst}) [{card}]")
+                scale = {k: float(r.abs().max()) for k, r in ref.items()}
+                print(f"{label}, per tensor, float64 largest magnitude | "
+                      f"{' / '.join(rec)}: " + ", ".join(
+                          f"{k} {scale[k]:.1e} | " + " / ".join(
+                              f"{r[k]:.1e}" for r in rec.values() if k in r)
+                          for k in ref if k not in noise))
+                results[label] = dict(rec, largest_float64=scale)
+        finally:
+            os.chdir(cwd)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(results, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
