@@ -47,9 +47,27 @@ scaling, Adam with weight decay 5e-5, K = 4; weights from --seed):
     against a dense float32 search, the kNN and chamfer launches, the
     metrics against the plain chamfer's and against the trainer's
     validation;
+  - trains the refinement network (train/refinement_trainer.py) at the full
+    width of ShapeNetV2's refinement config (nf 16, K 4, batch 8; config
+    built in code) on the same chunks and the composed retrievals of that
+    pipeline: one step of each of the four phases at batch 1 held against
+    the CPU (float32, TF32 off; the same Gumbel draw and one-hot
+    selections; losses 1e-5 relative, gradients no further from the CPU's
+    float64 than REFINE_F64_FACTOR times the CPU's float32; on an item
+    perturbed so that no 16³ patch is constant; no kernel launched; the
+    card's step with TF32 on outside the bound), the 4-phase curriculum
+    through train_refinement_phases (two epochs of REFINE_STEPS / 2 steps a
+    phase, phase 2 on the frozen feature cache; steps/s of each phase's second
+    epoch and its losses from the run's metrics.jsonl; phase 2's losses
+    non-zero; each phase changed exactly its sub-networks), the phase-2
+    cache as fit builds it (on the device), one validation (which must
+    launch the chamfer kernel and no other), the checkpoint round trip, the
+    cached phase-2 step against the direct one, and each phase's step on a
+    resident batch of 8 (CUDA events; the device's idle share from a traced
+    step);
   - serves the 64 val input chunks from those artifacts (the dictionary,
-    the trained checkpoint and a seeded random refinement checkpoint at
-    the flagship geometry) with FAST_VARIANT: the engine of
+    the trained retrieval checkpoint and the refinement checkpoint just
+    trained) with FAST_VARIANT: the engine of
     serve.build_engine_from_artifacts through serve_directory at batch 64
     (its alignment guard on the card), held against engines built in
     memory from the same weights, rows and tiles (float32 max |diff| 1e-5;
@@ -69,6 +87,7 @@ beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -335,6 +354,262 @@ def hold_train_steps(cfg: dict, dev, n_steps: int):
                     grad_err = max(grad_err, err)
         card.global_step = cpu.global_step = i + 1
     return card, losses, grad_err
+
+
+#: phase 7d, the refinement trainer: steps of each curriculum phase (two
+#: epochs of REFINE_STEPS / 2), and the held batch's perturbation
+#: (normalised units)
+REFINE_STEPS = 12
+REFINE_HOLD_NOISE = 0.05
+#: the held networks' decoder output bias: seeded random weights predict no
+#: occupied voxel (tanh ~ 0 is 1.5 voxels), so phase 2's occupancy gate
+#: would close; at -0.5 it opens on part of the patches
+REFINE_HOLD_DECODER_BIAS = -0.5
+#: one step of each phase at batch 1 (float32, TF32 off): the card's
+#: gradients may lie no further from the CPU's float64 gradients of the same
+#: step than REFINE_F64_FACTOR times the CPU's float32 ones do, plus
+#: REFINE_F64_FLOOR (both as grad_share reads them). From
+#: tools/torch_port_train_precision.py --refine on the H100 (PERF.md section
+#: 6): card / CPU float32 lie 1.06e-2 / 9.95e-3 (phase 0), 2.68e-3 / 3.45e-3
+#: (1), 6.2e-5 / 6.2e-5 (2) and 1.34e-2 / 1.37e-2 (3) from float64, a ratio
+#: of 0.78-1.07, and the card with TF32 on 2.1e-1, 1.05e-1, 7.0e-4, 1.6e-1:
+#: 3.7-10x the bound this gives, 5.8-32x on this phase's data (the hold
+#: checks that TF32 stays outside it). A fixed bound from the tool's data did
+#: not carry over to this phase's (the float32 error depends on the data)
+REFINE_F64_FACTOR, REFINE_F64_FLOOR = 3.0, 1e-5
+
+
+def refinement_config(root, retrieval_ckpt) -> dict:
+    """The resolved config of the JAX package's
+    config/super_resolution/ShapeNetV2/refinement_008_064.yaml (on
+    base/refinement_superresolution.yaml), built in code: nf 16, K 4, batch
+    8, lr 1e-4, four U-Net levels, retrieval f_maps 16 and four levels,
+    attention temperature 0.05, weight_occupied 8 and the YAML's loss
+    weights; 8³ inputs and 64³ target chunks. The dataset points at `root`
+    and trains on the composed retrievals of `retrieval_ckpt` (retrievals
+    on, as the CLI runs without --no_retrievals)."""
+    root = str(root).rstrip("/") + "/"
+    dataset = {
+        "num_points": 0, "skip_occupancy": False, "train_multiplier": 1,
+        "patch_size_input": 8, "patch_context_input": 0, "patch_size_target": 64,
+        "patch_context_target": 0, "patch_stride": 64, "input_ext": ".npz",
+        "target_ext": ".npz", "data_dir": root, "scene_dir": root, "retrieval_dir": root,
+        "dataset_name": "SynthSet", "input_chunk_size": 8, "target_chunk_size": 64,
+        "input_dir": "sdf_008", "target_dir": "sdf_064", "splits_dir": "main",
+        "voxel_size_input": 0.166667, "voxel_size_target": 0.020834, "preload_scenes": False,
+        "preload_retrievals": False, "input_mean": 0.3095340441938771,
+        "input_std": 0.14730652990291243, "target_mean": 0.059954833543534335,
+        "target_std": 0.010110036361741626, "rotation_augment": False,
+    }
+    return {
+        "task": "superresolution", "K": 4, "loss_reconstruction": 1, "loss_normal": 0.5,
+        "loss_attn_contrastive": 0.01, "loss_side_task_retr": 1, "loss_side_task_unet": 1,
+        "lr": 0.0001, "batch_size": 8, "num_workers": 8, "scheduler": [110, 125],
+        "attn_temprature": 0.05, "weight_occupied": 8, "unet_backbone_decoder_ckpt": None,
+        "retrieval_backbone_ckpt": None, "attention_block_ckpt": None,
+        "disable_train_vis": True, "disable_attn_vis": True, "fast_visualization": True,
+        "dataset_train": dict(dataset, occupancy_threshold=0),
+        "dataset_val": dict(dataset, occupancy_threshold=-1),
+        "retrieval_model": {"network_input": "2+1", "network_target": "16+8",
+                            "nf_input": 32, "nf_target": 8, "latent_dim": 64},
+        "dictionary": {"batch_size": 512, "num_workers": 4},
+        "query": {"batch_size": 2048, "num_workers": 4, "flann_num_workers": 4},
+        "nf": 16, "num_points": 0, "unet_num_level": 4, "layer_order": "gcr",
+        "retrieval_fmaps": 16, "retrieval_num_level": 4, "attn_normalize": True,
+        "attn_use_switching": True, "attn_retrieval_mode": True,
+        "attn_no_output_mapping": True, "attn_blend": True, "attn_patch_extent": 4,
+        "attn_num_patch": 16, "no_retrievals": False, "retrieval_ckpt": str(retrieval_ckpt),
+    }
+
+
+def write_composed_retrievals(cfg: dict, rng, k: int = 4) -> None:
+    """Composed retrievals for every scene of cfg's dataset where
+    cfg["retrieval_ckpt"]'s `compose` would put them: k other scenes'
+    targets, drawn from `rng` (the tools' data when no retrieval run made
+    any)."""
+    from retrieval_fuse_tpu_torch.utils.misc import get_retrievals_dir
+    dtr = cfg["dataset_train"]
+    tdir = Path(dtr["data_dir"]) / dtr["target_dir"] / dtr["dataset_name"]
+    targets = {p.stem: np.load(p)["arr"] for p in sorted(tdir.glob("*.npz"))}
+    out = get_retrievals_dir(cfg) / "compose"
+    out.mkdir(parents=True, exist_ok=True)
+    for scene in targets:
+        others = rng.choice([o for o in targets if o != scene], k, replace=False)
+        np.savez_compressed(out / f"{scene}.npz",
+                            np.stack([targets[o] for o in others]).astype(np.float16))
+
+def perturb_batch(batch: dict, rng, noise: float) -> dict:
+    """`batch` with N(0, noise) added to its target and retrievals
+    (normalised units), so that every 16³ patch varies. On a constant patch
+    the retrieval U-Net's GroupNorm chain amplifies float32 rounding (each
+    group's variance far below eps 1e-5) into O(1) features, which differ on
+    every device and in every implementation (PERF.md section 6)."""
+    out = dict(batch)
+    for key in ("target", "retrieval"):
+        out[key] = (batch[key] + rng.normal(0, noise, batch[key].shape)).astype(np.float32)
+    return out
+
+
+def grad_share(got: dict, want: dict) -> tuple[float, str]:
+    """The largest max |got - want| over a tensor, as a share of its
+    sub-network's largest |want|, and that tensor's name; got and want are
+    {subnet: {key: gradient}}. A sub-network whose gradient is zero
+    throughout adds nothing."""
+    worst, where = 0.0, ""
+    for name, sd in want.items():
+        scale = max(float(g.abs().max()) for g in sd.values()) or float("inf")
+        check(sorted(got[name]) == sorted(sd), f"{name}: the devices' gradients differ in keys")
+        for key, w in sd.items():
+            share = float((got[name][key].cpu().double() - w.cpu().double()).abs().max()) / scale
+            if share > worst:
+                worst, where = share, f"{name}.{key}"
+    return worst, where
+
+
+def open_occupancy_gate(trainer) -> None:
+    """Set the decoder's output bias to REFINE_HOLD_DECODER_BIAS."""
+    import torch
+    with torch.no_grad():
+        trainer.decoder.final_conv.bias.fill_(REFINE_HOLD_DECODER_BIAS)
+
+def gumbel_selection(tr, batch: dict, u):
+    """(the attention's one-hot selection of each of forward_full's B·R³
+    patches, the smallest gap between the top two Gumbel-perturbed scores)
+    on a device batch, with the uniform draw u (B·R³, K)."""
+    import torch
+    from retrieval_fuse_tpu_torch.models.attention import l2_normalize
+    from retrieval_fuse_tpu_torch.ops.fold3d import unfold3d
+    blk = tr.patched_attention_block
+    att, e, r, k, nf = blk.attention_blocks_layer, blk.patch_extent, blk.num_patch_x, blk.K, blk.nf
+    with torch.no_grad():
+        b = batch["input"].shape[0]
+        x_back = tr._call("unet_backbone", batch["input"])
+        x_rpt = tr._encode_shape_volumes(torch.cat([tr.get_retrievals(batch["retrieval"]),
+                                                    batch["target"]], dim=0))
+        x = unfold3d(x_back, e)
+        p = unfold3d(x_rpt[: b * k], e).reshape(-1, k, r ** 3, e, e, e, nf) \
+            .permute(0, 2, 1, 3, 4, 5, 6).reshape(-1, e, e, e, nf)
+        xf = l2_normalize(att.theta(x), 1)
+        pf = l2_normalize(att.phi(p).reshape(x.shape[0], k, -1), 2)
+        scores = torch.einsum("bf,bkf->bk", xf, pf) * 25.0
+        u = u.to(scores.device)
+        perturbed = scores - torch.log(-torch.log(u + 1e-20))
+        top2 = perturbed.topk(2, dim=1).values
+    return perturbed.argmax(dim=1).cpu(), float((top2[:, 0] - top2[:, 1]).min())
+
+
+def step_gradients(tr, phase: int, batch: dict, u=None, float64: bool = False,
+                   cached: bool = False):
+    """(loss, aux, {subnet: {key: gradient}}) of the trainer's train step of
+    `phase` on a device batch without its Adam update (set_phase, then
+    compute_gradients: what train_step runs before optimizer.step()); with
+    float64, the sub-networks and the batch in float64 for the call."""
+    tr.set_phase(phase)
+    if not float64:
+        total, aux = tr.compute_gradients(batch, u, cached)
+        return total, aux, tr.gradients()
+    for net in tr.nets.values():
+        net.double()
+    try:
+        batch = {k: (v.double() if v.is_floating_point() else v) for k, v in batch.items()}
+        total, aux = tr.compute_gradients(batch, u, cached)
+        return total, aux, tr.gradients()
+    finally:
+        for net in tr.nets.values():
+            net.float()
+
+
+@contextlib.contextmanager
+def tf32():
+    """TF32 on for cuDNN's convolutions and for matmuls in the block (the
+    port runs with both off: device.resolve_device)."""
+    import torch
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def hold_refine_steps(cfg: dict, dev, seed: int) -> dict:
+    """One step of each phase of the refinement trainer on the card
+    against the same step on the CPU, at batch 1, float32, TF32 off: the
+    same seeded weights (the decoder's output bias at
+    REFINE_HOLD_DECODER_BIAS), the first train item perturbed
+    (perturb_batch), the same Gumbel uniform draw. The one-hot selections
+    of phase 3 agree; each loss within 1e-5 relative; the gradients of the
+    phase's trainable sub-networks no further from the CPU's float64
+    gradients of the step than REFINE_F64_FACTOR times the CPU's float32
+    ones, plus REFINE_F64_FLOOR (grad_share), and the card's step with TF32
+    on lies outside that bound (the hold can tell TF32). Also reads the
+    card-vs-CPU phase-3 loss on the unperturbed item (not held). Returns the readings
+    and, under "init", the seeded weights before the gate was opened (those
+    a trainer of `cfg` starts from)."""
+    import torch
+    from retrieval_fuse_tpu_torch.train.refinement_trainer import RefinementTrainer
+    cfg1 = dict(cfg, batch_size=1)
+    card = RefinementTrainer(dict(cfg1), device=dev)
+    cpu = RefinementTrainer(dict(cfg1), device="cpu")
+    init = {n: {k: v.cpu().clone() for k, v in sd.items()} for n, sd in card.params().items()}
+    for tr in (card, cpu):
+        open_occupancy_gate(tr)
+    rng = np.random.default_rng(seed)
+    raw = first_batches(card.train_dataset, 1, 1)[0]
+    held = perturb_batch(raw, rng, REFINE_HOLD_NOISE)
+    rows = card.patched_attention_block.num_patch_x ** 3
+    u = torch.from_numpy(rng.uniform(1e-20, 1.0, (rows, card.K)).astype(np.float32))
+    out = {"phases": {}, "init": init}
+    sel_card, gap = gumbel_selection(card, card._device_batch(held), u)
+    sel_cpu, gap_cpu = gumbel_selection(cpu, cpu._device_batch(held), u)
+    agree = float((sel_card == sel_cpu).float().mean())
+    check(agree == 1.0, f"refine hold: the phase-3 selections agree on {agree:.5f} of patches")
+    out.update(selection_min_gap=min(gap, gap_cpu), patches=rows)
+    for phase in (3, 0, 1, 2):
+        got = step_gradients(card, phase, card._device_batch(held), u.to(dev))
+        with tf32():
+            got_tf32 = step_gradients(card, phase, card._device_batch(held), u.to(dev))
+        want = step_gradients(cpu, phase, cpu._device_batch(held), u)
+        ref = step_gradients(cpu, phase, cpu._device_batch(held), u, float64=True)[2]
+        loss, loss_cpu = float(got[0]), float(want[0])
+        check(np.isfinite(loss) and loss_cpu > 0 and abs(loss - loss_cpu) <= 1e-5 * loss_cpu,
+              f"refine hold phase {phase}: loss {loss} on the card, {loss_cpu} on the CPU")
+        card64, where = grad_share(got[2], ref)
+        cpu64, _ = grad_share(want[2], ref)
+        tf32_64, tf32_where = grad_share(got_tf32[2], ref)
+        cross, _ = grad_share(got[2], want[2])
+        bound_ = REFINE_F64_FACTOR * cpu64 + REFINE_F64_FLOOR
+        check(card64 <= bound_,
+              f"refine hold phase {phase}: the card's gradients lie {card64:.2e} from float64 "
+              f"(worst {where}), the CPU's {cpu64:.2e} (bound {bound_:.2e})")
+        check(tf32_64 > bound_,
+              f"refine hold phase {phase}: the card's gradients with TF32 on lie {tf32_64:.2e} "
+              f"from float64, inside the bound {bound_:.2e}: the hold cannot tell TF32")
+        out["phases"][phase] = dict(loss=loss, loss_cpu=loss_cpu, card_f64=card64,
+                                    cpu_f64=cpu64, card_cpu=cross, bound=bound_, worst=where,
+                                    tf32_f64=tf32_64, tf32_worst=tf32_where)
+    with torch.no_grad():
+        plain = [float(tr._phase_loss(3, tr.augment_batch_data(tr._device_batch(raw)),
+                                      u.to(tr.device))[0]) for tr in (card, cpu)]
+    out["unperturbed_phase3_loss"] = plain
+    return out
+
+
+def device_busy(fn) -> tuple[float, float]:
+    """(ms of CUDA kernels, ms of wall) of one call of fn after one warm-up,
+    traced with torch.profiler; the idle share is 1 - kernels / wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return busy / 1e3, wall
 
 
 def patch_occupancy(df64, voxel_size: float):
@@ -653,7 +928,7 @@ def main(argv=None) -> int:
         from retrieval_fuse_tpu_torch.ops.topk import topk, topk_plain
         from retrieval_fuse_tpu_torch import serve
         from retrieval_fuse_tpu_torch.serve import serve_directory
-        from retrieval_fuse_tpu_torch.data import PatchedSceneDataset, SceneHandler
+        from retrieval_fuse_tpu_torch.data import PatchedSceneDataset, SceneHandler, batch_iterator
         from retrieval_fuse_tpu_torch.evaluation import metrics as metrics_mod
         from retrieval_fuse_tpu_torch.ops.chamfer import (
             chamfer_batch_plain, occupancy_to_point_buffer)
@@ -661,9 +936,11 @@ def main(argv=None) -> int:
             chamfer_minima, chamfer_minima_plain)
         from retrieval_fuse_tpu_torch.retrieval.cli import retrievals_to_disk
         from retrieval_fuse_tpu_torch.retrieval.engine import query_batch_size
-        from retrieval_fuse_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+        from retrieval_fuse_tpu_torch.train.checkpoint import load_checkpoint
         from retrieval_fuse_tpu_torch.train.retrieval_trainer import (
             RetrievalTrainer, get_metrics_for_retrieval, main as train_main)
+        from retrieval_fuse_tpu_torch.train.refinement_trainer import (
+            RefinementTrainer, train_refinement_phases)
         from retrieval_fuse_tpu_torch.utils.misc import get_retrievals_dir, get_tree_path
         import yaml  # the trainer's and the serving CLI's configs
     except ImportError as e:
@@ -1035,7 +1312,7 @@ def main(argv=None) -> int:
         # compose -> evaluate) with its checkpoint, then serving from those
         # artifacts, at the full width of ShapeNetV2's configs, on a synthetic
         # dataset whose dictionary reaches the flagship database's rows
-        retrieval, training, from_artifacts = {}, {}, {}
+        retrieval, training, refine, from_artifacts = {}, {}, {}, {}
         with tempfile.TemporaryDirectory() as tmp:
             root = Path(tmp)
             t0 = time.perf_counter()
@@ -1204,14 +1481,197 @@ def main(argv=None) -> int:
                 log("retrieval evaluate: metrics equal the trainer's retrieval validation's "
                     "val metrics within 1e-6 relative")
 
+                # 7d) the refinement trainer at the full width of ShapeNetV2's
+                # refinement config, on phase 7's chunks and 7b's composed
+                # retrievals: one step of each phase held against the CPU,
+                # the curriculum through train_refinement_phases, each phase's
+                # step on a resident batch, a validation and the checkpoint
+                t_refine = time.perf_counter()
+                fcfg = dict(refinement_config(root / "data", ckpt), seed=args.seed,
+                            experiment="chip_smoke_refine")
+                before = {name: c.launches for name, c in counters.items()}
+                t0 = time.perf_counter()
+                refine["hold"] = hold_refine_steps(fcfg, dev, args.seed + 4)
+                init = refine["hold"].pop("init")
+                check({name: c.launches for name, c in counters.items()} == before,
+                      "the refinement steps launched a kernel")
+                refine["hold_s"] = time.perf_counter() - t0
+                hold = refine["hold"]
+                log(f"refine steps card vs CPU (batch 1, float32, TF32 off, the first train "
+                    f"item perturbed by N(0, {REFINE_HOLD_NOISE})): phase-3 selections agree on "
+                    f"all {hold['patches']} patches, smallest top-two gap of the perturbed "
+                    f"scores {hold['selection_min_gap']:.3e}; no kernel launched; "
+                    f"{refine['hold_s']:.1f} s")
+                for phase, rec in sorted(hold["phases"].items()):
+                    log(f"  phase {phase}: loss {rec['loss']:.6f} (CPU {rec['loss_cpu']:.6f}, "
+                        f"within 1e-5 relative); gradients from the CPU's float64, as a share "
+                        f"of their sub-network's largest: card {rec['card_f64']:.2e} (bound "
+                        f"{rec['bound']:.2e}; worst {rec['worst']}), CPU float32 "
+                        f"{rec['cpu_f64']:.2e}; card vs CPU {rec['card_cpu']:.2e}; card with "
+                        f"TF32 on {rec['tf32_f64']:.2e} (worst {rec['tf32_worst']}), "
+                        f"{rec['tf32_f64'] / rec['bound']:.1f}x the bound [{card}]")
+                a, b = hold["unperturbed_phase3_loss"]
+                log(f"  unperturbed item (constant 16³ patches), not held: phase-3 loss "
+                    f"{a:.6f} on the card, {b:.6f} on the CPU ({abs(a - b) / abs(b):.1e} "
+                    "relative)")
+
+                # the curriculum through train_refinement_phases: two epochs a
+                # phase of REFINE_STEPS / 2 steps, a checkpoint at each phase's
+                # end only, phase 2 on the frozen cache, from the seeded
+                # weights. Its logger (metrics.jsonl) gives each epoch's last
+                # loss and the time after it, so each phase's second epoch
+                # times REFINE_STEPS / 2 steps through fit. Phase 2 trains only
+                # where phase 0's decoder opens the occupancy gate: its losses
+                # must be > 0 and its attention must move
+                ccfg = dict(fcfg, phase_change_epochs=[2, 2, 2], max_epoch=2, save_epoch=2,
+                            val_check_interval=100, frozen_phase_cache=True)
+                half = REFINE_STEPS // 2
+                t0 = time.perf_counter()
+                refiner, counts = drive("refine curriculum", (), lambda: train_refinement_phases(
+                    ccfg, max_steps_per_epoch=half, device=dev))
+                refine["curriculum_s"] = time.perf_counter() - t0
+                check(not counts, f"the refinement curriculum launched kernels: {counts}")
+                run_dir = Path("runs") / ccfg["experiment"]
+                recs = [r for r in map(json.loads, (run_dir / "metrics.jsonl").read_text()
+                                       .splitlines()) if "train/total_loss" in r]
+                check([(r["phase"], r["epoch"]) for r in recs]
+                      == [(ph, e) for ph in range(4) for e in range(2)]
+                      and [r["_step"] for r in recs] == [half * (i + 1) for i in range(8)],
+                      f"refine curriculum: train records {[(r['phase'], r['epoch'], r['_step']) for r in recs]}")
+                refine["phases"] = {}
+                for ph in range(4):
+                    r0, r1 = recs[2 * ph], recs[2 * ph + 1]
+                    losses = [r0["train/total_loss"], r1["train/total_loss"]]
+                    check(all(np.isfinite(losses)) and (ph != 2 or min(losses) > 0),
+                          f"refine phase {ph}: losses {losses} after steps {half} and "
+                          f"{2 * half}" + (" (a zero phase-2 loss: the contrastive gate "
+                                           "is shut)" if ph == 2 else ""))
+                    dt = r1["_time"] - r0["_time"]
+                    refine["phases"][ph] = dict(epoch_s=dt, steps=half, steps_per_s=half / dt,
+                                                loss_half=losses[0], loss_last=losses[1])
+                    log(f"refine phase {ph} through fit: its second epoch, {half} steps of "
+                        f"batch {refiner.batch_size}, in {dt:.3f} s = {half / dt:.2f} steps/s "
+                        f"(loader included); loss {losses[0]:.4f} (step {half}) -> "
+                        f"{losses[1]:.4f} (step {2 * half}) [{card}]")
+                # each phase's end: phase 0's is overwritten by later phases'
+                # epoch numbering (as in the JAX trainer), so phases 0-1 are
+                # read together against the seeded weights
+                ends = {ph: load_checkpoint(run_dir / f"ckpt_epoch={2 * ph + 1}")
+                        for ph in (1, 2, 3)}
+                check(sorted(p_.name for p_ in run_dir.glob("ckpt_epoch=*"))
+                      == [f"ckpt_epoch={e}" for e in (1, 3, 5, 7)]
+                      and [ends[ph]["opt_state"]["phase"] for ph in (1, 2, 3)] == [1, 2, 3],
+                      f"refine curriculum: checkpoints {sorted(run_dir.iterdir())}")
+                for label, old, new_, want in (
+                        ("phases 0-1", init, ends[1]["params"],
+                         {"unet_backbone", "decoder", "retrieval_backbone"}),
+                        ("phase 2", ends[1]["params"], ends[2]["params"],
+                         {"patched_attention_block"}),
+                        ("phase 3", ends[2]["params"], ends[3]["params"], set(init))):
+                    moved = {n for n, sd in new_.items()
+                             if any(not torch.equal(v.cpu(), old[n][k].cpu())
+                                    for k, v in sd.items())}
+                    check(moved == want, f"refine curriculum: {label} changed {sorted(moved)}, "
+                                         f"not {sorted(want)}")
+                log("refine curriculum: phases 0-1 changed the backbone, the decoder and the "
+                    "retrieval backbone, phase 2 the attention alone, phase 3 all four "
+                    "(checkpoints at each phase's end against the seeded weights)")
+                trained = {n: {k: v.detach().cpu().clone() for k, v in sd.items()}
+                           for n, sd in refiner.params().items()}
+                fckpt = (run_dir / "ckpt_epoch=7").resolve()
+
+                # the frozen phase-2 cache as fit builds it, timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cache = refiner.build_phase2_cache()
+                torch.cuda.synchronize()
+                cache_info = dict(s=time.perf_counter() - t0, on_device=isinstance(cache, dict))
+                check(cache_info["on_device"], "the phase-2 cache took the host path")
+                cache_info["gb"] = sum(v.numel() * v.element_size() for v in cache.values()) / 1e9
+                refine["cache"] = cache_info
+                log(f"refine phase-2 cache (as fit builds it): {len(refiner.train_dataset)} "
+                    f"items, {cache_info['gb']:.2f} GB on the device, built in "
+                    f"{cache_info['s']:.1f} s [{card}]")
+
+                # a validation of the trained networks: the chamfer kernel only
+                t0 = time.perf_counter()
+                refine["metrics"], counts = drive("refine validation", ("chamfer",),
+                                                  refiner.validate)
+                refine.update(validation_s=time.perf_counter() - t0, validation_launches=counts)
+                check(set(counts) == {"chamfer"},
+                      f"refine validation launched {counts}, not the chamfer kernel alone")
+                check(all(np.isfinite(m[k]) for m in refine["metrics"].values()
+                          for k in ("iou", "precision", "recall")),
+                      f"refine validation metrics {refine['metrics']}")
+                for key, m in refine["metrics"].items():
+                    log(f"refine validation {key}: iou {m['iou']:.4f}, cd {m['cd']:.4f}, "
+                        f"precision {m['precision']:.4f}, recall {m['recall']:.4f}, "
+                        f"f1 {m['f1']:.4f}")
+                log(f"refine validation: {len(refiner.val_dataset)} val and "
+                    f"{len(refiner.dataset('train_eval'))} train_eval chunks at batch "
+                    f"{refiner.batch_size} in {refine['validation_s']:.1f} s; launches "
+                    f"{counts} [{card}]")
+                loaded = RefinementTrainer(dict(fcfg), device=dev)
+                loaded.load(fckpt, params_only=False)
+                check(all(torch.equal(v.cpu(), trained[n][k]) for n, sd in loaded.params().items()
+                          for k, v in sd.items()) and loaded.global_step == refiner.global_step,
+                      "refine checkpoint: loaded parameters differ from the trained ones")
+                log(f"refine checkpoint {fckpt.name}: parameters bit-equal after load "
+                    f"(with its optimizer state), global step {loaded.global_step}")
+                del loaded
+
+                # the cached phase-2 step (the cache's first 8 items) against
+                # the direct one on the same trained parameters and items
+                bs = refiner.batch_size
+                batch8 = refiner._device_batch(next(iter(batch_iterator(
+                    refiner.train_dataset, bs, shuffle=False, prefetch=0))))
+                cb = {k: v[:bs] for k, v in cache.items()}
+                del cache
+                got = step_gradients(refiner, 2, cb, cached=True)
+                want = step_gradients(refiner, 2, batch8)
+                check(float(want[0]) > 0, "refine cached phase 2: the direct step's loss is 0 "
+                                          "(the contrastive gate is shut)")
+                share, where = grad_share(got[2], want[2])
+                rel = abs(float(got[0]) - float(want[0])) / float(want[0])
+                check(rel <= 1e-5 and share <= 1e-4,
+                      f"refine cached phase 2: loss {float(got[0])} vs {float(want[0])}, "
+                      f"gradient {where} {share:.2e}")
+                refine["cache_hold"] = dict(loss_rel=rel, grad_share=share)
+                log(f"refine cached phase-2 step vs direct (batch {bs}): loss "
+                    f"{float(got[0]):.6f} within {rel:.1e} relative, gradients within "
+                    f"{share:.1e} of the attention's largest")
+
+                # each phase's step on a resident batch of 8 (CUDA events),
+                # and the device's idle share over one traced step
+                refine["resident"] = {}
+                lr = refiner.base_lr
+                steps = {0: lambda: refiner.train_step(batch8, lr),
+                         1: lambda: refiner.train_step(batch8, lr),
+                         2: lambda: refiner.train_step(batch8, lr),
+                         "2 cached": lambda: refiner.train_step(cb, lr, cached=True),
+                         3: lambda: refiner.train_step(batch8, lr)}
+                for ph, fn in steps.items():
+                    refiner.set_phase(int(str(ph)[0]))
+                    ms = cuda_ms(fn, 3 if ph == 3 else 5)
+                    busy, wall = device_busy(fn)
+                    refine["resident"][str(ph)] = dict(ms=ms, kernel_ms=busy, wall_ms=wall,
+                                                       idle=1 - busy / wall)
+                    log(f"refine phase {ph} step on a resident batch of {refiner.batch_size}: "
+                        f"{ms:.2f} ms (CUDA events); traced: kernels {busy:.2f} ms of "
+                        f"{wall:.2f} ms, idle {1 - busy / wall:.1%} [{card}]")
+                del refiner, cb, batch8, got, want
+                refine["phase_s"] = time.perf_counter() - t_refine
+                log(f"phase 7d (refinement training) {refine['phase_s']:.1f} s wall: hold "
+                    f"{refine['hold_s']:.1f} s, curriculum {refine['curriculum_s']:.1f} s, "
+                    f"cache {refine['cache']['s']:.1f} s, validation "
+                    f"{refine['validation_s']:.1f} s [{card}]")
+
                 # 7c) serving from the artifacts: phase 7's dictionary and train
-                # scenes, the trained retrieval checkpoint and a seeded random
-                # refinement checkpoint at the flagship geometry
+                # scenes, the trained retrieval checkpoint and the refinement
+                # checkpoint that 7d trained
                 t_serve = time.perf_counter()
                 scfg = serving_config(root / "data", ckpt)
-                sparams = flagship_params(scfg, args.seed + 3)
-                fckpt = save_checkpoint(root / "runs" / "chip_smoke_refine", 0, {
-                    k: v for k, v in sparams.items() if k != "fenc_input"})
+                sparams = load_checkpoint(fckpt)["params"]
                 database = np.load(tree / "database.npy")
                 scene_list = json.loads((tree / "index.json").read_text())
                 rtrained = load_checkpoint(ckpt)["params"]
@@ -1302,11 +1762,13 @@ def main(argv=None) -> int:
                         f"files); launches {counts} [{card}]")
                 del art, mem, eng
                 from_artifacts["phase_s"] = time.perf_counter() - t_serve
-                log(f"phase 7a (training) {training['phase_s']:.1f} s, phase 7c (serving from "
-                    f"artifacts) {from_artifacts['phase_s']:.1f} s wall [{card}]")
+                log(f"phase 7a (training) {training['phase_s']:.1f} s, phase 7d (refinement "
+                    f"training) {refine['phase_s']:.1f} s, phase 7c (serving from artifacts) "
+                    f"{from_artifacts['phase_s']:.1f} s wall [{card}]")
             finally:
                 os.chdir(cwd)
-        results.update(retrieval=retrieval, training=training, from_artifacts=from_artifacts)
+        results.update(retrieval=retrieval, training=training, refinement=refine,
+                       from_artifacts=from_artifacts)
 
         # 8) the chamfer kernel against its plain version at the evaluate shape
         # (B = 1 per val scene) and at a batched shape

@@ -65,6 +65,12 @@ def get_retrieval_backbone(config: dict) -> nn.Module:
 
 
 def get_attention_block(config: dict, deterministic_selection: bool = True) -> nn.Module:
+    """The patched attention block of `config`. Its default selects
+    deterministically (the argmax), which is what serving runs; the JAX
+    package's factory defaults to Gumbel selection, which its refinement
+    trainer trains with, and so does the port's trainer, which passes
+    deterministic_selection=False unless it is built with
+    deterministic_attention=True."""
     attention_kwargs = dict(
         normalize=config["attn_normalize"],
         use_switching=config["attn_use_switching"],

@@ -137,7 +137,10 @@ class AttentionBlock(nn.Module):
                 weights = gumbel_softmax(scaled, gumbel_uniform_draw)
         else:
             weights = torch.softmax(self.sharpness * scores, dim=1)
-        patch_attention = torch.einsum("bk,bkf->bf", weights, g_feat).reshape(x.shape)
+        # Gumbel weights are float32 over bf16 scores (the noise is drawn in
+        # float32); the sum runs in the features' dtype
+        patch_attention = torch.einsum("bk,bkf->bf", weights.to(g_feat.dtype),
+                                       g_feat).reshape(x.shape)
         if not self.no_output_mapping:
             patch_attention = self._conv1x1(self.o, patch_attention)
         sw = switch.reshape(b, 1, 1, 1, 1)

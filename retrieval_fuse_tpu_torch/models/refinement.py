@@ -16,6 +16,11 @@ from retrieval_fuse_tpu_torch.models.unet import UNet3D, DecoderNoJoining
 
 
 def _ncdhw(x: torch.Tensor) -> torch.Tensor:
+    """A channels-first view. One channel is a reshape, the same memory with
+    NCDHW strides: the permuted view's strides also read as channels-last,
+    and oneDNN's CPU backward of a 1-channel channels-last conv crashes."""
+    if x.shape[-1] == 1:
+        return x.reshape(x.shape[0], 1, *x.shape[1:4])
     return x.permute(0, 4, 1, 2, 3)
 
 

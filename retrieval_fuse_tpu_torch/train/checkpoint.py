@@ -2,6 +2,11 @@
 
     runs/<experiment>/ckpt_epoch=<E>/params.pt   one state_dict per sub-network,
                                                  keyed "fenc_input", "fenc_target", ...
+    runs/<experiment>/ckpt_epoch=<E>/optim.pt    the optimizer state, where one was
+                                                 saved: {"phase": P, "state":
+                                                 {"<subnet>.<key>": {"step", "exp_avg",
+                                                 "exp_avg_sq"}}} (torch Adam's moments
+                                                 by parameter name)
     runs/<experiment>/ckpt_epoch=<E>/meta.json   {"epoch": E, ...}
 
 The directory name is what get_tree_path / get_retrievals_dir read, so the
@@ -17,16 +22,23 @@ from pathlib import Path
 import torch
 
 PARAMS_FILE = "params.pt"
+OPTIM_FILE = "optim.pt"
 META_FILE = "meta.json"
 CONVERTER = "tools/torch_port_ckpt_from_jax.py"
 
 
-def save_checkpoint(run_dir, epoch: int, params: dict, extra: dict | None = None) -> Path:
-    """Write runs/<experiment>/ckpt_epoch=<E>/ with params and meta."""
+def save_checkpoint(run_dir, epoch: int, params: dict, extra: dict | None = None,
+                    opt_state: dict | None = None) -> Path:
+    """Write runs/<experiment>/ckpt_epoch=<E>/ with params, meta and, when
+    given, the optimizer state (an older one is removed otherwise)."""
     path = (Path(run_dir) / f"ckpt_epoch={epoch}").resolve()
     path.mkdir(parents=True, exist_ok=True)
     host = {name: {k: v.detach().cpu() for k, v in sd.items()} for name, sd in params.items()}
     torch.save(host, path / PARAMS_FILE)
+    if opt_state is not None:
+        torch.save(opt_state, path / OPTIM_FILE)
+    else:
+        (path / OPTIM_FILE).unlink(missing_ok=True)
     meta = {"epoch": epoch}
     meta.update(extra or {})
     (path / META_FILE).write_text(json.dumps(meta))
@@ -35,7 +47,8 @@ def save_checkpoint(run_dir, epoch: int, params: dict, extra: dict | None = None
 
 def load_checkpoint(path) -> dict:
     """{'params': {subnet: state_dict}, 'meta': {...}} of a checkpoint
-    directory. An orbax (JAX) checkpoint raises, naming the converter."""
+    directory, and 'opt_state' where it holds one. An orbax (JAX) checkpoint
+    raises, naming the converter."""
     path = Path(path).resolve()
     params_path = path / PARAMS_FILE
     if not params_path.exists():
@@ -47,7 +60,10 @@ def load_checkpoint(path) -> dict:
     params = torch.load(params_path, map_location="cpu", weights_only=True)
     meta_path = path / META_FILE
     meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
-    return {"params": params, "meta": meta}
+    out = {"params": params, "meta": meta}
+    if (path / OPTIM_FILE).exists():
+        out["opt_state"] = torch.load(path / OPTIM_FILE, map_location="cpu", weights_only=True)
+    return out
 
 
 def load_subnet_params(ckpt_path, subnet: str) -> dict:

@@ -13,6 +13,10 @@ leaf is its state_dict key; only the leaf names and layouts change:
 The port keeps the JAX channels-last flatten order wherever a Dense layer
 reads a flattened patch (patch encoder, attention MLPs), so no channel
 permutation is needed here.
+
+An optax Adam state (`scale_by_adam`'s count, mu and nu, as the JAX
+refinement trainer's checkpoints hold it) maps onto torch Adam's step,
+exp_avg and exp_avg_sq with the same layouts (flax_adam_state).
 """
 
 from __future__ import annotations
@@ -62,3 +66,21 @@ def flax_engine_params(params: Mapping) -> dict[str, dict[str, torch.Tensor]]:
     """The JAX engine's params {'fenc_input', 'unet_backbone', ...} -> one
     state_dict per module, keyed the same."""
     return {name: flax_to_state_dict(tree) for name, tree in params.items()}
+
+
+def flax_adam_state(opt_state: Mapping, phase: int) -> dict:
+    """The JAX refinement trainer's restored optimizer state (a
+    multi_transform whose "train" part is scale_by_adam, with None for the
+    masked sub-networks) -> the port's optimizer state: {"phase": phase,
+    "state": {"<subnet>.<key>": {"step", "exp_avg", "exp_avg_sq"}}} for the
+    sub-networks it trains."""
+    adam = opt_state["inner_states"]["train"]["inner_state"][0]
+    step = torch.tensor(float(np.asarray(adam["count"])))
+    state = {}
+    for name, mu in adam["mu"].items():
+        if mu is None:
+            continue
+        nu = flax_to_state_dict(adam["nu"][name])
+        for key, m in flax_to_state_dict(mu).items():
+            state[f"{name}.{key}"] = {"step": step.clone(), "exp_avg": m, "exp_avg_sq": nu[key]}
+    return {"phase": int(phase), "state": state}

@@ -7,7 +7,11 @@ checkpoint layout (retrieval_fuse_tpu_torch/train/checkpoint.py).
 reads the checkpoint through retrieval_fuse_tpu/train/checkpoint.py, turns
 each sub-network's flax params into a state_dict with the port's weight
 bridge (retrieval_fuse_tpu_torch/utils/flax_import.py) and writes
-<out_runs>/<exp>/ckpt_epoch=<E>/params.pt and meta.json. Keep the
+<out_runs>/<exp>/ckpt_epoch=<E>/params.pt and meta.json. A refinement
+checkpoint's optax Adam state (mu, nu, count of the trainable
+sub-networks) becomes the port's optimizer state (optim.pt: exp_avg,
+exp_avg_sq, step), which RefinementTrainer.load(params_only=False) resumes
+from. Keep the
 experiment directory's name: the retrieval artifacts of a checkpoint are
 addressed by it and by the epoch (utils/misc.get_retrievals_dir).
 
@@ -26,7 +30,8 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 from retrieval_fuse_tpu.train.checkpoint import load_checkpoint  # noqa: E402
 from retrieval_fuse_tpu_torch.train.checkpoint import save_checkpoint  # noqa: E402
-from retrieval_fuse_tpu_torch.utils.flax_import import flax_engine_params  # noqa: E402
+from retrieval_fuse_tpu_torch.utils.flax_import import (  # noqa: E402
+    flax_adam_state, flax_engine_params)
 
 
 def convert(jax_ckpt, out_run_dir) -> Path:
@@ -38,7 +43,11 @@ def convert(jax_ckpt, out_run_dir) -> Path:
     meta = dict(restored.get("meta", {}))
     epoch = int(meta.pop("epoch", jax_ckpt.name.split("=")[1]))
     meta["converted_from"] = str(jax_ckpt.resolve())
-    return save_checkpoint(out_run_dir, epoch, flax_engine_params(restored["params"]), meta)
+    opt_state = None
+    if restored.get("opt_state") and "phase" in meta:
+        opt_state = flax_adam_state(restored["opt_state"], meta["phase"])
+    return save_checkpoint(out_run_dir, epoch, flax_engine_params(restored["params"]), meta,
+                           opt_state=opt_state)
 
 
 def main(argv=None) -> None:

@@ -4,6 +4,7 @@ spends its device time.
 
     python tools/torch_port_profile.py [--seed 0] [--variant V] [--out chiprun_out/profile]
     python tools/torch_port_profile.py --train
+    python tools/torch_port_profile.py --refine
 
 Builds the flagship engine of --variant (default FAST_VARIANT) in bf16 on
 one CUDA card (weights and data as chip_smoke.py draws them), then traces
@@ -54,6 +55,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="chiprun_out/profile")
     ap.add_argument("--train", action="store_true",
                     help="trace the retrieval trainer's steps instead of the engine")
+    ap.add_argument("--refine", action="store_true",
+                    help="trace the refinement trainer's steps instead of the engine")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -75,6 +78,8 @@ def main(argv=None) -> int:
           or torch.cuda.get_device_name(0), flush=True)
     if args.train:
         return profile_train()
+    if args.refine:
+        return profile_refine()
     _build.build_all()
     cfg = flagship_config()
     rng = np.random.default_rng(args.seed)
@@ -164,6 +169,42 @@ def profile_train() -> int:
                       "(PyTorch's own convolution kernels)", None)
             finally:
                 torch.backends.cudnn.enabled = True
+        finally:
+            os.chdir(cwd)
+    return 0
+
+
+def profile_refine() -> int:
+    """Trace the refinement trainer's step of each phase at chip_smoke.py's
+    config on one resident batch of a synthetic dataset."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from chip_smoke import first_batches, refinement_config, write_composed_retrievals
+    from retrieval_fuse_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from retrieval_fuse_tpu_torch.train.refinement_trainer import RefinementTrainer
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        generate_synthetic_dataset(Path(tmp) / "data", n_train=12, n_val=2, seed=3)
+        cfg = dict(refinement_config(Path(tmp) / "data", "runs/tools/ckpt_epoch=0"), seed=0,
+                   experiment="profile")
+        write_composed_retrievals(cfg, np.random.default_rng(1))
+        os.chdir(tmp)
+        try:
+            tr = RefinementTrainer(cfg, device="cuda")
+            batch = tr._device_batch(first_batches(tr.train_dataset, tr.batch_size, 1)[0])
+            with torch.no_grad():
+                cached = dict(zip(("x_back", "x_target", "occ"), tr._frozen_features(batch)))
+            for phase in (0, 1, 2, "2 cached", 3):
+                tr.set_phase(int(str(phase)[0]))
+                step = ((lambda: tr.train_step(cached, tr.base_lr, cached=True))
+                        if phase == "2 cached" else (lambda: tr.train_step(batch, tr.base_lr)))
+                trace(step, f"refinement phase {phase} step, batch {tr.batch_size}", None,
+                      calls=1 if phase == 3 else 3)
         finally:
             os.chdir(cwd)
     return 0

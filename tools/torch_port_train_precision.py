@@ -3,6 +3,21 @@
 float64 gradients, beside the CPU's float32 ones.
 
     python tools/torch_port_train_precision.py [--out chiprun_out/train_precision.json]
+    python tools/torch_port_train_precision.py --refine
+
+With --refine: the refinement trainer's step of each phase at batch 1 and
+chip_smoke.py's config (ShapeNetV2's refinement width, nf 16, K 4) on a
+small synthetic dataset with composed retrievals (other scenes' targets),
+from the same seeded weights (the decoder's output bias as
+chip_smoke.open_occupancy_gate sets it) and Gumbel draw: the gradients of
+the phase's trainable sub-networks (chip_smoke.step_gradients: the train
+step without its Adam update), float32 on the card as the port runs it,
+with TF32 on (cuDNN and matmuls), with cuDNN off, and on the CPU, against
+float64 on the CPU, as chip_smoke.grad_share reads them (the largest difference over
+a tensor as a share of its sub-network's largest float64 gradient), and the
+loss; on the first train item perturbed as chip_smoke.perturb_batch does
+(what chip_smoke.hold_refine_steps holds) and unperturbed (constant 16³
+patches).
 
 One batch of the trainer's epoch-0 order, from the same seeded weights, in
 these cases: the CPU tests' geometry (nf 4 / 4, latent 16, batch 16, the
@@ -90,10 +105,14 @@ SETTINGS = ("", "deterministic", "allow_tf32", "conv fp32_precision ieee", "cuDN
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/train_precision.json")
+    ap.add_argument("--refine", action="store_true",
+                    help="the refinement trainer's phases instead of the retrieval trainer")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_port_train_precision: no CUDA device", file=sys.stderr)
         return 1
+    if args.refine:
+        return refine_precision(args.out.replace(".json", "_refine.json"))
     try:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True, text=True,
@@ -182,6 +201,84 @@ def main(argv=None) -> int:
         finally:
             os.chdir(cwd)
     out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(results, indent=1))
+    return 0
+
+
+def card_name() -> str:
+    try:
+        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60).stdout.strip() or "nvidia-smi gave nothing"
+    except (OSError, subprocess.TimeoutExpired):
+        return "nvidia-smi gave nothing"
+
+
+#: the card's runs of a refinement step: as the port runs it, and with one
+#: setting changed
+CARD_WAYS = {"card float32": contextlib.nullcontext,
+             "card float32, TF32": chip_smoke.tf32,
+             "card float32, cuDNN off": lambda: cudnn_setting("cuDNN off")}
+
+
+def refine_precision(out_path: str) -> int:
+    """The --refine readings (see the module docstring)."""
+    from retrieval_fuse_tpu_torch.device import resolve_device
+    from retrieval_fuse_tpu_torch.train.refinement_trainer import RefinementTrainer
+    card = card_name()
+    print(card)
+    dev = resolve_device("cuda")
+    results = {"card": card}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        generate_synthetic_dataset(root / "data", n_train=12, n_val=2, seed=3)
+        cfg = dict(chip_smoke.refinement_config(root / "data", "runs/tools/ckpt_epoch=0"),
+                   seed=5, experiment="precision", batch_size=1)
+        chip_smoke.write_composed_retrievals(cfg, np.random.default_rng(1))
+        os.chdir(root)
+        try:
+            gpu = RefinementTrainer(dict(cfg), device=dev)
+            cpu = RefinementTrainer(dict(cfg), device="cpu")
+            for tr in (gpu, cpu):
+                chip_smoke.open_occupancy_gate(tr)
+            rng = np.random.default_rng(6)
+            raw = chip_smoke.first_batches(cpu.train_dataset, 1, 1)[0]
+            batches = {"perturbed": chip_smoke.perturb_batch(raw, rng,
+                                                             chip_smoke.REFINE_HOLD_NOISE),
+                       "unperturbed": raw}
+            rows = cpu.patched_attention_block.num_patch_x ** 3
+            u = torch.from_numpy(rng.uniform(1e-20, 1.0, (rows, cpu.K)).astype(np.float32))
+            for label, batch in batches.items():
+                for phase in (0, 1, 2, 3):
+                    got = {}
+                    for way, setting in CARD_WAYS.items():
+                        with setting():
+                            got[way] = chip_smoke.step_gradients(
+                                gpu, phase, gpu._device_batch(batch), u.to(dev))
+                    got["CPU float32"] = chip_smoke.step_gradients(
+                        cpu, phase, cpu._device_batch(batch), u)
+                    ref = chip_smoke.step_gradients(cpu, phase, cpu._device_batch(batch), u,
+                                                    float64=True)
+                    rec = {"loss float64": float(ref[0])}
+                    for way, g in got.items():
+                        share, where = chip_smoke.grad_share(g[2], ref[2])
+                        rec[way] = dict(grad_share=share, worst=where,
+                                        loss_rel=abs(float(g[0]) - float(ref[0]))
+                                        / max(abs(float(ref[0])), 1e-30))
+                    share, where = chip_smoke.grad_share(got["card float32"][2],
+                                                         got["CPU float32"][2])
+                    rec["card vs CPU"] = dict(grad_share=share, worst=where)
+                    results[f"{label} phase {phase}"] = rec
+                    print(f"refine {label} item, phase {phase}: " + "; ".join(
+                        f"{way}: gradients {r['grad_share']:.2e} ({r['worst']})"
+                        + (f", loss {r['loss_rel']:.1e} relative" if "loss_rel" in r else "")
+                        for way, r in rec.items() if isinstance(r, dict))
+                        + f" [{card}]", flush=True)
+        finally:
+            os.chdir(cwd)
+    out = Path(out_path)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(results, indent=1))
     return 0
