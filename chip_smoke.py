@@ -75,7 +75,16 @@ scaling, Adam with weight decay 5e-5, K = 4; weights from --seed):
     bf16 and float32 against the engine's TSDFs;
 then holds the chamfer kernel against its plain version at the evaluate
 shape, on two pairs cut so that the kernel's split of the streamed set is
-ragged or mostly empty, and at 128 batched pairs.
+ragged or mostly empty, and at 128 batched pairs. Phase 9 (run_phase9)
+serves the other tasks at full width: the 3DFront surface-reconstruction
+engine (nf 12, so the attention kernels run at F = 96 and the decoder tail
+at nf 12; soft selection; 128³ occupancy grids voxelised by the port's
+SceneHandler from synthetic point clouds; 27,132 database rows and bank
+tiles) with `base` and four kernel paths at batch 32 and 64, bf16 and
+float32, each held against `base`, timed and counted, through
+serve_directory too, and the four widened kernels held against their plain
+versions on the engine's rows; then the Matterport3D 16³ super-resolution
+engine (F = 128), FAST_VARIANT against `base`.
 
 Prints the card (nvidia-smi name and power limit), one line per check,
 a `{"kernels": [...]}` JSON line and, last, `{"ok": true, "device": ...}`.
@@ -158,6 +167,13 @@ KNN_MIN_ORDER_CLEAR = 0.95
 #: similarities closer than this may be ranked either way by float32 sums
 #: taken in another order
 KNN_TIE_GAP = 1e-5
+#: phase 9a: the surface-reconstruction variants served beside `base`, their
+#: batches and the 128³ occupancy grids made for them; 9b's batch
+SURFACE_VARIANTS = ("fused+pallasg2+topk1p", "fused+pallasg2+topk1p+cdec",
+                    "fused+pallasp+topk1p", "fused+pallasg+topk1p")
+SURFACE_BATCHES = (32, 64)
+SURFACE_CHUNKS = 64
+SUPERRES16_BATCH = 64
 
 
 def flagship_config() -> dict:
@@ -175,6 +191,99 @@ def flagship_config() -> dict:
                           "target_mean": 0.059954833543534335, "target_std": 0.010110036361741626,
                           "voxel_size_input": 0.166667, "voxel_size_target": 0.020834},
     }
+
+
+def surface_config() -> dict:
+    """The serving keys of the JAX package's
+    config/surface_reconstruction/3DFront/refinement_128_064.yaml merged with
+    retrieval_128_064.yaml (on their base/ files), built in code and pinned
+    to the YAMLs by a test: nf 12 (F = nf·e³ = 96), five U-Net levels,
+    retrieval f_maps 12, K 4 (the refinement config's; the retrieval YAML's
+    query K is 1), soft selection, `pc_32+8` inputs (48³ windows at stride
+    32 on 128³ occupancy grids padded with empty space), latent 64; the
+    engine's retrieval geometry is the input code's and the 16³ target
+    patches'."""
+    return {
+        "task": "surface_reconstruction", "K": 4, "nf": 12, "unet_num_level": 5,
+        "layer_order": "gcr", "retrieval_fmaps": 12, "retrieval_num_level": 4,
+        "attn_normalize": True, "attn_use_switching": True, "attn_retrieval_mode": False,
+        "attn_no_output_mapping": True, "attn_blend": True,
+        "attn_patch_extent": 4, "attn_num_patch": 16,
+        "retrieval_patch_size_input": 32, "retrieval_patch_context_input": 8,
+        "retrieval_patch_size_target": 16,
+        "retrieval_model": {"network_input": "pc_32+8", "network_target": "16+4",
+                            "nf_input": 10, "nf_target": 12, "latent_dim": 64},
+        "dataset_train": {"input_chunk_size": 128, "target_chunk_size": 64, "input_mean": 0,
+                          "input_std": 1, "target_mean": 0.15015658121788053,
+                          "target_std": 0.03573221820637578, "voxel_size_input": 0,
+                          "voxel_size_target": 0.054167, "num_points": 500,
+                          "input_dir": "pc_20K"},
+    }
+
+
+def superres16_config() -> dict:
+    """The serving keys of config/super_resolution/Matterport3D/
+    refinement_016_064.yaml merged with retrieval_016_064.yaml, built in code
+    and pinned to the YAMLs by a test: 16³ -> 64³, nf 16 (F = 128), `4+2`
+    inputs (Patch08, nf_input 32: 8³ windows at stride 4), latent 64, K 4,
+    soft selection."""
+    return {
+        "task": "superresolution", "K": 4, "nf": 16, "unet_num_level": 4,
+        "layer_order": "gcr", "retrieval_fmaps": 16, "retrieval_num_level": 4,
+        "attn_normalize": True, "attn_use_switching": True, "attn_retrieval_mode": False,
+        "attn_no_output_mapping": True, "attn_blend": True,
+        "attn_patch_extent": 4, "attn_num_patch": 16,
+        "retrieval_patch_size_input": 4, "retrieval_patch_context_input": 2,
+        "retrieval_patch_size_target": 16,
+        "retrieval_model": {"network_input": "4+2", "network_target": "16+8",
+                            "nf_input": 32, "nf_target": 8, "latent_dim": 64},
+        "dataset_train": {"input_chunk_size": 16, "target_chunk_size": 64,
+                          "input_mean": 35.62394659115317, "input_std": 14.58642912987053,
+                          "target_mean": 10.502049923464249, "target_std": 2.3319665041587627,
+                          "voxel_size_input": 15.0, "voxel_size_target": 3.75},
+    }
+
+
+def surface_inputs(root, n: int, seed: int, size: int = 128) -> np.ndarray:
+    """n size³ occupancy grids (float32 0/1): synthetic point-cloud scenes
+    (data/synthetic.py, 20,000 near-surface points each, under `root`),
+    voxelised by the port's SceneHandler from 500 points each, as the
+    3DFront refinement config's data layer reads them."""
+    import random
+    from retrieval_fuse_tpu_torch.data import SceneHandler
+    from retrieval_fuse_tpu_torch.data.synthetic import (
+        generate_synthetic_dataset, make_synthetic_config)
+    generate_synthetic_dataset(root, n_train=1, n_val=n, seed=seed,
+                               task="surface_reconstruction", input_dir="pc_20K",
+                               target_dir="sdf_064")
+    cfg = make_synthetic_config(root, task="surface_reconstruction")
+    for d in ("dataset_train", "dataset_val"):
+        cfg[d].update(num_points=500, patch_size_input=size, patch_context_input=0,
+                      input_chunk_size=size, skip_occupancy=True, preload_scenes=False)
+    handler = SceneHandler("val", cfg)
+    random.seed(seed)  # the point subsets the handler draws
+    return np.stack([handler.get_scene_input(s) for s in handler.scenes]).astype(np.float32)
+
+
+def surface_kernels(variant: str, batch: int) -> tuple:
+    """The kernels a phase-9a path must launch at `batch` (64 queries a
+    chunk) in bf16 and float32: the kNN kernel where the query count
+    reaches its crossover (bf16 1024, float32 4096), else the topk kernel
+    with `topk1p`; its attention kernel; the decoder tail with `cdec`."""
+    q = 64 * batch
+    needed = ["knn_bf16"] if q >= 1024 else []
+    if q >= 4096:
+        needed.append("knn")
+    elif "topk1p" in variant:
+        needed.append("topk")
+    for token, kernel in (("pallasg2", "attention"), ("pallasg", "attention_v1"),
+                          ("pallasp", "patch_attention")):
+        if token in variant.split("+"):
+            needed.append(kernel)
+            break
+    if "cdec" in variant.split("+"):
+        needed.append("decoder_tail")
+    return tuple(needed)
 
 
 def draw_primitives(rng, n: int, device, n_prims: int = 3) -> list:
@@ -218,13 +327,16 @@ def synthetic_df(rng, n: int, res: int, voxel_size: float, device, n_prims: int 
     return primitives_df(draw_primitives(rng, n, device, n_prims), res, voxel_size)
 
 
-def flagship_params(cfg: dict, seed: int) -> dict:
-    """Seeded random state_dicts (PyTorch's default law, models.init_params)
-    with phi's output layer negated, so that theta and phi embeddings point
-    the same way on average: the attention's ReLU switch opens and its
-    selection does real work on most rows."""
+def flagship_params(cfg: dict, seed: int, negate_phi: bool = True) -> dict:
+    """Seeded random state_dicts (PyTorch's default law, models.init_params),
+    with `negate_phi` phi's output layer negated, so that theta and phi
+    embeddings point the same way on average at the flagship config: the
+    attention's ReLU switch opens and its selection does real work on most
+    rows. Phase 9's configs need no negation (it shuts their switch)."""
     from retrieval_fuse_tpu_torch.models import init_params
     params = init_params(cfg, seed)
+    if not negate_phi:
+        return params
     blk = params["patched_attention_block"]
     for key in ("attention_blocks_layer.phi.out.weight", "attention_blocks_layer.phi.out.bias"):
         blk[key] = -blk[key]
@@ -703,7 +815,8 @@ def hold_attention(label: str, kernel, plain, args32: tuple, args16: tuple,
     |diff| <= 1e-3 on them: rows differ only where float32 sums taken in
     another order round to a neighbouring bf16 value); the float32 launch
     must report the FMA path and the bf16 launches the path `math16`.
-    Returns (float32 max |diff|, bf16 share with hard selection)."""
+    Returns (float32 max |diff|, bf16 share with hard selection, the share
+    of rows whose switch is open)."""
     import torch
     out, sel = kernel(*args32, return_selection=True)
     check(kernel.math == "fma.f32", f"{label} f32: launch took {kernel.math}")
@@ -731,7 +844,7 @@ def hold_attention(label: str, kernel, plain, args32: tuple, args16: tuple,
               f"{label} bf16 {mode}: mean |diff| {float(diff16.mean())} on agreeing rows")
         log(f"{label} bf16 {mode} [{math16}]: selections agree on {shares[mode]:.5%} of rows, "
             f"max |diff| {float(diff16.max()):.2e}, mean {float(diff16.mean()):.2e}")
-    return err, shares["hard"]
+    return err, shares["hard"], switch_open
 
 
 def unit_rows(rng, n: int, d: int, dtype, device):
@@ -902,6 +1015,269 @@ def check_mapping(cfg: dict, tree, mapping: dict, dataset, rng, n_sample: int, d
           f"retrieval map: {int((~(same & close))[clear].sum())} of {int(clear.sum())} sampled "
           f"train queries differ from a dense float32 search")
     return int((~clear).sum())
+
+
+def run_phase9(dev, rng, seed: int, kernels: dict, counters: dict, drive, card: str):
+    """Phase 9, the other tasks' networks at full width, on `dev`:
+    9a, the 3DFront surface-reconstruction engines (surface_config: nf 12,
+    the attention kernels at F = 96, the decoder tail at nf 12) on 128³
+    occupancy grids: `base` and SURFACE_VARIANTS at SURFACE_BATCHES in bf16
+    and float32, each held against `base` in its dtype (TSDF MAE < 1e-3 and
+    < 1e-5) and timed (CUDA events), serve_directory over the grids, and the
+    widened kernels held against their plain versions on the engine's rows
+    (records `*_f96` and `decoder_tail_nf12` added to `kernels`, beside the
+    F = 128 / nf 16 ones); 9b, the Matterport3D 16³ super-resolution engine
+    (superres16_config, F = 128), FAST_VARIANT against `base`. Every path
+    runs through `drive`. Returns (9a's records, 9b's record, the launches
+    of the records that `kernels` had before: 9a's kNN and topk, all of
+    9b's); 9a's attention and decoder-tail launches are the widened
+    records' own."""
+    import torch
+    import torch.nn.functional as F
+    from retrieval_fuse_tpu_torch.inference import (
+        FAST_VARIANT, RetrieveRefineEngine, variant_engine_kwargs)
+    from retrieval_fuse_tpu_torch.ops import decoder_tail as dt
+    from retrieval_fuse_tpu_torch.ops import patch_attention as pa
+    from retrieval_fuse_tpu_torch.ops.fused_decoder import depth_to_space_2x
+    from retrieval_fuse_tpu_torch.serve import serve_directory
+    t9 = time.perf_counter()
+    scfg = surface_config()
+    k = scfg["K"]
+    sdtr = scfg["dataset_train"]
+    # with the seeded weights the switch is open on 99.95% of the rows
+    # (a CPU reading at batch 2 on a 1,000-row bank); phi negated, on 0.1%
+    s_params = flagship_params(scfg, seed, negate_phi=False)
+    s_db, s_bank = flagship_data(scfg, rng, SEED_BANK_ROWS, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        grids = surface_inputs(Path(tmp), SURFACE_CHUNKS, seed, sdtr["input_chunk_size"])
+        s_engines = {}
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            base_ = RetrieveRefineEngine(scfg, s_params, s_db, s_bank, compute_dtype=dtype,
+                                         device=dev)
+            s_engines["base", tag] = base_
+            for variant in SURFACE_VARIANTS:
+                s_engines[variant, tag] = RetrieveRefineEngine(
+                    scfg, s_params, s_db, compute_dtype=dtype, device=dev,
+                    feature_bank=base_.feature_bank, **variant_engine_kwargs(variant))
+        del s_bank
+        s_fast = s_engines[FAST_VARIANT, "bf16"]
+        tcs = sdtr["target_chunk_size"]
+        log(f"9a surface reconstruction: {len(grids)} {grids.shape[1]}³ occupancy grids of "
+            f"{sdtr['num_points']} points ({float(grids.sum(axis=(1, 2, 3)).mean()):.1f} "
+            f"voxels occupied on average), {len(s_engines)} engines, feature bank "
+            f"{tuple(s_fast.feature_bank.shape)} ({time.perf_counter() - t9:.1f} s)")
+        launches9 = {name: 0 for name in counters}
+        surface = {}
+        trunc9 = s_fast.target_trunc
+        for batch in SURFACE_BATCHES:
+            xb = grids[:batch, ..., None]
+            base9 = {tag: s_engines["base", tag](xb) for tag in ("bf16", "f32")}
+            for tag, o in base9.items():
+                check(o.shape == (batch, tcs, tcs, tcs, 1) and torch.isfinite(o).all().item()
+                      and float(o.min()) >= -1e-3 and float(o.max()) <= trunc9 + 1e-3,
+                      f"surface base {tag} batch {batch}: TSDF out of shape or range")
+            for variant in ("base", *SURFACE_VARIANTS):
+                needed = surface_kernels(variant, batch)
+                got, counts = drive(f"surface {variant} batch {batch}", needed,
+                                    lambda: {tag: s_engines[variant, tag](xb)
+                                             for tag in ("bf16", "f32")}, launches9)
+                rec = {f"mae_vs_base_{tag}": float((got[tag] - base9[tag]).abs().mean())
+                       for tag in ("bf16", "f32")}
+                check(rec["mae_vs_base_bf16"] < 1e-3,
+                      f"surface {variant} batch {batch}: bf16 MAE vs bf16 base "
+                      f"{rec['mae_vs_base_bf16']} >= 1e-3")
+                check(rec["mae_vs_base_f32"] < 1e-5,
+                      f"surface {variant} batch {batch}: f32 MAE vs f32 base "
+                      f"{rec['mae_vs_base_f32']} >= 1e-5")
+                rec["mae_bf16_vs_f32"] = float((got["bf16"] - base9["f32"]).abs().mean())
+                for tag in ("bf16", "f32"):
+                    eng = s_engines[variant, tag]
+                    rec[f"engine_ms_{tag}"] = cuda_ms(lambda: eng(xb), 2)
+                    rec[f"chunks_per_s_{tag}"] = batch / (rec[f"engine_ms_{tag}"] / 1e3)
+                rec["launches"] = counts
+                surface[f"{variant}@{batch}"] = rec
+                log(f"  surface {variant} batch {batch}: engine bf16 "
+                    f"{rec['engine_ms_bf16']:.2f} ms = {rec['chunks_per_s_bf16']:.1f} "
+                    f"chunks/s, f32 {rec['engine_ms_f32']:.2f} ms; TSDF MAE vs base bf16 "
+                    f"{rec['mae_vs_base_bf16']:.2e} (< 1e-3), f32 {rec['mae_vs_base_f32']:.2e} "
+                    f"(< 1e-5), bf16 vs f32 base {rec['mae_bf16_vs_f32']:.2e}; launches "
+                    f"{counts} [{card}]")
+            del base9
+        busy, wall = device_busy(lambda: s_fast(grids[:SURFACE_BATCHES[-1], ..., None]))
+        surface["idle_share_fast_bf16"] = 1 - busy / wall
+        log(f"  surface {FAST_VARIANT} bf16 batch {SURFACE_BATCHES[-1]}: {busy:.2f} ms of "
+            f"kernels in {wall:.2f} ms, idle {1 - busy / wall:.1%}")
+        # serve_directory over the grids, FAST_VARIANT bf16
+        indir, outdir = Path(tmp) / "in9", Path(tmp) / "out9"
+        indir.mkdir()
+        for j, vol in enumerate(grids):
+            np.savez_compressed(indir / f"grid{j:04d}.npz", arr=vol)
+        batch = SURFACE_BATCHES[0]
+        t0 = time.perf_counter()
+        done, counts = drive(f"surface serve {FAST_VARIANT} batch {batch}",
+                             ("knn_bf16", "attention"),
+                             lambda: serve_directory(s_fast, indir, outdir, batch_size=batch),
+                             launches9)
+        wall = time.perf_counter() - t0
+        check(len(done) == len(grids), f"surface serve: {len(done)} of {len(grids)} grids")
+        served = np.stack([np.load(outdir / f"{n_}_pred.npz")["arr"] for n_ in done[:batch]])
+        want = s_fast(grids[:batch, ..., None])[..., 0].cpu().numpy()
+        served_err = float(np.abs(served.astype(np.float32) - want).mean())
+        check(served_err <= 1e-4, f"surface serve: files differ by {served_err}")
+        surface["served_chunks_per_s"] = len(done) / wall
+        log(f"  surface serve {FAST_VARIANT} batch {batch}: {len(done)} grids, "
+            f"{len(done) / wall:.1f} chunks/s through serve_directory; launches {counts}")
+
+        # the widened kernels against their plain versions, on the engine's
+        # rows at the larger batch: F = 96, soft selection as served
+        batch = SURFACE_BATCHES[-1]
+        with torch.inference_mode():
+            xb = torch.from_numpy(grids[:batch, ..., None]).to(dev)
+            top_idx = s_fast.retrieve(xb)
+            x_back = s_fast.unet_backbone(((xb - s_fast.in_mean) / s_fast.in_std).bfloat16())
+            xt16 = s_fast._tile_major_rows(x_back).contiguous()
+        att = s_fast.attention.attention_blocks_layer
+        q, t_rows, f = xt16.shape
+        check(f == 96, f"surface: attention rows of F = {f}")
+        theta32, phi32 = [copy.deepcopy(m).float() for m in (att.theta, att.phi)]
+        xt32, bank32, bank16 = xt16.float(), s_fast.feature_bank.float(), s_fast.feature_bank
+        mlp_flops = 2 * (f * 128 + 2 * 128 * 128 + 128 * 32)
+        bound96 = bound(2 * (2 * q * t_rows * f + q * k * t_rows * f) + q * k * 4,
+                        q * t_rows * (1 + k) * mlp_flops, BF16_FLOPS)
+        n_rows = q * t_rows
+        p16 = bank16[top_idx.long()].transpose(1, 2).reshape(n_rows, k, f).contiguous()
+        x16 = xt16.reshape(n_rows, f)
+        with torch.inference_mode():
+            for key, name, fn, plain, a32, a16 in (
+                    ("attention_f96", "gathered_patch_attention", pa.gathered_patch_attention,
+                     pa.gathered_patch_attention_plain,
+                     (xt32, bank32, top_idx, theta32, phi32, k),
+                     (xt16, bank16, top_idx, att.theta, att.phi, k)),
+                    ("attention_v1_f96", "gathered_patch_attention_v1",
+                     pa.gathered_patch_attention_v1, pa.gathered_patch_attention_v1_plain,
+                     (xt32, bank32, top_idx, theta32, phi32, k),
+                     (xt16, bank16, top_idx, att.theta, att.phi, k)),
+                    ("patch_attention_f96", "patch_attention", pa.patch_attention,
+                     pa.patch_attention_plain,
+                     (x16.float(), p16.float(), theta32, phi32, k),
+                     (x16, p16, att.theta, att.phi, k))):
+                err, share16, switch_open = hold_attention(f"{name} F=96 Q={q}", fn, plain,
+                                                           a32, a16, "mma.bf16")
+                check(switch_open >= 0.5, f"{name} F=96: the switch is open on only "
+                                          f"{switch_open:.1%} of the rows")
+                old = kernels[key.removesuffix("_f96")]
+                kernels[key] = dict(
+                    name=f"{name}@F96", route="cuda", math="mma.bf16",
+                    source=old["source"], replaces=old["replaces"], max_abs_err=err,
+                    ms=cuda_ms(lambda: fn(*a16, False), 5),
+                    plain_ms=cuda_ms(lambda: plain(*a16, False), 2), library_ms=None,
+                    bound_ms=bound96[0], bound_by=bound96[1],
+                    f32_ms=cuda_ms(lambda: fn(*a32, False), 2), bf16_agreement=share16,
+                    f128_ms=old["ms"],
+                    shape=f"{'N=' + str(n_rows) if key.startswith('patch') else 'Q=' + str(q)}"
+                          f" T={t_rows} F={f} K={k} bf16 softmax")
+            del xt32, bank32, p16, x16
+            cdec9 = {tag: s_engines[FAST_VARIANT + "+cdec", tag].fused_decoder
+                     for tag in ("bf16", "f32")}
+            hn9 = {}
+            for tag in ("bf16", "f32"):
+                eng = s_engines[FAST_VARIANT, tag]
+                xe = ((xb - eng.in_mean) / eng.in_std).to(eng.compute_dtype)
+                hn9[tag] = cdec9[tag].tail_input(
+                    eng._attend(eng.unet_backbone(xe), eng.retrieve(xb), batch))
+            errs = {}
+            for tag, tol in (("f32", 1e-4), ("bf16", 1e-2)):
+                d = cdec9[tag]
+                got = dt.decoder_tail(hn9[tag], d.w2_dhwio, d.w_final, d.bias_h)
+                math = {"f32": "fma.f32", "bf16": "mma.bf16"}[tag]
+                check(dt.decoder_tail.math == math,
+                      f"decoder tail nf 12 {tag}: launch took {dt.decoder_tail.math}")
+                want = dt.decoder_tail_plain(hn9[tag], d.w2_dhwio, d.w_final, d.bias_h)
+                errs[tag] = float((got - want).abs().max())
+                check(errs[tag] <= tol, f"decoder tail nf 12 {tag}: max |diff| {errs[tag]}")
+                log(f"decoder tail nf 12 {tag} [{math}] B={batch}: max |diff| "
+                    f"{errs[tag]:.2e}")
+            d, h16 = cdec9["bf16"], hn9["bf16"]
+            nf9, s2 = scfg["nf"], 2 * (h16.shape[1] - 2)
+            h2x = depth_to_space_2x(h16[:, 1:-1, 1:-1, 1:-1], nf9).permute(0, 4, 1, 2, 3) \
+                .contiguous()
+            dargs = (h16, d.w2_dhwio, d.w_final, d.bias_h)
+            tail96 = bound(h16.numel() * 2 + batch * s2 ** 3 * 4,
+                           batch * s2 ** 3 * (27 * nf9 * nf9 * 2 + 2 * nf9), BF16_FLOPS)
+            old = kernels["decoder_tail"]
+            kernels["decoder_tail_nf12"] = dict(
+                name="decoder_tail@nf12", route="cuda", math="mma.bf16",
+                source=old["source"], replaces=old["replaces"], max_abs_err=errs["f32"],
+                ms=cuda_ms(lambda: dt.decoder_tail(*dargs), 5),
+                plain_ms=cuda_ms(lambda: dt.decoder_tail_plain(*dargs), 2),
+                library_ms=cuda_ms(lambda: F.conv3d(h2x, d.w2, padding=1), 5),
+                library_call="F.conv3d of conv2 alone on the unpacked tensor (cuDNN)",
+                bound_ms=tail96[0], bound_by=tail96[1], bf16_max_abs_err=errs["bf16"],
+                f32_ms=cuda_ms(lambda: dt.decoder_tail(
+                    hn9["f32"], cdec9["f32"].w2_dhwio, cdec9["f32"].w_final,
+                    cdec9["f32"].bias_h), 2),
+                nf16_ms=old["ms"], shape=f"B={batch} S={s2 // 2} nf={nf9} bf16")
+            del hn9, h2x, xb, x_back, xt16
+    for key, name in (("attention_f96", "attention"), ("attention_v1_f96", "attention_v1"),
+                      ("patch_attention_f96", "patch_attention"),
+                      ("decoder_tail_nf12", "decoder_tail")):
+        kr = kernels[key]
+        kr["launches"] = launches9[name]
+        log(f"{kr['name']} [{kr['math']}]: kernel {kr['ms']:.3f} ms (at F = 128 / nf 16: "
+            f"{kr.get('f128_ms', kr.get('nf16_ms')):.3f} ms), plain {kr['plain_ms']:.3f} ms, "
+            f"library {'none' if kr['library_ms'] is None else f'{kr['library_ms']:.3f} ms'}, "
+            f"bound {kr['bound_ms']:.3f} ms ({kr['bound_by']}), float32 {kr['f32_ms']:.3f} "
+            f"ms; {kr['launches']} launches in 9a [{kr['shape']}; {card}]")
+    del s_engines, s_fast
+
+    # 9b) 16³ super-resolution (Matterport3D), FAST_VARIANT against base
+    mcfg = superres16_config()
+    mdtr = mcfg["dataset_train"]
+    m_params = flagship_params(mcfg, seed, negate_phi=False)  # switch open on 92% (37%)
+    m_db, m_bank = flagship_data(mcfg, rng, SEED_BANK_ROWS, dev)
+    m_engines = {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        m_engines["base", tag] = RetrieveRefineEngine(mcfg, m_params, m_db, m_bank,
+                                                      compute_dtype=dtype, device=dev)
+        m_engines[FAST_VARIANT, tag] = RetrieveRefineEngine(
+            mcfg, m_params, m_db, compute_dtype=dtype, device=dev,
+            feature_bank=m_engines["base", tag].feature_bank,
+            **variant_engine_kwargs(FAST_VARIANT))
+    del m_bank
+    batch = SUPERRES16_BATCH
+    xb = synthetic_df(rng, batch, 16, mdtr["voxel_size_input"], dev).cpu().numpy()[..., None]
+    base16 = {tag: m_engines["base", tag](xb) for tag in ("bf16", "f32")}
+    launches9b = {name: 0 for name in counters}
+    got, counts = drive(f"superres16 {FAST_VARIANT} batch {batch}", ("knn_bf16", "attention"),
+                        lambda: {tag: m_engines[FAST_VARIANT, tag](xb)
+                                 for tag in ("bf16", "f32")}, launches9b)
+    trunc16 = m_engines["base", "bf16"].target_trunc
+    rec = {f"mae_vs_base_{tag}": float((got[tag] - base16[tag]).abs().mean())
+           for tag in ("bf16", "f32")}
+    for tag, o in got.items():
+        check(o.shape == (batch, 64, 64, 64, 1) and torch.isfinite(o).all().item(),
+              f"superres16 {tag}: TSDF not finite or of shape {tuple(o.shape)}")
+    # the budgets in df units at the flagship's truncation (0.0625),
+    # scaled to this config's (11.25)
+    flagship_trunc = float(np.float16(flagship_config()["dataset_train"]["voxel_size_target"] * 3))
+    scale16 = trunc16 / flagship_trunc
+    check(rec["mae_vs_base_bf16"] < 1e-3 * scale16,
+          f"superres16: bf16 MAE vs bf16 base {rec['mae_vs_base_bf16']} >= {1e-3 * scale16}")
+    check(rec["mae_vs_base_f32"] < 1e-5 * scale16,
+          f"superres16: f32 MAE vs f32 base {rec['mae_vs_base_f32']} >= {1e-5 * scale16}")
+    eng = m_engines[FAST_VARIANT, "bf16"]
+    rec.update(engine_ms_bf16=cuda_ms(lambda: eng(xb), 3), launches=counts,
+               truncation=trunc16)
+    rec["chunks_per_s_bf16"] = batch / (rec["engine_ms_bf16"] / 1e3)
+    log(f"9b superres16 {FAST_VARIANT} batch {batch}: engine bf16 {rec['engine_ms_bf16']:.2f} "
+        f"ms = {rec['chunks_per_s_bf16']:.1f} chunks/s; TSDF MAE vs base bf16 "
+        f"{rec['mae_vs_base_bf16']:.2e} (< {1e-3 * scale16:.2e}), f32 "
+        f"{rec['mae_vs_base_f32']:.2e} (< {1e-5 * scale16:.2e}) of a {trunc16} truncation; "
+        f"launches {counts} [{card}]")
+    del m_engines, base16, got
+    return surface, rec, {name: launches9b[name] + (launches9[name] if name in (
+        "topk", "knn", "knn_bf16", "chamfer") else 0) for name in counters}
+
 
 
 def main(argv=None) -> int:
@@ -1104,7 +1480,7 @@ def main(argv=None) -> int:
                            q * t_rows * (1 + k) * mlp_flops, BF16_FLOPS)
         with torch.inference_mode():
             # gathered attention v2 (kernel 3)
-            err, share16 = hold_attention(
+            err, share16, _ = hold_attention(
                 f"gathered attention Q={q}", pa.gathered_patch_attention,
                 pa.gathered_patch_attention_plain,
                 (xt32, bank32, top_idx, theta32, phi32, k),
@@ -1122,7 +1498,7 @@ def main(argv=None) -> int:
                 bf16_agreement=share16, shape=f"Q={q} T={t_rows} F={f} K={k} bf16")
 
             # gathered attention v1 (kernel 5): the same function and inputs
-            err, share16 = hold_attention(
+            err, share16, _ = hold_attention(
                 f"gathered attention v1 Q={q}", pa.gathered_patch_attention_v1,
                 pa.gathered_patch_attention_v1_plain,
                 (xt32, bank32, top_idx, theta32, phi32, k), args16, "mma.bf16")
@@ -1143,7 +1519,7 @@ def main(argv=None) -> int:
             n_rows = q * t_rows
             p16 = bank16[top_idx.long()].transpose(1, 2).reshape(n_rows, k, f).contiguous()
             x16 = xt16.reshape(n_rows, f)
-            err, share16 = hold_attention(
+            err, share16, _ = hold_attention(
                 f"patch attention N={n_rows}", pa.patch_attention, pa.patch_attention_plain,
                 (x16.float(), p16.float(), theta32, phi32, k),
                 (x16, p16, att.theta, att.phi, k), "mma.bf16")
@@ -1226,9 +1602,10 @@ def main(argv=None) -> int:
                     "chamfer": chamfer_minima}
         launches = {name: 0 for name in counters}
 
-        def drive(label: str, needed, fn):
+        def drive(label: str, needed, fn, into=launches):
             """Run one path with every launch count at 0 just before it; check
-            that it launched the kernels it needs; add its counts up."""
+            that it launched the kernels it needs; add its counts up (in
+            `into`)."""
             torch.cuda.synchronize()
             for c in counters.values():
                 c.launches = 0
@@ -1238,7 +1615,7 @@ def main(argv=None) -> int:
             for name in needed:
                 check(counts[name] > 0, f"{label}: kernel {name} was not launched")
             for name in counts:
-                launches[name] += counts[name]
+                into[name] += counts[name]
             return out, {name: c for name, c in counts.items() if c}
 
         serving = {}
@@ -1828,8 +2205,17 @@ def main(argv=None) -> int:
             f"ms before), plain "
             f"{kr['batch_plain_ms']:.3f} ms, bound {kr['batch_bound_ms']:.3f} ms "
             f"({kr['batch_bound_by']}) [{card}]")
-        for key in kernels:
-            kernels[key]["launches"] = launches[key]
+        # 9) the other tasks' networks at full width (run_phase9)
+        t9 = time.perf_counter()
+        results["surface"], results["superres16"], launches9 = run_phase9(
+            dev, rng, args.seed, kernels, counters, drive, card)
+        for name, n in launches9.items():
+            launches[name] += n
+        results["phase9_s"] = time.perf_counter() - t9
+        log(f"phase 9: {results['phase9_s']:.1f} s")
+
+        for key, n in launches.items():  # phase 9 set its widened records' own
+            kernels[key]["launches"] = n
         results["kernels"] = kernels
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

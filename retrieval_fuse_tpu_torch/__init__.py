@@ -4,10 +4,10 @@ A second package beside the JAX reference `retrieval_fuse_tpu`, with the
 same module names so each counterpart is easy to find:
 
   device.py      device resolution: CUDA unless the CPU is asked for
-  config/        YAML configs (the JAX package's tree, read as data)
+  config/        YAML configs (the port's own copy of the JAX package's tree)
   data/          scene handler, patched dataset, batch loader, synthetic data
-  models/        patch encoders (MLP, conv), 3D U-Net, refinement stacks,
-                 attention
+  models/        patch encoders (MLP, conv), the 3D U-Net family, the
+                 refinement stacks of the three tasks, attention
   ops/           fold/unfold, kNN selection, the coarse-grid decoders and
                  backbone, chamfer, and the seven hand-written Hopper
                  kernels (topk, streaming_knn, three patch attentions,

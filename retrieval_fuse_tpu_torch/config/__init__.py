@@ -3,17 +3,19 @@ single-level ``inherit_from`` inheritance, recursive merge, ``dataset``
 block fan-out into ``dataset_train`` / ``dataset_val``, and argparse
 override semantics.
 
-The YAML tree is the JAX package's (`retrieval_fuse_tpu/config/`), read as
-data. PyYAML is imported inside `read_config` only: code that builds its
-config in Python needs no YAML parser.
+The YAML tree lives beside this module (base/, super_resolution/,
+surface_reconstruction/): the port's own copy of the JAX package's configs,
+byte for byte (a test pins the two). PyYAML is imported inside
+`read_config` only: code that builds its config in Python needs no YAML
+parser.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 
-# the packaged config tree (base/, super_resolution/, ...)
-CONFIG_ROOT = Path(__file__).resolve().parents[2] / "retrieval_fuse_tpu" / "config"
+# the packaged config tree (base/, super_resolution/, surface_reconstruction/)
+CONFIG_ROOT = Path(__file__).resolve().parent
 
 
 def update_recursive(dict1: dict, dict2: dict) -> None:

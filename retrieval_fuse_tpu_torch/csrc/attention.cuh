@@ -4,7 +4,8 @@
 // which each kernel describes by a row source (StridedRows or BankRows)
 // before it calls `attend_tile`.
 //
-// For each row r (F=128 features) and each of its K candidate rows p_k:
+// For each row r (F = nf·e³ features: 128 at nf 16, 96 at nf 12) and each
+// of its K candidate rows p_k:
 //   xf = l2norm(theta(x)), pf_k = l2norm(phi(p_k)); theta and phi are
 //   F->128->128->128->C MLPs with LeakyReLU 0.01 (C = cf_feat = 32)
 //   s_k = xf . pf_k, switch = relu(max_k s_k)
@@ -17,7 +18,11 @@
 // activations are rounded back to bf16 between layers. Norms, scores,
 // selection and blend are float32.
 //
-// Two bodies compute this, chosen by a kernel from its element type.
+// Two bodies compute this, chosen by a kernel from its element type. Both
+// are templates on F, built for the widths of `with_width` (96 and 128):
+// only layer 0's contraction, the row loads and the blend change with it;
+// hidden 128 and C 32 are the attention module's own and do not depend on
+// nf.
 //
 // bf16 on the tensor cores (`attend_tiles_mma`; gathered_attention.cu and
 // patch_attention.cu; gathered_attention_v1.cu puts the same pieces together
@@ -26,7 +31,8 @@
 // order of the sums differs from the plain version. The design answers what
 // bounds the body on an H100:
 //   - Weights stay in shared memory for the life of the block: theta and
-//     phi, 2 x 106,496 bytes of bf16, laid out once in the order the B
+//     phi, 2 x 106,496 bytes of bf16 at F = 128 (2 x 98,304 at F = 96),
+//     laid out once in the order the B
 //     fragments are read (one 16-byte load a lane for a k16 step of two n8
 //     tiles), with the 2 x 416 float32 biases. That is one block per SM, so
 //     the launch is persistent: a grid of at most the SM count, each warp
@@ -38,9 +44,10 @@
 //   - The input rows need no staging either: a sum over k may take k in any
 //     order, so layer 0's weights are laid out for a permuted k, in which a
 //     lane's A fragments of two k16 steps are one 16-byte run of its row.
-//     A lane reads its rows from global memory with 8 16-byte loads, every
-//     32-byte sector used in full, and candidate k+1's loads are started
-//     before candidate k's MLP, so they arrive under ~400 mma.
+//     A lane reads its rows from global memory with F/16 16-byte loads (8 at
+//     F = 128, 6 at F = 96: layer 0 is F/16 k16 steps), every 32-byte sector
+//     used in full, and candidate k+1's loads are started before candidate
+//     k's MLP, so they arrive under ~400 mma.
 //   - A row's 32 embedding values lie in the four lanes of a quad: norms and
 //     scores are partial sums and two shuffles. Scores pass through 6.9 KB
 //     of shared memory to the lane that selects for a row; the blend is the
@@ -60,7 +67,8 @@
 // weights stay L2-resident) are staged in shared memory and every thread
 // accumulates a 4x8 (or 1x8) register tile with float32 FMAs. theta runs
 // once, then phi once per candidate, each reusing the same two 33 KB
-// activation buffers; only the scores stay. The blend re-reads x and the
+// activation buffers (rows of kH floats: layer 0 reads the first F); only
+// the scores stay. The blend re-reads x and the
 // selected candidates from where they came from. Rows past the tile's valid
 // count are zero in the activations and are never written.
 
@@ -71,24 +79,40 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "mma.cuh"
 
 namespace rf_attention {
 
 constexpr int kT = 64;       // rows per tile
-constexpr int kF = 128;      // features per row (nf * e^3)
 constexpr int kH = 128;      // MLP hidden width
 constexpr int kC = 32;       // embedding width (cf_feat)
 constexpr int kMaxK = 8;
 constexpr int kThreads = 256;
-constexpr int kLd = kF + 4;  // padded activation row, in floats
+constexpr int kLd = kH + 4;  // padded activation row, in floats (F <= kH)
 constexpr int kKc = 32;      // weight rows per staged chunk
-static_assert(kF == kH, "layer 0 reuses the hidden-layer GEMM");
 
-// per-MLP packed weights: fc0 (F, H), fc1 (H, H), fc2 (H, H), out (H, C),
-// each (in, out) row-major; packed biases: fc0, fc1, fc2 (H each), out (C)
-constexpr int kW1 = kF * kH, kW2 = kW1 + kH * kH, kW3 = kW2 + kH * kH;
+// The layout of one MLP's packed weights at row width F: fc0 (F, H), fc1
+// (H, H), fc2 (H, H), out (H, C), each (in, out) row-major, at element
+// offsets 0, kW1, kW2, kW3; packed biases: fc0, fc1, fc2 (H each), out (C).
+template <int F>
+struct Width {
+  static_assert(F % 32 == 0 && F >= 32 && F <= kH, "whole 16-byte runs of two k16 steps");
+  static constexpr int kW1 = F * kH, kW2 = kW1 + kH * kH, kW3 = kW2 + kH * kH;
+};
+
+// Calls fn(std::integral_constant<int, F>{}) for the row width f, one of
+// the widths the kernels are built for (F = nf·e³ at e = 2: nf 12 and 16);
+// returns cudaErrorInvalidValue for any other.
+template <typename Fn>
+int with_width(int f, Fn fn) {
+  switch (f) {
+    case 96: return fn(std::integral_constant<int, 96>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 constexpr size_t kSmemFloats =
     2 * kT * kLd        // activation buffers
@@ -108,7 +132,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);  // round to nearest even, as astype in JAX
 }
 
-// Where a tile's rows are, as a row source: x row i at x + i*kF; candidate
+// Where a tile's rows are, as a row source: x row i at x + i*F; candidate
 // k's row i at cand(k) + i*stride; rows [0, n) are valid. A policy type,
 // not an array of K pointers, so that nothing is indexed at run time in
 // local memory.
@@ -126,29 +150,29 @@ struct StridedRows {
   __device__ __forceinline__ const T* cand(int k) const { return cand0 + k * k_step; }
 };
 
-// candidate k is the (kT, kF) bank tile idx[k]
-template <typename T>
+// candidate k is the (kT, F) bank tile idx[k]
+template <typename T, int F>
 struct BankRows {
   const T* x;
   const T* bank;
   const int* idx;
   int n;
   int K;
-  static constexpr size_t stride = kF;
+  static constexpr size_t stride = F;
   __device__ __forceinline__ const T* cand(int k) const {
-    return bank + static_cast<size_t>(idx[k]) * kT * kF;
+    return bank + static_cast<size_t>(idx[k]) * kT * F;
   }
 };
 
 // ---- float32 FMAs ----
 
-// rows [0, n) of a tile whose row i starts at src + i*stride -> act[i*kLd + c]
-// as float32; rows [n, kT) are zero
-template <typename T>
+// rows [0, n) of a tile whose row i (F values) starts at src + i*stride ->
+// act[i*kLd + c] as float32; rows [n, kT) are zero
+template <typename T, int F>
 __device__ __forceinline__ void load_rows(const T* src, size_t stride, int n, float* act) {
   constexpr int kE = 16 / sizeof(T);  // elements per 16-byte load
-  for (int v = threadIdx.x; v < kT * kF / kE; v += kThreads) {
-    const int e0 = v * kE, row = e0 / kF, col = e0 % kF;
+  for (int v = threadIdx.x; v < kT * F / kE; v += kThreads) {
+    const int e0 = v * kE, row = e0 / F, col = e0 % F;
     float* dst = act + row * kLd + col;
     if (row < n) {
       const uint4 raw = *reinterpret_cast<const uint4*>(src + row * stride + col);
@@ -162,15 +186,16 @@ __device__ __forceinline__ void load_rows(const T* src, size_t stride, int n, fl
   }
 }
 
-// out[:, :NOUT] = act(in[:, :128] @ W + b), W (128, NOUT) of type T in
+// out[:, :NOUT] = act(in[:, :NIN] @ W + b), W (NIN, NOUT) of type T in
 // global memory. `hidden`: LeakyReLU 0.01, then round to T.
-template <typename T, int NOUT>
+template <typename T, int NIN, int NOUT>
 __device__ __forceinline__ void dense(const float* in, float* out, const T* __restrict__ w,
                                       const float* __restrict__ bias, float* wbuf,
                                       bool hidden) {
   constexpr int kCg = NOUT / 8;             // column groups
   constexpr int kRm = kT * kCg / kThreads;  // rows per thread
   static_assert(kRm >= 1 && kT * kCg % kThreads == 0, "tile mapping");
+  static_assert(NIN % kKc == 0, "whole staged chunks");
   const int tx = threadIdx.x % kCg, ty = threadIdx.x / kCg;
   // a thread's 8 columns: 4 at tx*4 and 4 at NOUT/2 + tx*4, so 16
   // neighbouring threads read 256 contiguous bytes of the weight chunk
@@ -181,7 +206,7 @@ __device__ __forceinline__ void dense(const float* in, float* out, const T* __re
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
 
-  for (int k0 = 0; k0 < kH; k0 += kKc) {
+  for (int k0 = 0; k0 < NIN; k0 += kKc) {
     __syncthreads();  // wbuf free; `in` complete
     for (int i = threadIdx.x; i < kKc * NOUT; i += kThreads)
       wbuf[i] = to_f32(w[k0 * NOUT + i]);
@@ -217,14 +242,15 @@ __device__ __forceinline__ void dense(const float* in, float* out, const T* __re
   }
 }
 
-// the 4-layer MLP on the rows in act0; leaves the (kT, kC) result in act0
-template <typename T>
+// the 4-layer MLP on the (kT, F) rows in act0; leaves the (kT, kC) result in act0
+template <typename T, int F>
 __device__ __forceinline__ void mlp(float* act0, float* act1, const T* __restrict__ w,
                                     const float* __restrict__ b, float* wbuf) {
-  dense<T, kH>(act0, act1, w, b, wbuf, true);
-  dense<T, kH>(act1, act0, w + kW1, b + kH, wbuf, true);
-  dense<T, kH>(act0, act1, w + kW2, b + 2 * kH, wbuf, true);
-  dense<T, kC>(act1, act0, w + kW3, b + 3 * kH, wbuf, false);
+  using W = Width<F>;
+  dense<T, F, kH>(act0, act1, w, b, wbuf, true);
+  dense<T, kH, kH>(act1, act0, w + W::kW1, b + kH, wbuf, true);
+  dense<T, kH, kH>(act0, act1, w + W::kW2, b + 2 * kH, wbuf, true);
+  dense<T, kH, kC>(act1, act0, w + W::kW3, b + 3 * kH, wbuf, false);
   __syncthreads();
 }
 
@@ -236,11 +262,11 @@ __device__ __forceinline__ float row_norm(const float* row) {
   return fmaxf(sqrtf(ss), 1e-12f);
 }
 
-// Attention over the tile of row source `r`; writes its valid rows to out
-// (rows kF apart) and, if sel_out is not null, each row's argmax candidate
-// to sel_out[i]. `before_phi` runs once after theta, before the first
-// candidate is read (a kernel that stages candidates waits there).
-template <typename T, bool kHard, typename Rows, typename BeforePhi>
+// Attention over the tile of row source `r` (rows of F values); writes its
+// valid rows to out (rows F apart) and, if sel_out is not null, each row's
+// argmax candidate to sel_out[i]. `before_phi` runs once after theta, before
+// the first candidate is read (a kernel that stages candidates waits there).
+template <typename T, int F, bool kHard, typename Rows, typename BeforePhi>
 __device__ __forceinline__ void attend_tile(const Rows& r, float* smem,
                                             const T* __restrict__ w_theta,
                                             const float* __restrict__ b_theta,
@@ -258,8 +284,8 @@ __device__ __forceinline__ void attend_tile(const Rows& r, float* smem,
   const int t = threadIdx.x;
   const int K = r.K;
 
-  load_rows(r.x, kF, r.n, act0);
-  mlp(act0, act1, w_theta, b_theta, wbuf);
+  load_rows<T, F>(r.x, F, r.n, act0);
+  mlp<T, F>(act0, act1, w_theta, b_theta, wbuf);
   if (t < kT) {
     const float* row = act0 + t * kLd;
     const float d = row_norm(row);
@@ -270,8 +296,8 @@ __device__ __forceinline__ void attend_tile(const Rows& r, float* smem,
 
   for (int k = 0; k < K; ++k) {
     __syncthreads();  // act0 free again; staged candidates visible
-    load_rows(r.cand(k), r.stride, r.n, act0);
-    mlp(act0, act1, w_phi, b_phi, wbuf);
+    load_rows<T, F>(r.cand(k), r.stride, r.n, act0);
+    mlp<T, F>(act0, act1, w_phi, b_phi, wbuf);
     if (t < kT) {
       const float* row = act0 + t * kLd;
       const float d = row_norm(row);
@@ -310,8 +336,8 @@ __device__ __forceinline__ void attend_tile(const Rows& r, float* smem,
 
   // blend, 16 bytes of T per step
   constexpr int kE = 16 / sizeof(T);
-  for (int v = t; v < kT * kF / kE; v += kThreads) {
-    const int e0 = v * kE, row = e0 / kF, col = e0 % kF;
+  for (int v = t; v < kT * F / kE; v += kThreads) {
+    const int e0 = v * kE, row = e0 / F, col = e0 % F;
     if (row >= r.n) break;  // rows grow with v
     const uint4 xraw = *reinterpret_cast<const uint4*>(r.x + e0);
     const T* xv = reinterpret_cast<const T*>(&xraw);
@@ -352,23 +378,37 @@ constexpr int kWarps = kMmaThreads / 32;
 constexpr int kSlice = 16;                   // rows per warp: one m16 tile
 constexpr int kSlicesPerTile = kT / kSlice;
 constexpr int kLayerWords = kH * kH / 2;     // 32-bit words of a hidden layer's fragments
-constexpr int kMlpWords = kW3 / 2 + kH * kC / 2;
+constexpr int kHSteps = kH / 16;             // k16 steps of a hidden layer
 constexpr int kBiases = 3 * kH + kC;
 constexpr int kScoreLd = kMaxK + 1;          // a row's K scores (then weights) and its switch
-constexpr size_t kMmaSmemBytes = 2 * kMlpWords * sizeof(uint32_t) + 2 * kBiases * sizeof(float)
-                                 + kWarps * kSlice * kScoreLd * sizeof(float);
-static_assert(kMmaSmemBytes <= 232448, "theta and phi resident in one block's shared memory");
-static_assert(kF == 128 && kH == 128 && kC == 32, "the fragment layouts below");
+static_assert(kH == 128 && kC == 32, "the fragment layouts below");
+
+// The tensor-core body's sizes at row width F: layer 0 is F/16 k16 steps,
+// whose A fragments a lane reads as F/32 16-byte runs of each of its rows.
+template <int F>
+struct MmaWidth : Width<F> {
+  static constexpr int kSteps0 = F / 16;
+  static constexpr int kL0Words = F * kH / 2;  // 32-bit words of layer 0's fragments
+  static constexpr int kMlpWords = kL0Words + 2 * kLayerWords + kH * kC / 2;
+  static constexpr size_t kSmemBytes = 2 * kMlpWords * sizeof(uint32_t)
+                                       + 2 * kBiases * sizeof(float)
+                                       + kWarps * kSlice * kScoreLd * sizeof(float);
+  static_assert(kSmemBytes <= 232448, "theta and phi resident in one block's shared memory");
+};
 
 // One MLP's packed weights ((in, out) row-major per layer) -> B-fragment
-// order. Word r of (layer, k16 step s, n8-tile pair jp, lane) holds
-// W[k, k+1][n] with n = 8·(2jp + r/2) + g and, in the standard order,
-// k = 16s + 8·(r&1) + 2t. Layer 0 takes the k permutation of `load_rows16`:
-// k = 32·(s/2) + 8t + 4·(s&1) + 2·(r&1).
+// order, layer after layer. Word r of (layer, k16 step s, n8-tile pair jp,
+// lane) holds W[k, k+1][n] with n = 8·(2jp + r/2) + g and, in the standard
+// order, k = 16s + 8·(r&1) + 2t. Layer 0 takes the k permutation of
+// `load_rows16`: k = 32·(s/2) + 8t + 4·(s&1) + 2·(r&1).
+template <int F>
 __device__ __forceinline__ void stage_fragments(const __nv_bfloat16* __restrict__ w,
                                                 uint32_t* dst) {
-  for (int i = threadIdx.x; i < kMlpWords; i += kMmaThreads) {
-    const int layer = min(i / kLayerWords, 3), rem = i - layer * kLayerWords;
+  using W = MmaWidth<F>;
+  for (int i = threadIdx.x; i < W::kMlpWords; i += kMmaThreads) {
+    const int j = i - W::kL0Words;
+    const int layer = j < 0 ? 0 : min(1 + j / kLayerWords, 3);
+    const int rem = j < 0 ? i : j - (layer - 1) * kLayerWords;
     const int nout = layer == 3 ? kC : kH, pairs = nout / 16;
     const int r = rem & 3, lane = (rem >> 2) & 31, sj = rem >> 7;
     const int jp = sj % pairs, s = sj / pairs;
@@ -376,36 +416,40 @@ __device__ __forceinline__ void stage_fragments(const __nv_bfloat16* __restrict_
     const int n = 8 * (2 * jp + (r >> 1)) + g;
     const int k = layer == 0 ? 32 * (s >> 1) + 8 * t + 4 * (s & 1) + 2 * u
                              : 16 * s + 8 * u + 2 * t;
-    const __nv_bfloat16* wl = w + layer * kW1;
+    const __nv_bfloat16* wl = w + (layer == 0 ? 0 : W::kW1 + (layer - 1) * kH * kH);
     dst[i] = rf_mma::pack_bf16(wl[k * nout + n], wl[(k + 1) * nout + n]);
   }
 }
 
-// Rows row0 + g and row0 + g + 8 of a tile (row i at src + i*stride) as the
-// A fragments of layer 0's eight k16 steps; rows at or past n are zero. Lane
-// (g, t) reads the 16-byte runs at columns 32c + 8t, c = 0..3, of its two
-// rows: elements 0-3 are its a0|a2 (row g) or a1|a3 (row g+8) of step 2c,
-// elements 4-7 those of step 2c+1.
+// Rows row0 + g and row0 + g + 8 of a tile (row i at src + i*stride, F
+// values) as the A fragments of layer 0's F/16 k16 steps; rows at or past n
+// are zero. Lane (g, t) reads the 16-byte runs at columns 32c + 8t,
+// c = 0..F/32-1, of its two rows: elements 0-3 are its a0|a2 (row g) or
+// a1|a3 (row g+8) of step 2c, elements 4-7 those of step 2c+1.
+template <int F>
 struct RowLoads {
-  uint4 raw[2][4];
+  uint4 raw[2][F / 32];
 };
 
+template <int F>
 __device__ __forceinline__ void load_rows16(const __nv_bfloat16* src, size_t stride, int row0,
-                                            int n, int lane, RowLoads& ld) {
+                                            int n, int lane, RowLoads<F>& ld) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + g + 8 * h;
     const uint4* p = reinterpret_cast<const uint4*>(src + row * stride + 8 * t);
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
+    for (int c = 0; c < F / 32; ++c)
       ld.raw[h][c] = row < n ? __ldg(p + 4 * c) : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
-__device__ __forceinline__ void to_fragments(const RowLoads& ld, uint32_t (&a)[8][4]) {
+// layer 0's F/16 k16 steps of A fragments, in a[0 .. F/16)
+template <int F>
+__device__ __forceinline__ void to_fragments(const RowLoads<F>& ld, uint32_t (&a)[kHSteps][4]) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
+  for (int c = 0; c < F / 32; ++c) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       a[2 * c][h] = ld.raw[h][c].x;
@@ -416,16 +460,16 @@ __device__ __forceinline__ void to_fragments(const RowLoads& ld, uint32_t (&a)[8
   }
 }
 
-// acc (16 rows x 8·NT columns) = a (16 x 128) @ W, W's fragments at `w`
-template <int NT>
-__device__ __forceinline__ void layer_mma(const uint32_t (&a)[8][4], const uint4* w, int lane,
-                                          float (&acc)[NT][4]) {
+// acc (16 rows x 8·NT columns) = a (16 x 16·STEPS) @ W, W's fragments at `w`
+template <int NT, int STEPS>
+__device__ __forceinline__ void layer_mma(const uint32_t (&a)[kHSteps][4], const uint4* w,
+                                          int lane, float (&acc)[NT][4]) {
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 #pragma unroll
-  for (int s = 0; s < 8; ++s) {
+  for (int s = 0; s < STEPS; ++s) {
 #pragma unroll
     for (int jp = 0; jp < NT / 2; ++jp) {
       const uint4 b = w[(s * (NT / 2) + jp) * 32 + lane];
@@ -435,29 +479,46 @@ __device__ __forceinline__ void layer_mma(const uint32_t (&a)[8][4], const uint4
   }
 }
 
-// The 4-layer MLP on the 16 rows in `a` (layer 0's fragments; overwritten
-// by the hidden activations). Leaves the (16, kC) float32 result in out:
-// out[j][0..1] are row g, columns 8j + 2t, +1; out[j][2..3] row g + 8.
-__device__ __forceinline__ void mlp_mma(uint32_t (&a)[8][4], const uint32_t* w,
-                                        const float* bias, int lane, float (&out)[kC / 8][4]) {
-  const int t = lane & 3;
-#pragma unroll 1
-  for (int layer = 0; layer < 3; ++layer) {
-    float acc[kH / 8][4];
-    layer_mma<kH / 8>(a, reinterpret_cast<const uint4*>(w + layer * kLayerWords), lane, acc);
-    const float* b = bias + layer * kH + 2 * t;
+// A hidden layer's epilogue: bias, LeakyReLU 0.01, round to bf16; the C
+// fragments become the next layer's A fragments in `a`
+__device__ __forceinline__ void hidden_to_fragments(const float (&acc)[kH / 8][4],
+                                                    const float* bias, int lane,
+                                                    uint32_t (&a)[kHSteps][4]) {
+  const float* b = bias + 2 * (lane & 3);
 #pragma unroll
-    for (int j = 0; j < kH / 8; ++j) {
-      const float2 bj = *reinterpret_cast<const float2*>(b + 8 * j);
-      float v[4] = {acc[j][0] + bj.x, acc[j][1] + bj.y, acc[j][2] + bj.x, acc[j][3] + bj.y};
+  for (int j = 0; j < kH / 8; ++j) {
+    const float2 bj = *reinterpret_cast<const float2*>(b + 8 * j);
+    float v[4] = {acc[j][0] + bj.x, acc[j][1] + bj.y, acc[j][2] + bj.x, acc[j][3] + bj.y};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = v[e] >= 0.f ? v[e] : 0.01f * v[e];
-      a[j / 2][(j & 1) * 2] = rf_mma::pack_bf16(v[0], v[1]);      // row g
-      a[j / 2][(j & 1) * 2 + 1] = rf_mma::pack_bf16(v[2], v[3]);  // row g + 8
-    }
+    for (int e = 0; e < 4; ++e) v[e] = v[e] >= 0.f ? v[e] : 0.01f * v[e];
+    a[j / 2][(j & 1) * 2] = rf_mma::pack_bf16(v[0], v[1]);      // row g
+    a[j / 2][(j & 1) * 2 + 1] = rf_mma::pack_bf16(v[2], v[3]);  // row g + 8
   }
-  layer_mma<kC / 8>(a, reinterpret_cast<const uint4*>(w + 3 * kLayerWords), lane, out);
-  const float* b = bias + 3 * kH + 2 * t;
+}
+
+// The 4-layer MLP on the 16 rows in `a` (layer 0's F/16 steps of fragments;
+// overwritten by the hidden activations). Leaves the (16, kC) float32 result
+// in out: out[j][0..1] are row g, columns 8j + 2t, +1; out[j][2..3] row g + 8.
+template <int F>
+__device__ __forceinline__ void mlp_mma(uint32_t (&a)[kHSteps][4], const uint32_t* w,
+                                        const float* bias, int lane, float (&out)[kC / 8][4]) {
+  using W = MmaWidth<F>;
+  {
+    float acc[kH / 8][4];
+    layer_mma<kH / 8, W::kSteps0>(a, reinterpret_cast<const uint4*>(w), lane, acc);
+    hidden_to_fragments(acc, bias, lane, a);
+  }
+#pragma unroll 1
+  for (int layer = 1; layer < 3; ++layer) {
+    float acc[kH / 8][4];
+    layer_mma<kH / 8, kHSteps>(
+        a, reinterpret_cast<const uint4*>(w + W::kL0Words + (layer - 1) * kLayerWords), lane,
+        acc);
+    hidden_to_fragments(acc, bias + layer * kH, lane, a);
+  }
+  layer_mma<kC / 8, kHSteps>(
+      a, reinterpret_cast<const uint4*>(w + W::kL0Words + 2 * kLayerWords), lane, out);
+  const float* b = bias + 3 * kH + 2 * (lane & 3);
 #pragma unroll
   for (int j = 0; j < kC / 8; ++j) {
     const float2 bj = *reinterpret_cast<const float2*>(b + 8 * j);
@@ -480,17 +541,18 @@ __device__ __forceinline__ float row_norm_mma(const float (&e)[kC / 8][4], int h
 }
 
 // The staged counterpart of `load_rows16`: rows row0 + g and row0 + g + 8 of a
-// whole (kT, kF) tile in shared memory. The quarter-warps' 16-byte loads meet
-// two to a bank (rows are 256 bytes apart); at 8 loads per ~400 mma that does
-// not show.
+// whole (kT, F) tile in shared memory. The quarter-warps' 16-byte loads meet
+// two to a bank (rows are 2F bytes apart); at F/16 loads per ~400 mma that
+// does not show.
+template <int F>
 __device__ __forceinline__ void staged_rows16(const __nv_bfloat16* tile, int row0, int lane,
-                                              RowLoads& ld) {
+                                              RowLoads<F>& ld) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const __nv_bfloat16* p = tile + (row0 + g + 8 * h) * kF + 8 * t;
+    const __nv_bfloat16* p = tile + (row0 + g + 8 * h) * F + 8 * t;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) ld.raw[h][c] = rf_mma::load_shared16(p + 32 * c);
+    for (int c = 0; c < F / 32; ++c) ld.raw[h][c] = rf_mma::load_shared16(p + 32 * c);
   }
 }
 
@@ -562,18 +624,19 @@ __device__ __forceinline__ void select_mma(float* scores, int K, float sharpness
 
 // out = x (1 - switch) + (sum_k w_k p_k) switch for rows [row0, row0 + 16) of
 // the tile of row source `r`, by one warp, 16 bytes of bf16 per step, from
-// the original rows in global memory and the weights `select_mma` left
-template <typename Rows>
+// the original rows (F values) in global memory and the weights `select_mma`
+// left
+template <int F, typename Rows>
 __device__ __forceinline__ void blend_mma(const Rows& r, int row0, const float* scores, int lane,
                                           __nv_bfloat16* __restrict__ out) {
   using T = __nv_bfloat16;
   constexpr int kE = 8;
   const int K = r.K;
-  for (int v = lane; v < kSlice * kF / kE; v += 32) {
-    const int lrow = v / (kF / kE), row = row0 + lrow, col = v % (kF / kE) * kE;
+  for (int v = lane; v < kSlice * F / kE; v += 32) {
+    const int lrow = v / (F / kE), row = row0 + lrow, col = v % (F / kE) * kE;
     if (row >= r.n) continue;
     const float* ws = scores + lrow * kScoreLd;
-    const uint4 xraw = *reinterpret_cast<const uint4*>(r.x + row * kF + col);
+    const uint4 xraw = *reinterpret_cast<const uint4*>(r.x + row * F + col);
     const T* xv = reinterpret_cast<const T*>(&xraw);
     float acc[kE];
 #pragma unroll
@@ -592,7 +655,7 @@ __device__ __forceinline__ void blend_mma(const Rows& r, int row0, const float* 
 #pragma unroll
     for (int e = 0; e < kE; ++e)
       ov[e] = from_f32<T>(to_f32(xv[e]) * (1.f - sw) + acc[e] * sw);
-    *reinterpret_cast<uint4*>(out + row * kF + col) = oraw;
+    *reinterpret_cast<uint4*>(out + row * F + col) = oraw;
   }
 }
 
@@ -604,36 +667,37 @@ struct MmaWeights {
   float* scores;  // this warp's (kSlice, kScoreLd)
 };
 
-// Attention over rows [row0, row0 + 16) of the tile of row source `r`, by
-// one warp; writes its valid rows to out (rows kF apart) and, if sel_out is
-// not null, each row's argmax candidate to sel_out[i].
-template <bool kHard, typename Rows>
+// Attention over rows [row0, row0 + 16) of the tile of row source `r`
+// (rows of F values), by one warp; writes its valid rows to out (rows F
+// apart) and, if sel_out is not null, each row's argmax candidate to
+// sel_out[i].
+template <int F, bool kHard, typename Rows>
 __device__ __forceinline__ void attend_slice_mma(const Rows& r, int row0, const MmaWeights& m,
                                                  float sharpness,
                                                  __nv_bfloat16* __restrict__ out,
                                                  int* __restrict__ sel_out) {
   const int lane = threadIdx.x & 31;
   const int K = r.K;
-  RowLoads ld;
-  uint32_t a[8][4];
+  RowLoads<F> ld;
+  uint32_t a[kHSteps][4];
   float emb[kC / 8][4], xf[kC / 8][4];
 
-  load_rows16(r.x, kF, row0, r.n, lane, ld);
-  to_fragments(ld, a);
-  load_rows16(r.cand(0), r.stride, row0, r.n, lane, ld);  // in flight under theta
-  mlp_mma(a, m.w_theta, m.b_theta, lane, xf);
+  load_rows16<F>(r.x, F, row0, r.n, lane, ld);
+  to_fragments<F>(ld, a);
+  load_rows16<F>(r.cand(0), r.stride, row0, r.n, lane, ld);  // in flight under theta
+  mlp_mma<F>(a, m.w_theta, m.b_theta, lane, xf);
   normalise_mma(xf);
 
   for (int k = 0; k < K; ++k) {
-    to_fragments(ld, a);
-    if (k + 1 < K) load_rows16(r.cand(k + 1), r.stride, row0, r.n, lane, ld);
-    mlp_mma(a, m.w_phi, m.b_phi, lane, emb);
+    to_fragments<F>(ld, a);
+    if (k + 1 < K) load_rows16<F>(r.cand(k + 1), r.stride, row0, r.n, lane, ld);
+    mlp_mma<F>(a, m.w_phi, m.b_phi, lane, emb);
     score_mma(xf, emb, m.scores, k, lane);
   }
   __syncwarp();
   select_mma<kHard>(m.scores, K, sharpness, lane, row0, r.n, sel_out);
   __syncwarp();
-  blend_mma(r, row0, m.scores, lane, out);
+  blend_mma<F>(r, row0, m.scores, lane, out);
   __syncwarp();  // the scores are free for the warp's next slice
 }
 
@@ -641,20 +705,20 @@ __device__ __forceinline__ void attend_slice_mma(const Rows& r, int row0, const 
 // and biases in shared memory once, then let each warp walk over the 16-row
 // slices of tiles [0, tiles): slice blockIdx.x·kWarps + warp, then every
 // gridDim.x·kWarps-th. `tile_rows(q)` is tile q's row source; its rows go to
-// out + q·kT·kF and its selections to sel_out + q·kT.
-template <bool kHard, typename TileRows>
+// out + q·kT·F and its selections to sel_out + q·kT.
+template <int F, bool kHard, typename TileRows>
 __device__ __forceinline__ void attend_tiles_mma(
     TileRows tile_rows, int tiles, unsigned char* smem, const __nv_bfloat16* __restrict__ w_theta,
     const float* __restrict__ b_theta, const __nv_bfloat16* __restrict__ w_phi,
     const float* __restrict__ b_phi, float sharpness, __nv_bfloat16* __restrict__ out,
     int* __restrict__ sel_out) {
   uint32_t* wt = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* wp = wt + kMlpWords;
-  float* bt = reinterpret_cast<float*>(wp + kMlpWords);
+  uint32_t* wp = wt + MmaWidth<F>::kMlpWords;
+  float* bt = reinterpret_cast<float*>(wp + MmaWidth<F>::kMlpWords);
   float* bp = bt + kBiases;
   float* scores = bp + kBiases;
-  stage_fragments(w_theta, wt);
-  stage_fragments(w_phi, wp);
+  stage_fragments<F>(w_theta, wt);
+  stage_fragments<F>(w_phi, wp);
   for (int i = threadIdx.x; i < kBiases; i += kMmaThreads) {
     bt[i] = b_theta[i];
     bp[i] = b_phi[i];
@@ -670,7 +734,7 @@ __device__ __forceinline__ void attend_tiles_mma(
     const int row0 = static_cast<int>(s % kSlicesPerTile) * kSlice;
     const auto r = tile_rows(q);
     if (row0 >= r.n) continue;
-    attend_slice_mma<kHard>(r, row0, m, sharpness, out + q * kT * kF,
+    attend_slice_mma<F, kHard>(r, row0, m, sharpness, out + q * kT * F,
                             sel_out == nullptr ? nullptr : sel_out + q * kT);
   }
 }

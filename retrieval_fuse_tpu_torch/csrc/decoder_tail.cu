@@ -22,8 +22,9 @@
 // axis, the 4-group split of the im2col columns, the t0-row grid); ragged
 // edges stop by index.
 //
-// bf16 at nf = 16 (the flagship width): an implicit GEMM on the tensor
-// cores, `decoder_tail_mma`. Per output voxel the conv is a product of
+// bf16 at nf = 16 (the flagship width) and nf = 12 (the surface-
+// reconstruction configs): an implicit GEMM on the tensor cores,
+// `decoder_tail_mma`. Per output voxel the conv is a product of
 // depth 27·16 and width 16: M is 16 neighbouring voxels of a 2x-grid row,
 // one tap is one k16 step, the width is two n8 tiles of
 // mma.sync.m16n8k16.bf16 with float32 sums. A tile is 2 x 2 packed
@@ -52,6 +53,13 @@
 // ms, two blocks on an SM or two buffers alike), because a warp whose
 // cp.async waits on the memory system starts no mma; with copy warps the
 // two overlap (1.4 ms).
+//
+// At nf = 12 a voxel's 12 channels are zero-padded to 16 in the slab (the
+// pad bytes are zeroed once a block and no copy writes them) and the
+// weights' extra rows and columns are zero, so one tap is still one k16
+// step and the sums are exact; a third of the products are of zeros. A
+// voxel's channels are then 24 bytes of the source, so the copies take 8
+// bytes at a time (cp.async.ca) where nf = 16 takes 16.
 //
 // float32, and nf ∈ {4, 8}: `decoder_tail`, float32 FMAs (float32 on the
 // tensor cores would be TF32, ~3 decimal digits). One block per packed row
@@ -168,7 +176,7 @@ decoder_tail(const T* __restrict__ hn, const float* __restrict__ w2,
   }
 }
 
-// ---- bf16, nf = 16: implicit GEMM on the tensor cores ----
+// ---- bf16, nf ∈ {12, 16}: implicit GEMM on the tensor cores ----
 
 constexpr int kNf = 16;          // the mma body's width: one k16 step per tap
 constexpr int kTile = 2;         // packed positions per tile along i0 and along i1
@@ -231,26 +239,37 @@ struct Tile {
 // Slab row (r0, r1) is 2x-grid row (2·i0 - 1 + r0, 2·i1 - 1 + r1): packed
 // (padded) position i0 + (r0+1)/2, block bit (r0+1) & 1; likewise r1. Slab
 // voxel j is 2x-grid index j - 1 along the last axis. Each (r0, r1, p2)
-// reads the two channel blocks o_idx = s0·4 + s1·2 + {0, 1}: 32 contiguous
-// values, four 16-byte chunks: voxels 2·p2 - 1 and 2·p2, two halves each.
-// A warp takes a slab row at a time, a lane a chunk; returns when this
-// lane's copies have landed (a barrier publishes them).
+// reads the two channel blocks o_idx = s0·4 + s1·2 + {0, 1}: 2·NF
+// contiguous values of voxels 2·p2 - 1 and 2·p2, in chunks of 8 channels
+// (16 bytes, NF = 16: four chunks, a half-voxel each) or of 4 (8 bytes,
+// NF = 12: six chunks, three a voxel). A warp takes a slab row at a time, a
+// lane a chunk; returns when this lane's copies have landed (a barrier
+// publishes them).
+template <int NF>
 __device__ __forceinline__ void fill_slab(const Tile& tl, const __nv_bfloat16* __restrict__ hn,
                                           int S, unsigned char* slab) {
+  constexpr int kChunk = NF % 8 == 0 ? 8 : 4;  // channels a copy
+  constexpr int kRunChunks = 2 * NF / kChunk;
+  static_assert(NF % kChunk == 0 && NF <= kNf, "whole chunks of a voxel that fits the slab");
   const int P = S + 2, J = 2 * S + 2, pitch = mma_pitch(S) * kVoxelBytes;
   const int warp = (threadIdx.x >> 5) - kComputeWarps, lane = threadIdx.x & 31;
   const int rows1 = kCopies ? 2 * tl.n1 + 2 : 0;
   for (int R = warp; R < (2 * tl.n0 + 2) * rows1; R += kCopyWarps) {
     const int r1 = R % rows1, r0 = R / rows1;
     const int pp0 = tl.i0 + ((r0 + 1) >> 1), pp1 = tl.i1 + ((r1 + 1) >> 1);
-    const int blk_off = (((r0 + 1) & 1) * 4 + ((r1 + 1) & 1) * 2) * kNf;
+    const int blk_off = (((r0 + 1) & 1) * 4 + ((r1 + 1) & 1) * 2) * NF;
     const __nv_bfloat16* src = hn + ((static_cast<size_t>(tl.b) * P + pp0) * P + pp1) * P
-                                        * (8 * kNf) + blk_off;
+                                        * (8 * NF) + blk_off;
     unsigned char* dst = slab + (r0 * kSlabSide + r1) * pitch;
-    for (int c = lane; c < 4 * P; c += 32) {
-      const int q = c & 3, p2 = c >> 2, j = 2 * p2 - 1 + (q >> 1);
-      if (j >= 0 && j < J)
-        rf_mma::cp_async16(dst + voxel_half_offset(j, q & 1), src + p2 * (8 * kNf) + q * 8);
+    for (int c = lane; c < kRunChunks * P; c += 32) {
+      const int e = c % kRunChunks * kChunk, p2 = c / kRunChunks;
+      const int ch = e % NF, j = 2 * p2 - 1 + e / NF;
+      if (j < 0 || j >= J) continue;
+      unsigned char* d = dst + voxel_half_offset(j, ch >> 3) + (ch & 7) * 2;
+      if constexpr (kChunk == 8)
+        rf_mma::cp_async16(d, src + p2 * (8 * NF) + e);
+      else
+        rf_mma::cp_async8(d, src + p2 * (8 * NF) + e);
     }
   }
   rf_mma::cp_async_wait_all();
@@ -329,12 +348,13 @@ __device__ __forceinline__ void conv_warp_tile(unsigned slab, const uint4* wfrag
 }
 
 // Persistent, one block on an SM: block x takes tiles x, x + gridDim.x, ….
-// The weights are laid out once per block. Warps are specialised: the copy
+// The weights are laid out once per block, zero-padded to 16 channels in and
+// out where NF < 16, as the slabs' channels are. Warps are specialised: the copy
 // warps bring in the next tile's slab while the compute warps run the conv on
 // this one (kSlabs = 2), so that a copy held up by the memory system holds up
 // no mma; one barrier per tile hands the slabs over. With kSlabs = 1 (a slab
 // past half the shared memory) a tile is copied, then computed.
-template <int kSlabs>
+template <int NF, int kSlabs>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 decoder_tail_mma(const __nv_bfloat16* __restrict__ hn, const float* __restrict__ w2,
                  const float* __restrict__ wh, float bias, int S, int n_tiles,
@@ -347,19 +367,27 @@ decoder_tail_mma(const __nv_bfloat16* __restrict__ hn, const float* __restrict__
   const bool copies = warp >= kComputeWarps;
   const int row_tiles = (2 * S + kWarpVoxels - 1) / kWarpVoxels;
 
+  if constexpr (NF < kNf) {  // the pad channels, which no copy writes, are zero
+    uint4* words = reinterpret_cast<uint4*>(slabs);
+    for (int i = threadIdx.x; i < kSlabs * slab_bytes(S) / 16; i += kMmaThreads)
+      words[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+  }
   if (copies) {
-    fill_slab(Tile(blockIdx.x, S), hn, S, slabs);
+    fill_slab<NF>(Tile(blockIdx.x, S), hn, S, slabs);
   } else {
     // the weights in B-fragment order: word r of (tap, lane) is
-    // W[tap][ci, ci+1][co], ci = 2t + 8·(r&1), co = 8·(r>>1) + g
+    // W[tap][ci, ci+1][co], ci = 2t + 8·(r&1), co = 8·(r>>1) + g; rows and
+    // columns past NF are zero
     for (int i = threadIdx.x; i < 27 * 32 * 4; i += 32 * kComputeWarps) {
       const int r = i & 3, lane = (i >> 2) & 31, tap = i >> 7;
       const int ci = 2 * (lane & 3) + 8 * (r & 1), co = 8 * (r >> 1) + (lane >> 2);
-      const float* wt = w2 + tap * kNf * kNf;
-      reinterpret_cast<uint32_t*>(wfrag)[i] =
-          rf_mma::pack_bf16(wt[ci * kNf + co], wt[(ci + 1) * kNf + co]);
+      const float* wt = w2 + tap * NF * NF;
+      const bool in = ci < NF && co < NF;  // NF is even: ci + 1 < NF with ci
+      reinterpret_cast<uint32_t*>(wfrag)[i] = rf_mma::pack_bf16(
+          in ? wt[ci * NF + co] : 0.f, in ? wt[(ci + 1) * NF + co] : 0.f);
     }
-    if (threadIdx.x < kNf) whs[threadIdx.x] = wh[threadIdx.x];
+    if (threadIdx.x < kNf) whs[threadIdx.x] = threadIdx.x < NF ? wh[threadIdx.x] : 0.f;
   }
   __syncthreads();  // the first slab and the weights are in place
 
@@ -369,7 +397,7 @@ decoder_tail_mma(const __nv_bfloat16* __restrict__ hn, const float* __restrict__
     unsigned char* slab = slabs + buf * slab_bytes(S);
     if (copies) {
       if (kSlabs == 2 && next < n_tiles)
-        fill_slab(Tile(next, S), hn, S, slabs + (buf ^ 1) * slab_bytes(S));
+        fill_slab<NF>(Tile(next, S), hn, S, slabs + (buf ^ 1) * slab_bytes(S));
     } else {
       const Tile tl(index, S);
       const unsigned slab_addr = static_cast<unsigned>(__cvta_generic_to_shared(slab));
@@ -382,17 +410,17 @@ decoder_tail_mma(const __nv_bfloat16* __restrict__ hn, const float* __restrict__
     }
     __syncthreads();  // this slab is free; with two slabs, the next one is in place
     if (kSlabs == 1) {
-      if (copies && next < n_tiles) fill_slab(Tile(next, S), hn, S, slab);
+      if (copies && next < n_tiles) fill_slab<NF>(Tile(next, S), hn, S, slab);
       __syncthreads();
     }
   }
 }
 
-template <int kSlabs>
+template <int NF, int kSlabs>
 int launch_mma_slabs(const void* hn, const float* w2, const float* wh, float bias, int b, int s,
-               float* out, cudaStream_t stream) {
+                     float* out, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes(s, kSlabs);
-  auto kernel = decoder_tail_mma<kSlabs>;
+  auto kernel = decoder_tail_mma<NF, kSlabs>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -411,12 +439,13 @@ int launch_mma_slabs(const void* hn, const float* w2, const float* wh, float bia
 }
 
 // two slabs where they fit (S <= 32), else one (S <= 80)
+template <int NF>
 int launch_mma(const void* hn, const float* w2, const float* wh, float bias, int b, int s,
                float* out, cudaStream_t stream) {
   if (mma_smem_bytes(s, 2) <= kMaxSmemBytes)
-    return launch_mma_slabs<2>(hn, w2, wh, bias, b, s, out, stream);
+    return launch_mma_slabs<NF, 2>(hn, w2, wh, bias, b, s, out, stream);
   if (mma_smem_bytes(s, 1) <= kMaxSmemBytes)
-    return launch_mma_slabs<1>(hn, w2, wh, bias, b, s, out, stream);
+    return launch_mma_slabs<NF, 1>(hn, w2, wh, bias, b, s, out, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -439,9 +468,14 @@ int dispatch(int nf, const void* hn, const float* w2, const float* wh, float bia
   switch (nf) {
     case 4: return launch<T, 4>(hn, w2, wh, bias, b, s, out, stream);
     case 8: return launch<T, 8>(hn, w2, wh, bias, b, s, out, stream);
+    case 12:
+      if constexpr (std::is_same_v<T, __nv_bfloat16>)
+        return launch_mma<12>(hn, w2, wh, bias, b, s, out, stream);
+      else
+        return launch<T, 12>(hn, w2, wh, bias, b, s, out, stream);
     case 16:
       if constexpr (std::is_same_v<T, __nv_bfloat16>)
-        return launch_mma(hn, w2, wh, bias, b, s, out, stream);
+        return launch_mma<16>(hn, w2, wh, bias, b, s, out, stream);
       else
         return launch<T, 16>(hn, w2, wh, bias, b, s, out, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -456,8 +490,8 @@ extern "C" const char* rf_error_string(int err) {
 
 // dtype 0: float32, 1: bfloat16 (hn). hn (b, s+2, s+2, s+2, 8·nf), w2
 // (3, 3, 3, nf, nf) DHWIO float32 (holding values of hn's dtype), wh (nf,)
-// float32 likewise, out (b, s, s, s, 8) float32. nf ∈ {4, 8, 16}; s >= 1,
-// b >= 1, b·s·s < 2^31; hn 16-byte aligned. bf16 with nf = 16 runs the
+// float32 likewise, out (b, s, s, s, 8) float32. nf ∈ {4, 8, 12, 16}; s >= 1,
+// b >= 1, b·s·s < 2^31; hn 16-byte aligned. bf16 with nf ∈ {12, 16} runs the
 // tensor-core body, everything else the float32-FMA body. Returns a
 // cudaError_t value (cudaErrorInvalidValue where a slab exceeds the shared
 // memory of a block: S > 80 for the tensor-core body).

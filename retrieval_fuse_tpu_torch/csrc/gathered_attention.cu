@@ -6,7 +6,9 @@
 // engine's `pallasg2` token). Python side: ops/patch_attention.py. The
 // attention body is attention.cuh's; this kernel's rows are tile q of xt
 // and, for each of its K retrieved bank rows idx[q, k], that (T, F) bank
-// tile, read from global memory. No (Q, K, T, F) tensor exists.
+// tile, read from global memory. No (Q, K, T, F) tensor exists. Rows are
+// F = nf·e³ values, F one of attention.cuh's `with_width` (96 or 128; the
+// entry point takes f and dispatches).
 //
 // bf16 runs attention.cuh's tensor-core body as a persistent launch (one
 // block per SM with theta's and phi's weights resident in shared memory,
@@ -34,7 +36,7 @@ namespace {
 
 using namespace rf_attention;
 
-template <typename T, bool kHard>
+template <typename T, int F, bool kHard>
 __global__ void __launch_bounds__(kThreads, 2)
 gathered_attention(const T* __restrict__ xt, const T* __restrict__ bank,
                    const int* __restrict__ idx, int K,
@@ -43,12 +45,13 @@ gathered_attention(const T* __restrict__ xt, const T* __restrict__ bank,
                    float sharpness, T* __restrict__ out, int* __restrict__ sel_out) {
   extern __shared__ __align__(16) float smem[];
   const size_t q = blockIdx.x;
-  const BankRows<T> r{xt + q * kT * kF, bank, idx + q * K, kT, K};
-  attend_tile<T, kHard>(r, smem, w_theta, b_theta, w_phi, b_phi, sharpness, out + q * kT * kF,
-                        sel_out == nullptr ? nullptr : sel_out + q * kT, NoWait{});
+  const BankRows<T, F> r{xt + q * kT * F, bank, idx + q * K, kT, K};
+  attend_tile<T, F, kHard>(r, smem, w_theta, b_theta, w_phi, b_phi, sharpness,
+                           out + q * kT * F, sel_out == nullptr ? nullptr : sel_out + q * kT,
+                           NoWait{});
 }
 
-template <bool kHard>
+template <int F, bool kHard>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 gathered_attention_mma(const __nv_bfloat16* __restrict__ xt,
                        const __nv_bfloat16* __restrict__ bank, const int* __restrict__ idx,
@@ -59,13 +62,13 @@ gathered_attention_mma(const __nv_bfloat16* __restrict__ xt,
                        __nv_bfloat16* __restrict__ out, int* __restrict__ sel_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto tile_rows = [=](size_t q) {
-    return BankRows<__nv_bfloat16>{xt + q * kT * kF, bank, idx + q * K, kT, K};
+    return BankRows<__nv_bfloat16, F>{xt + q * kT * F, bank, idx + q * K, kT, K};
   };
-  attend_tiles_mma<kHard>(tile_rows, Q, smem_raw, w_theta, b_theta, w_phi, b_phi, sharpness,
-                          out, sel_out);
+  attend_tiles_mma<F, kHard>(tile_rows, Q, smem_raw, w_theta, b_theta, w_phi, b_phi,
+                             sharpness, out, sel_out);
 }
 
-template <typename T, bool kHard>
+template <typename T, int F, bool kHard>
 int launch(const void* xt, const void* bank, const int* idx, int q, int k,
            const void* w_theta, const float* b_theta, const void* w_phi,
            const float* b_phi, float sharpness, void* out, int* sel, cudaStream_t s) {
@@ -73,13 +76,14 @@ int launch(const void* xt, const void* bank, const int* idx, int q, int k,
     cudaError_t err;
     const int blocks = persistent_blocks(q, &err);
     if (err != cudaSuccess) return static_cast<int>(err);
-    return launch_blocks(gathered_attention_mma<kHard>, blocks, kMmaThreads, kMmaSmemBytes, s,
+    return launch_blocks(gathered_attention_mma<F, kHard>, blocks, kMmaThreads,
+                         MmaWidth<F>::kSmemBytes, s,
                          static_cast<const T*>(xt), static_cast<const T*>(bank), idx, q, k,
                          static_cast<const T*>(w_theta), b_theta,
                          static_cast<const T*>(w_phi), b_phi, sharpness, static_cast<T*>(out),
                          sel);
   } else {
-    return launch_blocks(gathered_attention<T, kHard>, q, kThreads, kSmemBytes, s,
+    return launch_blocks(gathered_attention<T, F, kHard>, q, kThreads, kSmemBytes, s,
                          static_cast<const T*>(xt), static_cast<const T*>(bank), idx, k,
                          static_cast<const T*>(w_theta), b_theta,
                          static_cast<const T*>(w_phi), b_phi, sharpness, static_cast<T*>(out),
@@ -90,25 +94,29 @@ int launch(const void* xt, const void* bank, const int* idx, int q, int k,
 }  // namespace
 
 // dtype 0: float32, 1: bfloat16 (xt, bank, out, packed weights).
-// xt (q, 64, 128), bank (n, 64, 128), idx (q, k) int32 in [0, n),
-// w_* packed (128*128*3 + 128*32) in (in, out) layout, b_* (128*3 + 32)
-// float32; sel (q, 64) int32 or null (argmax candidate of each row).
-// 1 <= k <= 8, q >= 1; xt, bank and out 16-byte aligned. bfloat16 runs the
-// tensor-core body, float32 the FMA body. Returns a cudaError_t value.
+// xt (q, 64, f), bank (n, 64, f), idx (q, k) int32 in [0, n),
+// w_* packed (f*128 + 128*128*2 + 128*32) in (in, out) layout, b_*
+// (128*3 + 32) float32; sel (q, 64) int32 or null (argmax candidate of each
+// row). f in {96, 128}, 1 <= k <= 8, q >= 1; xt, bank and out 16-byte
+// aligned. bfloat16 runs the tensor-core body, float32 the FMA body. Returns
+// a cudaError_t value.
 extern "C" int rf_gathered_attention(int dtype, const void* xt, const void* bank,
-                                     const int* idx, int q, int k, const void* w_theta,
+                                     const int* idx, int q, int k, int f, const void* w_theta,
                                      const float* b_theta, const void* w_phi,
                                      const float* b_phi, int hard, float sharpness,
                                      void* out, int* sel, cudaStream_t stream) {
   if (k < 1 || k > kMaxK || q < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return hard ? launch<float, true>(xt, bank, idx, q, k, w_theta, b_theta, w_phi, b_phi,
-                                      sharpness, out, sel, stream)
-                : launch<float, false>(xt, bank, idx, q, k, w_theta, b_theta, w_phi,
-                                       b_phi, sharpness, out, sel, stream);
-  return hard ? launch<__nv_bfloat16, true>(xt, bank, idx, q, k, w_theta, b_theta, w_phi,
-                                            b_phi, sharpness, out, sel, stream)
-              : launch<__nv_bfloat16, false>(xt, bank, idx, q, k, w_theta, b_theta,
-                                             w_phi, b_phi, sharpness, out, sel, stream);
+  return with_width(f, [&](auto width) {
+    constexpr int F = decltype(width)::value;
+    if (dtype == 0)
+      return hard ? launch<float, F, true>(xt, bank, idx, q, k, w_theta, b_theta, w_phi,
+                                           b_phi, sharpness, out, sel, stream)
+                  : launch<float, F, false>(xt, bank, idx, q, k, w_theta, b_theta, w_phi,
+                                            b_phi, sharpness, out, sel, stream);
+    return hard ? launch<__nv_bfloat16, F, true>(xt, bank, idx, q, k, w_theta, b_theta,
+                                                 w_phi, b_phi, sharpness, out, sel, stream)
+                : launch<__nv_bfloat16, F, false>(xt, bank, idx, q, k, w_theta, b_theta,
+                                                  w_phi, b_phi, sharpness, out, sel, stream);
+  });
 }

@@ -9,17 +9,20 @@
 // held all K index-mapped candidate blocks of its tile in on-chip memory,
 // brought in by the pipeline while the step before computed. The Hopper
 // counterpart of that is the bulk asynchronous copy: a candidate is one
-// contiguous run of the bank (bank + idx·64·128 elements), so one thread
+// contiguous run of the bank (bank + idx·64·F elements), so one thread
 // starts `cp.async.bulk` for the whole tile, the copy engine reports its
 // arrival to an mbarrier, and the compute warps spend no instruction on the
 // bytes. Python side: ops/patch_attention.py; the attention arithmetic is
-// attention.cuh's, the copy and barrier wrappers are mma.cuh's.
+// attention.cuh's, the copy and barrier wrappers are mma.cuh's. Rows are
+// F = nf·e³ values, F one of attention.cuh's `with_width` (96 or 128; the
+// entry point takes f and dispatches); a slot is one (64, F) tile.
 //
 // Bound on the H100: as gathered_attention.cu, 0.282 ms at Q=8192, K=4,
 // bf16 (279 GFLOP of MLP GEMMs at 989 TFLOP/s).
 //
 // bf16, on the tensor cores (`gathered_attention_v1_mma`). The obstacle is
-// shared memory: theta's and phi's B fragments (2 x 106,496 bytes) leave no
+// shared memory: theta's and phi's B fragments (2 x 106,496 bytes at F = 128)
+// leave no
 // room to stage. So a persistent block (one per SM, 12 warps) owns tiles
 // blockIdx.x, blockIdx.x + gridDim.x, ... and works in two phases, with phi
 // resident throughout:
@@ -29,7 +32,8 @@
 //      fragment order to a scratch tensor of the wrapper's (Q·64·32 floats:
 //      ~0.04 ms of traffic at Q = 8192). A block reads back only what it
 //      wrote, so a block barrier suffices: no grid-wide one.
-//   B. The same bytes become rings of 16 KB slots, one candidate tile a
+//   B. The same bytes become rings of 16 KB slots (12 KB at F = 96), one
+//      candidate tile a
 //      slot. Four warps (a group) own a tile, 16 rows each; each of the
 //      three groups has kSlots slots with a full and an empty mbarrier a
 //      slot, and its first lane is its producer: it starts the copy of the
@@ -44,9 +48,10 @@
 //
 // float32, on FMAs (`gathered_attention_v1`; TF32 would cost ~3 decimal
 // digits): attention.cuh's `attend_tile`, one block a tile, whose K
-// candidate tiles (K·32 KB beside the body's 96,768 bytes: K <= 4, the
-// wrapper raises beyond) are copied up front by one thread, in flight under
-// theta; phi and the blend read them from shared memory.
+// candidate tiles (K·256·F bytes beside the body's 96,768 bytes: K <= 4 at
+// F = 128, K <= 5 at F = 96; the wrapper raises beyond) are copied up front
+// by one thread, in flight under theta; phi and the blend read them from
+// shared memory.
 
 #include "attention.cuh"
 
@@ -63,7 +68,7 @@ struct WaitStaged {  // the tile's K candidate copies have landed
   __device__ void operator()() const { rf_mma::mbar_wait(bar, 0); }
 };
 
-template <bool kHard>
+template <int F, bool kHard>
 __global__ void __launch_bounds__(kThreads, 1)
 gathered_attention_v1(const float* __restrict__ xt, const float* __restrict__ bank,
                       const int* __restrict__ idx, int K,
@@ -72,7 +77,7 @@ gathered_attention_v1(const float* __restrict__ xt, const float* __restrict__ ba
                       float sharpness, float* __restrict__ out, int* __restrict__ sel_out) {
   extern __shared__ __align__(16) float smem[];
   __shared__ uint64_t bar;
-  constexpr unsigned kTileBytes = kT * kF * sizeof(float);
+  constexpr unsigned kTileBytes = kT * F * sizeof(float);
   float* stage = smem + kSmemFloats;
   const size_t q = blockIdx.x;
   if (threadIdx.x == 0) {
@@ -83,14 +88,14 @@ gathered_attention_v1(const float* __restrict__ xt, const float* __restrict__ ba
   if (threadIdx.x == 0) {
     rf_mma::mbar_arrive_expect_tx(&bar, K * kTileBytes);
     for (int k = 0; k < K; ++k)
-      rf_mma::bulk_copy_to_shared(stage + k * kT * kF,
-                                  bank + static_cast<size_t>(idx[q * K + k]) * kT * kF,
+      rf_mma::bulk_copy_to_shared(stage + k * kT * F,
+                                  bank + static_cast<size_t>(idx[q * K + k]) * kT * F,
                                   kTileBytes, &bar);
   }
-  const StridedRows<float> r{xt + q * kT * kF, stage, static_cast<size_t>(kT) * kF, kF, kT, K};
-  attend_tile<float, kHard>(r, smem, w_theta, b_theta, w_phi, b_phi, sharpness,
-                            out + q * kT * kF, sel_out == nullptr ? nullptr : sel_out + q * kT,
-                            WaitStaged{&bar});
+  const StridedRows<float> r{xt + q * kT * F, stage, static_cast<size_t>(kT) * F, F, kT, K};
+  attend_tile<float, F, kHard>(r, smem, w_theta, b_theta, w_phi, b_phi, sharpness,
+                               out + q * kT * F, sel_out == nullptr ? nullptr : sel_out + q * kT,
+                               WaitStaged{&bar});
 }
 
 // ---- bf16 ----
@@ -104,19 +109,25 @@ gathered_attention_v1(const float* __restrict__ xt, const float* __restrict__ ba
 constexpr int kSlots = RF_PROBE_V1_SLOTS;
 constexpr int kGroupWarps = kSlicesPerTile;    // a tile's four 16-row slices
 constexpr int kGroups = kWarps / kGroupWarps;
-constexpr unsigned kSlotBytes = kT * kF * sizeof(__nv_bfloat16);
-constexpr size_t kRingBytes = static_cast<size_t>(kGroups) * kSlots * kSlotBytes;
-constexpr size_t kThetaBytes = kMlpWords * sizeof(uint32_t);
-constexpr size_t kRegionBytes = kRingBytes > kThetaBytes ? kRingBytes : kThetaBytes;
-constexpr size_t kV1SmemBytes = kRegionBytes + kThetaBytes + 2 * kBiases * sizeof(float)
-                                + kWarps * kSlice * kScoreLd * sizeof(float)
-                                + 2 * kGroups * kSlots * sizeof(uint64_t);
 static_assert(kWarps % kGroupWarps == 0 && kGroups >= 1, "whole groups of four warps");
-static_assert(kSlots >= 1 && kV1SmemBytes <= kMaxSmemBytes, "phi and the rings in one block");
-static_assert((kRegionBytes + kThetaBytes + 2 * kBiases * sizeof(float)
-               + kWarps * kSlice * kScoreLd * sizeof(float)) % 8 == 0, "the barriers' alignment");
 
-template <bool kHard>
+// the bf16 kernel's shared memory at row width F: theta's fragments, then
+// in their place the rings; phi's fragments, the biases, the scores, the
+// rings' barriers
+template <int F>
+struct V1Layout {
+  static constexpr unsigned kSlotBytes = kT * F * sizeof(__nv_bfloat16);
+  static constexpr size_t kRingBytes = static_cast<size_t>(kGroups) * kSlots * kSlotBytes;
+  static constexpr size_t kThetaBytes = MmaWidth<F>::kMlpWords * sizeof(uint32_t);
+  static constexpr size_t kRegionBytes = kRingBytes > kThetaBytes ? kRingBytes : kThetaBytes;
+  static constexpr size_t kBarOffset = kRegionBytes + kThetaBytes + 2 * kBiases * sizeof(float)
+                                       + kWarps * kSlice * kScoreLd * sizeof(float);
+  static constexpr size_t kSmemBytes = kBarOffset + 2 * kGroups * kSlots * sizeof(uint64_t);
+  static_assert(kSlots >= 1 && kSmemBytes <= kMaxSmemBytes, "phi and the rings in one block");
+  static_assert(kBarOffset % 8 == 0, "the barriers' alignment");
+};
+
+template <int F, bool kHard>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 gathered_attention_v1_mma(const __nv_bfloat16* __restrict__ xt,
                           const __nv_bfloat16* __restrict__ bank, const int* __restrict__ idx,
@@ -127,17 +138,19 @@ gathered_attention_v1_mma(const __nv_bfloat16* __restrict__ xt,
                           float* xf_scratch,  // written in phase A, read in phase B: no __ldg
                           __nv_bfloat16* __restrict__ out, int* __restrict__ sel_out) {
   using T = __nv_bfloat16;
+  using L = V1Layout<F>;
+  constexpr unsigned kSlotBytes = L::kSlotBytes;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   uint32_t* wt = reinterpret_cast<uint32_t*>(smem_raw);  // theta's fragments, then the rings
-  uint32_t* wp = reinterpret_cast<uint32_t*>(smem_raw + kRegionBytes);
-  float* bt = reinterpret_cast<float*>(wp + kMlpWords);
+  uint32_t* wp = reinterpret_cast<uint32_t*>(smem_raw + L::kRegionBytes);
+  float* bt = reinterpret_cast<float*>(wp + MmaWidth<F>::kMlpWords);
   float* bp = bt + kBiases;
   float* scores = bp + kBiases + (threadIdx.x >> 5) * kSlice * kScoreLd;  // this warp's
   uint64_t* bars = reinterpret_cast<uint64_t*>(bp + kBiases + kWarps * kSlice * kScoreLd);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  stage_fragments(w_theta, wt);
-  stage_fragments(w_phi, wp);
+  stage_fragments<F>(w_theta, wt);
+  stage_fragments<F>(w_phi, wp);
   for (int i = threadIdx.x; i < kBiases; i += kMmaThreads) {
     bt[i] = b_theta[i];
     bp[i] = b_phi[i];
@@ -156,23 +169,23 @@ gathered_attention_v1_mma(const __nv_bfloat16* __restrict__ xt,
   const int tiles = (Q - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1)
                     / static_cast<int>(gridDim.x);
   auto tile_of = [&](int i) { return blockIdx.x + static_cast<size_t>(i) * gridDim.x; };
-  uint32_t a[8][4];
-  RowLoads ld;
+  uint32_t a[kHSteps][4];
+  RowLoads<F> ld;
   float xf[kC / 8][4];
 
   // A: theta on the 16-row slices of the block's tiles, the next slice's
   // rows in flight under this one's MLP
   const int slices = tiles * kSlicesPerTile;
   if (warp < slices)
-    load_rows16(xt + tile_of(warp / kSlicesPerTile) * kT * kF, kF,
-                warp % kSlicesPerTile * kSlice, kT, lane, ld);
+    load_rows16<F>(xt + tile_of(warp / kSlicesPerTile) * kT * F, F,
+                   warp % kSlicesPerTile * kSlice, kT, lane, ld);
   for (int s = warp; s < slices; s += kWarps) {
-    to_fragments(ld, a);
+    to_fragments<F>(ld, a);
     const int next = s + kWarps;
     if (next < slices)
-      load_rows16(xt + tile_of(next / kSlicesPerTile) * kT * kF, kF,
-                  next % kSlicesPerTile * kSlice, kT, lane, ld);
-    mlp_mma(a, wt, bt, lane, xf);
+      load_rows16<F>(xt + tile_of(next / kSlicesPerTile) * kT * F, F,
+                     next % kSlicesPerTile * kSlice, kT, lane, ld);
+    mlp_mma<F>(a, wt, bt, lane, xf);
     normalise_mma(xf);
     float4* dst = reinterpret_cast<float4*>(
         xf_scratch + ((tile_of(s / kSlicesPerTile) * kSlicesPerTile + s % kSlicesPerTile) * 32
@@ -197,8 +210,8 @@ gathered_attention_v1_mma(const __nv_bfloat16* __restrict__ xt,
     const size_t q = tile_of(group + item / K * kGroups);
     const int slot = item % kSlots;
     rf_mma::mbar_arrive_expect_tx(full + slot, kSlotBytes);
-    rf_mma::bulk_copy_to_shared(const_cast<T*>(ring) + slot * kT * kF,
-                                bank + static_cast<size_t>(idx[q * K + item % K]) * kT * kF,
+    rf_mma::bulk_copy_to_shared(const_cast<T*>(ring) + slot * kT * F,
+                                bank + static_cast<size_t>(idx[q * K + item % K]) * kT * F,
                                 kSlotBytes, full + slot);
   };
   if (producer)
@@ -218,8 +231,8 @@ gathered_attention_v1_mma(const __nv_bfloat16* __restrict__ xt,
       const int slot = item % kSlots;
       const unsigned parity = (item / kSlots) & 1;
       rf_mma::mbar_wait(full + slot, parity);
-      staged_rows16(ring + slot * kT * kF, row0, lane, ld);
-      to_fragments(ld, a);
+      staged_rows16<F>(ring + slot * kT * F, row0, lane, ld);
+      to_fragments<F>(ld, a);
       __syncwarp();  // every lane has its rows: the warp is done with the slot
       if (lane == 0) rf_mma::mbar_arrive(empty + slot);
       if (producer && item + kSlots < items) {
@@ -228,33 +241,33 @@ gathered_attention_v1_mma(const __nv_bfloat16* __restrict__ xt,
       }
       __syncwarp();
       float emb[kC / 8][4];
-      mlp_mma(a, wp, bp, lane, emb);
+      mlp_mma<F>(a, wp, bp, lane, emb);
       score_mma(xf, emb, scores, k, lane);
     }
-    const BankRows<T> r{xt + q * kT * kF, bank, idx + q * K, kT, K};
+    const BankRows<T, F> r{xt + q * kT * F, bank, idx + q * K, kT, K};
     __syncwarp();
     select_mma<kHard>(scores, K, sharpness, lane, row0, kT,
                       sel_out == nullptr ? nullptr : sel_out + q * kT);
     __syncwarp();
-    blend_mma(r, row0, scores, lane, out + q * kT * kF);
+    blend_mma<F>(r, row0, scores, lane, out + q * kT * F);
     __syncwarp();  // the scores are free for the warp's next tile
   }
 }
 
-template <bool kHard>
+template <int F, bool kHard>
 int launch_f32(const void* xt, const void* bank, const int* idx, int q, int k,
                const void* w_theta, const float* b_theta, const void* w_phi,
                const float* b_phi, float sharpness, void* out, int* sel, cudaStream_t s) {
-  const size_t smem = kSmemBytes + static_cast<size_t>(k) * kT * kF * sizeof(float);
+  const size_t smem = kSmemBytes + static_cast<size_t>(k) * kT * F * sizeof(float);
   if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_blocks(gathered_attention_v1<kHard>, q, kThreads, smem, s,
+  return launch_blocks(gathered_attention_v1<F, kHard>, q, kThreads, smem, s,
                        static_cast<const float*>(xt), static_cast<const float*>(bank), idx, k,
                        static_cast<const float*>(w_theta), b_theta,
                        static_cast<const float*>(w_phi), b_phi, sharpness,
                        static_cast<float*>(out), sel);
 }
 
-template <bool kHard>
+template <int F, bool kHard>
 int launch_bf16(const void* xt, const void* bank, const int* idx, int q, int k,
                 const void* w_theta, const float* b_theta, const void* w_phi,
                 const float* b_phi, float sharpness, void* out, int* sel, float* scratch,
@@ -265,8 +278,9 @@ int launch_bf16(const void* xt, const void* bank, const int* idx, int q, int k,
   const int sms = sm_count(&err);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int want = (q + kGroups - 1) / kGroups;  // a tile for every group first
-  return launch_blocks(gathered_attention_v1_mma<kHard>, want < sms ? want : sms, kMmaThreads,
-                       kV1SmemBytes, s, static_cast<const T*>(xt), static_cast<const T*>(bank),
+  return launch_blocks(gathered_attention_v1_mma<F, kHard>, want < sms ? want : sms,
+                       kMmaThreads, V1Layout<F>::kSmemBytes, s, static_cast<const T*>(xt),
+                       static_cast<const T*>(bank),
                        idx, q, k, static_cast<const T*>(w_theta), b_theta,
                        static_cast<const T*>(w_phi), b_phi, sharpness, scratch,
                        static_cast<T*>(out), sel);
@@ -277,23 +291,26 @@ int launch_bf16(const void* xt, const void* bank, const int* idx, int q, int k,
 // The operands of rf_gathered_attention (gathered_attention.cu), and
 // `scratch`: q * 64 * 32 float32 for bfloat16 (the theta embeddings between
 // the kernel's phases), unused for float32. bfloat16 runs on the tensor
-// cores with 1 <= k <= 8; float32 on FMAs with k * 64 * 128 * 4 bytes of
-// staging, k <= 4. Returns a cudaError_t value.
+// cores with 1 <= k <= 8; float32 on FMAs with k * 64 * f * 4 bytes of
+// staging (k <= 4 at f = 128, k <= 5 at f = 96). Returns a cudaError_t value.
 extern "C" int rf_gathered_attention_v1(int dtype, const void* xt, const void* bank,
-                                        const int* idx, int q, int k, const void* w_theta,
-                                        const float* b_theta, const void* w_phi,
-                                        const float* b_phi, int hard, float sharpness,
-                                        void* out, int* sel, float* scratch,
+                                        const int* idx, int q, int k, int f,
+                                        const void* w_theta, const float* b_theta,
+                                        const void* w_phi, const float* b_phi, int hard,
+                                        float sharpness, void* out, int* sel, float* scratch,
                                         cudaStream_t stream) {
   if (k < 1 || k > kMaxK || q < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return hard ? launch_f32<true>(xt, bank, idx, q, k, w_theta, b_theta, w_phi, b_phi,
-                                   sharpness, out, sel, stream)
-                : launch_f32<false>(xt, bank, idx, q, k, w_theta, b_theta, w_phi, b_phi,
-                                    sharpness, out, sel, stream);
-  return hard ? launch_bf16<true>(xt, bank, idx, q, k, w_theta, b_theta, w_phi, b_phi,
-                                  sharpness, out, sel, scratch, stream)
-              : launch_bf16<false>(xt, bank, idx, q, k, w_theta, b_theta, w_phi, b_phi,
-                                   sharpness, out, sel, scratch, stream);
+  return with_width(f, [&](auto width) {
+    constexpr int F = decltype(width)::value;
+    if (dtype == 0)
+      return hard ? launch_f32<F, true>(xt, bank, idx, q, k, w_theta, b_theta, w_phi, b_phi,
+                                        sharpness, out, sel, stream)
+                  : launch_f32<F, false>(xt, bank, idx, q, k, w_theta, b_theta, w_phi, b_phi,
+                                         sharpness, out, sel, stream);
+    return hard ? launch_bf16<F, true>(xt, bank, idx, q, k, w_theta, b_theta, w_phi, b_phi,
+                                       sharpness, out, sel, scratch, stream)
+                : launch_bf16<F, false>(xt, bank, idx, q, k, w_theta, b_theta, w_phi, b_phi,
+                                        sharpness, out, sel, scratch, stream);
+  });
 }

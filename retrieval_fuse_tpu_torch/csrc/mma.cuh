@@ -94,6 +94,13 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src)
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
 }
 
+// 8 bytes from global to shared memory, asynchronously (cached in L1: the
+// 16-byte form alone may bypass it); both addresses 8-byte aligned
+__device__ __forceinline__ void cp_async8(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem_src));
+}
+
 // this thread's cp.async copies have landed (a barrier publishes them)
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");

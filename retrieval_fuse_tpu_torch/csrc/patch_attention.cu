@@ -8,6 +8,9 @@
 // the candidate rows differs: candidate k of row i is p[i, k, :], so a
 // block's candidate-k rows lie K*F elements apart.
 //
+// Rows are F = nf·e³ values, F one of attention.cuh's `with_width` (96 or
+// 128; the entry point takes f and dispatches).
+//
 // A tile is 64 consecutive rows of x; N need not be a multiple of 64: the
 // last tile's missing rows are zero in the MLPs and never written. The TPU
 // version's padding of N to 512-row tiles is not carried over.
@@ -31,7 +34,7 @@ namespace {
 
 using namespace rf_attention;
 
-template <typename T, bool kHard>
+template <typename T, int F, bool kHard>
 __global__ void __launch_bounds__(kThreads, 2)
 patch_attention(const T* __restrict__ x, const T* __restrict__ p, int n, int K,
                 const T* __restrict__ w_theta, const float* __restrict__ b_theta,
@@ -39,14 +42,14 @@ patch_attention(const T* __restrict__ x, const T* __restrict__ p, int n, int K,
                 float sharpness, T* __restrict__ out, int* __restrict__ sel_out) {
   extern __shared__ __align__(16) float smem[];
   const size_t r0 = static_cast<size_t>(blockIdx.x) * kT;
-  const size_t stride = static_cast<size_t>(K) * kF;
-  const StridedRows<T> r{x + r0 * kF, p + r0 * stride, kF, stride,
+  const size_t stride = static_cast<size_t>(K) * F;
+  const StridedRows<T> r{x + r0 * F, p + r0 * stride, F, stride,
                          min(kT, static_cast<int>(n - r0)), K};
-  attend_tile<T, kHard>(r, smem, w_theta, b_theta, w_phi, b_phi, sharpness, out + r0 * kF,
-                        sel_out == nullptr ? nullptr : sel_out + r0, NoWait{});
+  attend_tile<T, F, kHard>(r, smem, w_theta, b_theta, w_phi, b_phi, sharpness, out + r0 * F,
+                           sel_out == nullptr ? nullptr : sel_out + r0, NoWait{});
 }
 
-template <bool kHard>
+template <int F, bool kHard>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 patch_attention_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ p,
                     int n, int K, const __nv_bfloat16* __restrict__ w_theta,
@@ -54,17 +57,17 @@ patch_attention_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
                     const float* __restrict__ b_phi, float sharpness,
                     __nv_bfloat16* __restrict__ out, int* __restrict__ sel_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const size_t stride = static_cast<size_t>(K) * kF;
+  const size_t stride = static_cast<size_t>(K) * F;
   auto tile_rows = [=](size_t q) {
     const size_t r0 = q * kT;
-    return StridedRows<__nv_bfloat16>{x + r0 * kF, p + r0 * stride, kF, stride,
+    return StridedRows<__nv_bfloat16>{x + r0 * F, p + r0 * stride, F, stride,
                                       min(kT, static_cast<int>(n - r0)), K};
   };
-  attend_tiles_mma<kHard>(tile_rows, (n + kT - 1) / kT, smem_raw, w_theta, b_theta, w_phi,
-                          b_phi, sharpness, out, sel_out);
+  attend_tiles_mma<F, kHard>(tile_rows, (n + kT - 1) / kT, smem_raw, w_theta, b_theta, w_phi,
+                             b_phi, sharpness, out, sel_out);
 }
 
-template <typename T, bool kHard>
+template <typename T, int F, bool kHard>
 int launch(const void* x, const void* p, int n, int k, const void* w_theta,
            const float* b_theta, const void* w_phi, const float* b_phi, float sharpness,
            void* out, int* sel, cudaStream_t s) {
@@ -73,13 +76,14 @@ int launch(const void* x, const void* p, int n, int k, const void* w_theta,
     cudaError_t err;
     const int blocks = persistent_blocks(tiles, &err);
     if (err != cudaSuccess) return static_cast<int>(err);
-    return launch_blocks(patch_attention_mma<kHard>, blocks, kMmaThreads, kMmaSmemBytes, s,
+    return launch_blocks(patch_attention_mma<F, kHard>, blocks, kMmaThreads,
+                         MmaWidth<F>::kSmemBytes, s,
                          static_cast<const T*>(x), static_cast<const T*>(p), n, k,
                          static_cast<const T*>(w_theta), b_theta,
                          static_cast<const T*>(w_phi), b_phi, sharpness, static_cast<T*>(out),
                          sel);
   } else {
-    return launch_blocks(patch_attention<T, kHard>, tiles, kThreads, kSmemBytes, s,
+    return launch_blocks(patch_attention<T, F, kHard>, tiles, kThreads, kSmemBytes, s,
                          static_cast<const T*>(x), static_cast<const T*>(p), n, k,
                          static_cast<const T*>(w_theta), b_theta,
                          static_cast<const T*>(w_phi), b_phi, sharpness, static_cast<T*>(out),
@@ -90,25 +94,28 @@ int launch(const void* x, const void* p, int n, int k, const void* w_theta,
 }  // namespace
 
 // dtype 0: float32, 1: bfloat16 (x, p, out, packed weights).
-// x (n, 128), p (n, k, 128), w_* packed (128*128*3 + 128*32) in (in, out)
+// x (n, f), p (n, k, f), w_* packed (f*128 + 128*128*2 + 128*32) in (in, out)
 // layout, b_* (128*3 + 32) float32; sel (n,) int32 or null (argmax
-// candidate of each row). 1 <= k <= 8, n >= 1; x, p and out 16-byte aligned.
-// bfloat16 runs the tensor-core body, float32 the FMA body. Returns a
-// cudaError_t value.
-extern "C" int rf_patch_attention(int dtype, const void* x, const void* p, int n, int k,
+// candidate of each row). f in {96, 128}, 1 <= k <= 8, n >= 1; x, p and out
+// 16-byte aligned. bfloat16 runs the tensor-core body, float32 the FMA body.
+// Returns a cudaError_t value.
+extern "C" int rf_patch_attention(int dtype, const void* x, const void* p, int n, int k, int f,
                                   const void* w_theta, const float* b_theta,
                                   const void* w_phi, const float* b_phi, int hard,
                                   float sharpness, void* out, int* sel,
                                   cudaStream_t stream) {
   if (k < 1 || k > kMaxK || n < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return hard ? launch<float, true>(x, p, n, k, w_theta, b_theta, w_phi, b_phi, sharpness,
-                                      out, sel, stream)
-                : launch<float, false>(x, p, n, k, w_theta, b_theta, w_phi, b_phi,
-                                       sharpness, out, sel, stream);
-  return hard ? launch<__nv_bfloat16, true>(x, p, n, k, w_theta, b_theta, w_phi, b_phi,
-                                            sharpness, out, sel, stream)
-              : launch<__nv_bfloat16, false>(x, p, n, k, w_theta, b_theta, w_phi, b_phi,
-                                             sharpness, out, sel, stream);
+  return with_width(f, [&](auto width) {
+    constexpr int F = decltype(width)::value;
+    if (dtype == 0)
+      return hard ? launch<float, F, true>(x, p, n, k, w_theta, b_theta, w_phi, b_phi,
+                                           sharpness, out, sel, stream)
+                  : launch<float, F, false>(x, p, n, k, w_theta, b_theta, w_phi, b_phi,
+                                            sharpness, out, sel, stream);
+    return hard ? launch<__nv_bfloat16, F, true>(x, p, n, k, w_theta, b_theta, w_phi, b_phi,
+                                                 sharpness, out, sel, stream)
+                : launch<__nv_bfloat16, F, false>(x, p, n, k, w_theta, b_theta, w_phi,
+                                                  b_phi, sharpness, out, sel, stream);
+  });
 }

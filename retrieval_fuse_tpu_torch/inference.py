@@ -32,7 +32,7 @@ from retrieval_fuse_tpu_torch.models import build_modules
 from retrieval_fuse_tpu_torch.ops import decoder_tail as dt
 from retrieval_fuse_tpu_torch.ops import patch_attention as pa
 from retrieval_fuse_tpu_torch.ops.decoder_tail import CompactPackedDecoder
-from retrieval_fuse_tpu_torch.ops.fold3d import fold3d, unfold3d
+from retrieval_fuse_tpu_torch.ops.fold3d import fold3d, unfold3d, unfold3d_pad_stride
 from retrieval_fuse_tpu_torch.ops.fused_backbone import FusedSuperres08Backbone
 from retrieval_fuse_tpu_torch.ops.fused_decoder import (
     DecomposedPackedDecoder, FusedFinalDecoder, PackedFinalDecoder)
@@ -55,6 +55,10 @@ ATTENTION_TOKENS = (("phib", "phibank"), ("pallasg2", "gathered2"), ("pallasg", 
                     ("pallasp", "packedrows"), ("pallas", "patches"))
 DECODER_TOKENS = (("cdec", "compact"), ("dconv", "decomposed"), ("packed", "packed"),
                   ("fused", "fused"))
+
+
+#: the most query-patch voxels the engine unfolds and encodes in one go
+QUERY_VOXELS = 1 << 25
 
 
 def _tensor(x, device, dtype) -> torch.Tensor:
@@ -85,11 +89,12 @@ def check_kernel_limits(config: dict, device, attention: str, decoder: str,
     """Raise ValueError when an engine on `device` would launch a CUDA
     kernel whose limits `config` breaks: the attention kernels of paths
     `patches` / `packedrows` (patch_attention), `gathered` (v1) and
-    `gathered2` (v2) take F features a row, an F -> hidden -> hidden ->
-    hidden -> C MLP, K candidates, and the gathered ones T rows a tile; the
-    decoder tail (`compact`) takes nf and a coarse grid S. The limits are
-    the constants the kernel wrappers check. On the CPU every path runs the
-    plain versions, which take any width."""
+    `gathered2` (v2) take F = nf·e³ features a row (one of the widths they
+    are built for), an F -> hidden -> hidden -> hidden -> C MLP, K
+    candidates, and the gathered ones T rows a tile; the decoder tail
+    (`compact`) takes nf and a coarse grid S. The limits are the constants
+    the kernel wrappers check. On the CPU every path runs the plain
+    versions, which take any width."""
     if torch.device(device).type != "cuda":
         return
     token = dict((v, t) for t, v in ATTENTION_TOKENS + DECODER_TOKENS)
@@ -99,20 +104,21 @@ def check_kernel_limits(config: dict, device, attention: str, decoder: str,
         e = geo.attn_extent
         t = (geo.attn_num_patch // geo.n_fold) ** 3
         gathered = attention in ("gathered", "gathered2")
+        f = nf * e ** 3
         max_k = pa.KERNEL_MAX_K
         if attention == "gathered" and compute_dtype == torch.float32:
-            max_k = pa.V1_F32_MAX_K
-        if (nf * e ** 3 != pa.KERNEL_FEATURES or not 1 <= k <= max_k
+            max_k = pa.V1_F32_MAX_K.get(f, pa.KERNEL_MAX_K)
+        if (f not in pa.KERNEL_FEATURE_WIDTHS or not 1 <= k <= max_k
                 or (gathered and t != pa.KERNEL_ROWS)):
             kernel = {"patches": "patch_attention", "packedrows": "patch_attention",
                       "gathered": "gathered_attention_v1",
                       "gathered2": "gathered_attention"}[attention]
             raise ValueError(
                 f"variant token {token[attention]!r} (attention {attention!r}) runs the "
-                f"{kernel} kernel, which takes F = {pa.KERNEL_FEATURES} features a row, "
-                f"hidden {pa.KERNEL_HIDDEN}, C = {pa.KERNEL_EMBED}, K <= {max_k}"
+                f"{kernel} kernel, which takes F in {pa.KERNEL_FEATURE_WIDTHS} features a "
+                f"row, hidden {pa.KERNEL_HIDDEN}, C = {pa.KERNEL_EMBED}, K <= {max_k}"
                 + (f", T = {pa.KERNEL_ROWS} rows a tile" if gathered else "")
-                + f"; this config gives F = nf·e³ = {nf * e ** 3}, K = {k}"
+                + f"; this config gives F = nf·e³ = {f}, K = {k}"
                 + (f", T = {t}" if gathered else "")
                 + "; serve it with another attention path or on the CPU")
     if decoder == "compact":
@@ -266,17 +272,12 @@ class RetrieveRefineEngine:
                           for s in range(0, n * t, batch)]).reshape(n, t, -1)
 
     def _unfold_input_patches(self, raw_input: torch.Tensor) -> torch.Tensor:
-        """(B, ics, ics, ics, 1) raw df -> (B*R³, p, p, p, 1) retrieval-normalised
+        """(B, ics, ics, ics, 1) raw input -> (B*R³, p, p, p, 1) retrieval-normalised
         overlapping patches, p = patch_size + 2*context, stride = patch_size;
-        the context comes from trunc padding."""
+        the context comes from trunc padding (empty space, 0, for occupancy
+        inputs, whose voxel size is 0)."""
         ps, ctx = self.r_patch_size, self.r_ctx
-        x = torch.nn.functional.pad(raw_input, (0, 0) + (ctx, ctx) * 3,
-                                    value=self.input_trunc)
-        side = ps + 2 * ctx
-        b, r = x.shape[0], raw_input.shape[1] // ps
-        px = x.unfold(1, side, ps).unfold(2, side, ps).unfold(3, side, ps)
-        # (b, r, r, r, 1, side, side, side) -> (b·r³, side, side, side, 1)
-        patches = px.permute(0, 1, 2, 3, 5, 6, 7, 4).reshape(b * r ** 3, side, side, side, 1)
+        patches = unfold3d_pad_stride(raw_input, ps + 2 * ctx, ctx, self.input_trunc, ps)
         return (patches - self.r_in_mean) / self.r_in_std
 
     def _use_streaming(self, n_queries: int) -> bool:
@@ -287,10 +288,17 @@ class RetrieveRefineEngine:
 
     @torch.inference_mode()
     def embed_queries(self, raw_input: torch.Tensor) -> torch.Tensor:
-        """(B, ics, ics, ics, 1) raw df -> (B·R³, latent) L2-normalised query
-        embeddings in the compute dtype."""
+        """(B, ics, ics, ics, 1) raw input -> (B·R³, latent) L2-normalised query
+        embeddings in the compute dtype. Items are unfolded and encoded a
+        few at a time, at most QUERY_VOXELS patch voxels, so that large
+        overlapping windows (64 of 48³ a 128³ chunk) and the encoder's
+        activations on them never exist for the whole batch at once."""
         cd = self.compute_dtype
-        z = self.fenc_input(self._unfold_input_patches(raw_input.float()).to(cd))
+        side = self.r_patch_size + 2 * self.r_ctx
+        per_item = (raw_input.shape[1] // self.r_patch_size) ** 3 * side ** 3
+        step = max(1, QUERY_VOXELS // per_item)
+        z = torch.cat([self.fenc_input(self._unfold_input_patches(
+            raw_input[i:i + step].float()).to(cd)) for i in range(0, raw_input.shape[0], step)])
         z = z.reshape(z.shape[0], -1)
         return z / torch.clamp(torch.linalg.vector_norm(z.float(), dim=1, keepdim=True),
                                min=1e-12).to(cd)

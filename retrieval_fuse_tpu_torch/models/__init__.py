@@ -11,13 +11,17 @@ from retrieval_fuse_tpu_torch.models.encoders import (
     make_encoder, INPUT_CODE_TO_ENCODER, TARGET_CODE_TO_ENCODER, ConvPatchEncoder,
     MLPPatchEncoder)
 from retrieval_fuse_tpu_torch.models.refinement import (
-    Superresolution08UNetBackbone, Superresolution08FinalDecoder, RetrievalUNetBackbone)
+    Superresolution08UNetBackbone, Superresolution16UNetBackbone,
+    SurfaceReconstructionUNetBackbone, Superresolution08FinalDecoder, RetrievalUNetBackbone)
 from retrieval_fuse_tpu_torch.models.attention import AttentionBlock, PatchedAttentionBlock
+from retrieval_fuse_tpu_torch.models.unet import UNet3D, ResidualUNet3D, DecoderNoJoining
 
 __all__ = [
     "ConvPatchEncoder", "MLPPatchEncoder", "AttentionBlock", "PatchedAttentionBlock",
-    "Superresolution08UNetBackbone", "Superresolution08FinalDecoder",
-    "RetrievalUNetBackbone", "get_retrieval_networks", "get_input_encoder",
+    "Superresolution08UNetBackbone", "Superresolution16UNetBackbone",
+    "SurfaceReconstructionUNetBackbone", "Superresolution08FinalDecoder",
+    "RetrievalUNetBackbone", "UNet3D", "ResidualUNet3D", "DecoderNoJoining",
+    "get_retrieval_networks", "get_input_encoder",
     "get_unet_backbone", "get_decoder", "get_retrieval_backbone", "get_attention_block",
     "build_modules", "init_module_params", "init_params",
 ]
@@ -44,14 +48,18 @@ def get_input_encoder(model_config: dict) -> nn.Module:
 
 
 def get_unet_backbone(config: dict) -> nn.Module:
-    if config["task"] == "superresolution" and config["dataset_train"]["input_chunk_size"] == 8:
-        return Superresolution08UNetBackbone(
-            nf=config["nf"], num_levels=config["unet_num_level"],
-            layer_order=config["layer_order"])
-    raise NotImplementedError(
-        "only the 8³ super-resolution backbone is ported "
-        f"(task={config['task']}, input_chunk_size="
-        f"{config['dataset_train']['input_chunk_size']})")
+    """The refinement backbone of the config's task and input chunk size."""
+    kw = dict(nf=config["nf"], num_levels=config["unet_num_level"],
+              layer_order=config["layer_order"])
+    if config["task"] == "superresolution":
+        ics = config["dataset_train"]["input_chunk_size"]
+        if ics == 8:
+            return Superresolution08UNetBackbone(**kw)
+        if ics == 16:
+            return Superresolution16UNetBackbone(**kw)
+    if config["task"] == "surface_reconstruction":
+        return SurfaceReconstructionUNetBackbone(**kw)
+    raise ValueError(f"no backbone for task={config['task']}")
 
 
 def get_decoder(config: dict) -> nn.Module:
@@ -108,10 +116,11 @@ def init_params(config: dict, seed: int) -> dict[str, dict[str, torch.Tensor]]:
 
 def init_module_params(module: nn.Module, rng: np.random.Generator) -> dict[str, torch.Tensor]:
     """A random state_dict for `module`: conv and linear weights and biases
-    U(-1/√fan_in, 1/√fan_in) drawn from `rng`, everything else as built."""
+    U(-1/√fan_in, 1/√fan_in) drawn from `rng` (a transposed conv's fan is
+    its out channels x taps, as PyTorch's), everything else as built."""
     sd = module.state_dict()
     for mod_name, mod in module.named_modules():
-        if isinstance(mod, (nn.Conv3d, nn.Linear)):
+        if isinstance(mod, (nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
             bound = 1.0 / np.sqrt(mod.weight[0].numel())
             for p in ("weight", "bias"):
                 key = f"{mod_name}.{p}"

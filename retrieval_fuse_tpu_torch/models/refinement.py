@@ -2,9 +2,11 @@
 package's models/refinement.py. Each takes and returns channels-last
 (B, D, H, W, C) tensors; inside they run NCDHW (a permuted view, no copy).
 
-Ported: Superresolution08UNetBackbone, Superresolution08FinalDecoder,
-RetrievalUNetBackbone (the serving path). The Superresolution16 and
-SurfaceReconstruction backbones are not ported yet.
+The four task stacks of the JAX package: Superresolution08UNetBackbone
+(8³ -> 32³), Superresolution16UNetBackbone (16³ -> 32³),
+SurfaceReconstructionUNetBackbone (128³ occupancy -> 32³, a five-level
+UNet3D whose two finest decoders are removed), the final decoder that every
+task shares (32³ -> 64³), and the retrieval backbone (16³ tiles -> 8³).
 """
 
 from __future__ import annotations
@@ -42,6 +44,33 @@ class Superresolution08UNetBackbone(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _ndhwc(self.up1(self.up0(self.unet(_ncdhw(x)))))
+
+
+class Superresolution16UNetBackbone(nn.Module):
+    """(B, 16, 16, 16, 1) -> (B, 32, 32, 32, nf)."""
+
+    def __init__(self, nf: int, num_levels: int = 4, layer_order: str = "gcr"):
+        super().__init__()
+        self.unet = UNet3D(1, 2 * nf, f_maps=nf, num_groups=nf // 2,
+                           layer_order=layer_order, num_levels=num_levels)
+        self.up0 = DecoderNoJoining(2 * nf, nf, conv_layer_order=layer_order,
+                                    num_groups=nf // 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _ndhwc(self.up0(self.unet(_ncdhw(x))))
+
+
+class SurfaceReconstructionUNetBackbone(nn.Module):
+    """(B, S, S, S, 1) occupancy -> (B, S/4, S/4, S/4, nf); S = 128 in the
+    shipped configs."""
+
+    def __init__(self, nf: int, num_levels: int = 5, layer_order: str = "gcr"):
+        super().__init__()
+        self.unet = UNet3D(1, nf, f_maps=nf, num_groups=nf // 2, layer_order=layer_order,
+                           num_levels=num_levels, remove_n_final_layers=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _ndhwc(self.unet(_ncdhw(x)))
 
 
 class Superresolution08FinalDecoder(nn.Module):

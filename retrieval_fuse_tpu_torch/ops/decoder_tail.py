@@ -6,11 +6,13 @@ Kernel: csrc/decoder_tail.cu, replacing the Pallas `packed_decoder_tail`
 It runs conv2 (3³, nf -> nf) of the 2x grid, ReLU, the 1x1 head, bias and
 tanh in one pass over conv1's packed S³ output, so no (2S)³ tensor is
 written: the direct 27-tap conv, read through the packed layout. In bf16 at
-nf = 16 (the flagship width) it is an implicit GEMM on the tensor cores
-(`mma.sync.m16n8k16`, bf16 products, float32 sums: one tap is one k16 step)
-over a bf16 slab in shared memory, filled once for 2 x 2 packed positions by
-the copy warps of a persistent block while its compute warps run the tile
-before; in float32, and at nf 4 and 8, it multiplies with float32 FMAs
+nf = 16 (the flagship width) and nf = 12 (surface reconstruction, its
+channels zero-padded to 16 in shared memory) it is an implicit GEMM on the
+tensor cores (`mma.sync.m16n8k16`, bf16 products, float32 sums: one tap is
+one k16 step) over a bf16 slab in shared memory, filled once for 2 x 2
+packed positions by the copy warps of a persistent block while its compute
+warps run the tile before; in float32, and at nf 4 and 8, it multiplies
+with float32 FMAs
 (float32 on the tensor cores would be TF32). `decoder_tail.math` names the
 path of the last launch. Its bound on the H100 at batch 128 (S=32, nf=16)
 is 0.47 ms of bf16 tensor-core work (465 GFLOP) against 0.43 ms of bytes
@@ -38,18 +40,18 @@ import torch
 import torch.nn.functional as F
 
 from retrieval_fuse_tpu_torch.ops import _build
-from retrieval_fuse_tpu_torch.ops.fused_decoder import FusedFinalDecoder, _groups
+from retrieval_fuse_tpu_torch.ops.fused_decoder import FusedFinalDecoder, _groups, group_moments
 
-KERNEL_NF = (4, 8, 16)  # the kernel's conv widths
+KERNEL_NF = (4, 8, 12, 16)  # the kernel's conv widths
 KERNEL_MAX_S = 80  # the largest coarse grid whose slab fits a block's shared memory
-MMA_NF = 16             # the width whose bf16 launch runs on the tensor cores
+MMA_NF = (12, 16)  # the widths whose bf16 launch runs on the tensor cores
 
 
 def kernel_math(dtype: torch.dtype, nf: int) -> str:
     """The instruction path of csrc/decoder_tail.cu for an input of `dtype`
-    and conv width nf: its dispatch sends bf16 at nf = 16 to the tensor-core
-    body and everything else to the float32-FMA body."""
-    return "mma.bf16" if dtype == torch.bfloat16 and nf == MMA_NF else "fma.f32"
+    and conv width nf: its dispatch sends bf16 at nf 12 and 16 to the
+    tensor-core body and everything else to the float32-FMA body."""
+    return "mma.bf16" if dtype == torch.bfloat16 and nf in MMA_NF else "fma.f32"
 
 _YS = (-1, 0, 1, 2)  # 2x-grid tap offsets reachable from a packed position
 #: the JAX helper's im2col row-block order: y2-major, then y0, y1
@@ -182,8 +184,7 @@ class CompactPackedDecoder(FusedFinalDecoder):
         b = h.shape[0]
         g = _groups(nf, self.num_groups)
         xg = h.reshape(b, -1, 8, g, nf // g).float()
-        mean = xg.mean(dim=(1, 2, 4))                       # (B, g)
-        var = ((xg - mean[:, None, None, :, None]) ** 2).mean(dim=(1, 2, 4))
+        mean, var = (m.reshape(b, g) for m in group_moments(xg, (1, 2, 4)))
         rstd = torch.rsqrt(var + 1e-5)
         scale8 = self.gn2_scale.float().repeat(8).reshape(8, g, nf // g)
         bias8 = self.gn2_bias.float().repeat(8).reshape(8, g, nf // g)

@@ -1,5 +1,5 @@
-"""Serving decoders of the 8³ super-resolution head on the coarse grid, as in
-the JAX package's ops/fused_decoder.py.
+"""Serving decoders of the final decoder that every task shares, on the
+coarse grid, as in the JAX package's ops/fused_decoder.py.
 
 The final decoder (models/refinement.Superresolution08FinalDecoder) is
 GN -> nearest-2x upsample -> 3³ conv -> ReLU -> GN -> 3³ conv -> ReLU ->
@@ -154,6 +154,19 @@ def _groups(c: int, num_groups: int) -> int:
     return num_groups if (c >= num_groups and c % num_groups == 0) else 1
 
 
+def group_moments(xg: torch.Tensor, dims: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mean and centred variance of float32 xg over `dims` (kept), as
+    flax's GroupNorm takes them, in float32. On the CPU the sums accumulate
+    in float64: PyTorch's CPU sum along an axis that is not the innermost
+    runs in sequence, and over a group of 10^5-10^6 values (a 64³ decoder
+    grid) its float32 error reaches 1e-4 of the normalised values; CUDA's
+    tree reductions keep float32's precision, and their float32 sums stay."""
+    acc = torch.float64 if xg.device.type == "cpu" else None
+    mean = xg.mean(dim=dims, keepdim=True, dtype=acc).float()
+    var = ((xg - mean) ** 2).mean(dim=dims, keepdim=True, dtype=acc).float()
+    return mean, var
+
+
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                num_groups: int, eps: float = 1e-5) -> torch.Tensor:
     """flax GroupNorm on channels-last x: statistics over the spatial axes
@@ -161,8 +174,7 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     b, c = x.shape[0], x.shape[-1]
     g = _groups(c, num_groups)
     xg = x.reshape(b, -1, g, c // g).float()
-    mean = xg.mean(dim=(1, 3), keepdim=True)
-    var = ((xg - mean) ** 2).mean(dim=(1, 3), keepdim=True)
+    mean, var = group_moments(xg, (1, 3))
     xn = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
     return (xn * scale.float() + bias.float()).to(x.dtype)
 
@@ -175,8 +187,7 @@ def group_norm_packed(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     b = x.shape[0]
     g = _groups(nf, num_groups)
     xg = x.reshape(b, -1, 8, g, nf // g).float()
-    mean = xg.mean(dim=(1, 2, 4), keepdim=True)
-    var = ((xg - mean) ** 2).mean(dim=(1, 2, 4), keepdim=True)
+    mean, var = group_moments(xg, (1, 2, 4))
     xn = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
     return (xn * scale.float().repeat(8) + bias.float().repeat(8)).to(x.dtype)
 

@@ -21,7 +21,9 @@
 All three share one CUDA body (csrc/attention.cuh): theta MLP on x, phi MLP
 on every candidate, normalised scores, ReLU-of-max switch, hard argmax(25 s)
 or softmax(sharpness s) selection, blend; only the (T, F) output rows are
-written. Bound on the H100 at batch 128 (8192 tiles of 64 rows, K=4, bf16):
+written. Rows are F = nf·e³ features: 128 at nf 16 (super-resolution),
+96 at nf 12 (surface reconstruction). Bound on the H100 at batch 128 (8192
+tiles of 64 rows, K=4, F = 128, bf16):
 279 GFLOP of MLP GEMMs, ~0.28 ms at the bf16 tensor-core rate, against
 ~0.8 GB of rows, ~0.24 ms. In bf16 all three run the body on the tensor
 cores (`mma.sync.m16n8k16`, bf16 products, float32 sums): persistent blocks,
@@ -37,15 +39,17 @@ and then turns theta's bytes into rings of candidate tiles that one thread
 a ring fills with `cp.async.bulk` ahead of the warps
 (csrc/gathered_attention_v1.cu). In float32 (TF32 would cost ~3 decimal
 digits) the body multiplies with float32 FMAs from shared memory; v1 then
-stages a tile's K candidates whole, which caps K at 4. Each wrapper's `.math`
+stages a tile's K candidates whole, which caps K at 4 (F = 128) or 5 (F =
+96). Each wrapper's `.math`
 names the path of its last launch. The TPU workarounds are not carried
 over: the 512-row padding of N, the flattened index operand, the padding of
 Q to a group multiple.
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 PyTorch version on CPU tensors; it never falls back from one to the other.
-The kernels take F=128, hidden 128, C=32 (the shipped geometry), T=64 for
-the gathered ones; the plain versions take any.
+The kernels take F in KERNEL_FEATURE_WIDTHS, hidden 128, C=32 (every
+shipped config), T=64 for the gathered ones, and raise on anything else;
+the plain versions take any.
 """
 
 from __future__ import annotations
@@ -57,13 +61,16 @@ from torch import nn
 from retrieval_fuse_tpu_torch.ops import _build
 
 #: what the kernels take (the plain versions take any): T rows a tile (the
-#: gathered kernels), F features a row, MLP hidden width, C embedding width,
-#: and K candidates
-KERNEL_ROWS, KERNEL_FEATURES, KERNEL_HIDDEN, KERNEL_EMBED = 64, 128, 128, 32
+#: gathered kernels), MLP hidden width, C embedding width, K candidates, and
+#: the widths F of a row they are built for (nf·e³ at e = 2: nf 12 and 16;
+#: csrc/attention.cuh `with_width`)
+KERNEL_ROWS, KERNEL_HIDDEN, KERNEL_EMBED = 64, 128, 32
 KERNEL_MAX_K = 8
-#: shared memory for gathered_patch_attention_v1's float32 staging (K whole tiles)
+KERNEL_FEATURE_WIDTHS = (96, 128)
+#: shared memory for gathered_patch_attention_v1's float32 staging (K whole
+#: tiles), and the K it takes in float32 at each width
 V1_STAGE_BYTES = 128 * 1024
-V1_F32_MAX_K = V1_STAGE_BYTES // (KERNEL_ROWS * KERNEL_FEATURES * 4)
+V1_F32_MAX_K = {f: V1_STAGE_BYTES // (KERNEL_ROWS * f * 4) for f in KERNEL_FEATURE_WIDTHS}
 _LAYERS = ("fc0", "fc1", "fc2", "out")
 
 
@@ -162,8 +169,9 @@ def kernel_math(kernel: str, dtype: torch.dtype) -> str:
 
 
 def _check_kernel_operands(name: str, rows: torch.Tensor, cands: torch.Tensor, idx,
-                           theta: nn.Module, phi: nn.Module) -> None:
-    """Device, dtype, contiguity and MLP-shape checks shared by the wrappers."""
+                           theta: nn.Module, phi: nn.Module) -> int:
+    """Device, dtype, contiguity, width and MLP-shape checks shared by the
+    wrappers; returns the row width F."""
     dev = rows.device
     if dev.type != "cuda" or cands.device != dev or (idx is not None and idx.device != dev):
         raise ValueError(f"{name}: the row, candidate and index tensors must be on one "
@@ -176,14 +184,19 @@ def _check_kernel_operands(name: str, rows: torch.Tensor, cands: torch.Tensor, i
         raise ValueError(f"{name}: inputs must be contiguous")
     if rows.data_ptr() % 16 or cands.data_ptr() % 16:
         raise ValueError(f"{name}: rows and candidates must be 16-byte aligned")
+    f = rows.shape[-1]
+    if f not in KERNEL_FEATURE_WIDTHS:
+        raise ValueError(f"{name}: the kernel takes rows of F in {KERNEL_FEATURE_WIDTHS} "
+                         f"features, got F = {f}")
     for w in (theta, phi):
         h = KERNEL_HIDDEN
-        if (tuple(w.fc0.weight.shape) != (h, KERNEL_FEATURES)
+        if (tuple(w.fc0.weight.shape) != (h, f)
                 or tuple(w.fc1.weight.shape) != (h, h)
                 or tuple(w.fc2.weight.shape) != (h, h)
                 or tuple(w.out.weight.shape) != (KERNEL_EMBED, h)):
-            raise ValueError(f"{name}: the kernel takes {KERNEL_FEATURES}->{h}->{h}->{h}->"
-                             f"{KERNEL_EMBED} MLPs")
+            raise ValueError(f"{name}: the kernel takes {f}->{h}->{h}->{h}->"
+                             f"{KERNEL_EMBED} MLPs for rows of F = {f}")
+    return f
 
 
 def _launch(kernel: str, rows: torch.Tensor, operands: tuple, theta, phi,
@@ -213,17 +226,16 @@ def patch_attention(x: torch.Tensor, p: torch.Tensor, theta: nn.Module, phi: nn.
     if x.device.type == "cpu" and p.device.type == "cpu":
         out, sel = patch_attention_plain(x, p, theta, phi, K, retrieval_mode, sharpness)
         return (out, sel) if return_selection else out
-    _check_kernel_operands("patch_attention", x, p, None, theta, phi)
+    f = _check_kernel_operands("patch_attention", x, p, None, theta, phi)
     n = x.shape[0]
-    if (x.dim() != 2 or x.shape[1] != KERNEL_FEATURES
-            or tuple(p.shape) != (n, K, KERNEL_FEATURES) or not 1 <= K <= KERNEL_MAX_K):
-        raise ValueError(f"patch_attention: the kernel takes x (N, {KERNEL_FEATURES}) and p "
-                         f"(N, K, {KERNEL_FEATURES}) with 1 <= K <= {KERNEL_MAX_K}, got "
-                         f"{tuple(x.shape)} and {tuple(p.shape)}")
+    if x.dim() != 2 or tuple(p.shape) != (n, K, f) or not 1 <= K <= KERNEL_MAX_K:
+        raise ValueError(f"patch_attention: the kernel takes x (N, F) and p (N, K, F) with "
+                         f"1 <= K <= {KERNEL_MAX_K}, got {tuple(x.shape)} and {tuple(p.shape)}")
     out = torch.empty_like(x)
     sel = torch.empty((n,), dtype=torch.int32, device=x.device) if return_selection else None
     if n > 0:
-        patch_attention.math = _launch("patch_attention", x, (x.data_ptr(), p.data_ptr(), n, K),
+        patch_attention.math = _launch("patch_attention", x,
+                                       (x.data_ptr(), p.data_ptr(), n, K, f),
                                        theta, phi, retrieval_mode, sharpness, out, sel)
         patch_attention.launches += 1
     return (out, sel) if return_selection else out
@@ -235,8 +247,8 @@ def _gathered(wrapper, name: str, xt, bank_rows, top_idx, theta, phi, K, retriev
     `wrapper`, whose launch count and instruction path it updates. `staged`:
     the kernel is v1, whose float32 launch stages K whole tiles and whose
     bf16 launch takes a (Q, T, C) float32 scratch for theta's embeddings."""
-    _check_kernel_operands(name, xt, bank_rows, top_idx, theta, phi)
-    rows, feats = KERNEL_ROWS, KERNEL_FEATURES
+    feats = _check_kernel_operands(name, xt, bank_rows, top_idx, theta, phi)
+    rows = KERNEL_ROWS
     q = xt.shape[0]
     if (xt.dim() != 3 or tuple(xt.shape[1:]) != (rows, feats) or bank_rows.dim() != 3
             or tuple(bank_rows.shape[1:]) != (rows, feats)):
@@ -248,10 +260,10 @@ def _gathered(wrapper, name: str, xt, bank_rows, top_idx, theta, phi, K, retriev
                          f"{KERNEL_MAX_K}, got {top_idx.dtype} {tuple(top_idx.shape)}")
     scratch = ()
     if staged and xt.dtype == torch.float32:
-        if K > V1_F32_MAX_K:
-            raise ValueError(f"{name}: K={K} float32 candidate tiles exceed the "
-                             f"{V1_STAGE_BYTES}-byte staging area (K <= {V1_F32_MAX_K} in "
-                             f"float32)")
+        if K > V1_F32_MAX_K[feats]:
+            raise ValueError(f"{name}: K={K} float32 candidate tiles of F = {feats} exceed the "
+                             f"{V1_STAGE_BYTES}-byte staging area (K <= {V1_F32_MAX_K[feats]} "
+                             f"in float32)")
         scratch = (None,)
     elif staged:
         scratch = (torch.empty((q, rows, KERNEL_EMBED), dtype=torch.float32, device=xt.device),)
@@ -259,7 +271,7 @@ def _gathered(wrapper, name: str, xt, bank_rows, top_idx, theta, phi, K, retriev
     sel = torch.empty((q, rows), dtype=torch.int32, device=xt.device) if return_selection else None
     if q > 0:
         wrapper.math = _launch(name, xt, (xt.data_ptr(), bank_rows.data_ptr(),
-                                          top_idx.data_ptr(), q, K),
+                                          top_idx.data_ptr(), q, K, feats),
                                theta, phi, retrieval_mode, sharpness, out, sel, scratch)
         wrapper.launches += 1
     return (out, sel) if return_selection else out
@@ -290,7 +302,7 @@ def gathered_patch_attention_v1(xt: torch.Tensor, bank_rows: torch.Tensor,
                                 sharpness: float = 1024.0, return_selection: bool = False):
     """gathered_patch_attention's function, through the kernel that stages
     candidate tiles in shared memory with bulk asynchronous copies (bf16: a
-    ring, K <= 8; float32: a tile's K candidates whole, K <= 4)."""
+    ring, K <= 8; float32: a tile's K candidates whole, K <= V1_F32_MAX_K[F])."""
     if xt.device.type == "cpu" and bank_rows.device.type == "cpu":
         out, sel = gathered_patch_attention_v1_plain(xt, bank_rows, top_idx, theta, phi, K,
                                                      retrieval_mode, sharpness)

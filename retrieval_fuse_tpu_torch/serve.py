@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -32,6 +33,13 @@ from retrieval_fuse_tpu_torch.train.checkpoint import load_checkpoint
 from retrieval_fuse_tpu_torch.utils.misc import get_tree_path
 
 OBJ_NOT_PORTED = "--obj needs marching cubes, which is not ported yet (ROADMAP Queue 1 item 8)"
+
+
+def code_geometry(code: str) -> tuple[int, int]:
+    """(patch size, context) of a retrieval network code such as "2+1",
+    "4+2N", "16+4V2" or "pc_32+8"."""
+    size, ctx = code.removeprefix("pc_").split("+")
+    return int(size), int(re.match(r"\d+", ctx).group())
 
 
 def dictionary_patch_size(database: np.ndarray) -> int:
@@ -89,7 +97,7 @@ def verify_bank_database_alignment(config: dict, fenc_target_params: dict, datab
     fenc_target = get_retrieval_networks(rm)[1]
     fenc_target.load_state_dict(fenc_target_params)
     fenc_target.to(dev).eval()
-    ps, ctx = (int(v) for v in rm["network_target"].replace("pc_", "").split("+"))
+    ps, ctx = code_geometry(rm["network_target"])
     dtr = config["dataset_train"]
     t_mean = config.get("retrieval_norm", {}).get("target_mean", dtr["target_mean"])
     t_std = config.get("retrieval_norm", {}).get("target_std", dtr["target_std"])
@@ -142,7 +150,10 @@ def build_engine_from_artifacts(config: dict, retrieval_ckpt, refinement_ckpt,
     `variant` is a variant string (inference.variant_engine_kwargs, e.g.
     inference.FAST_VARIANT) and overrides the two boolean options, which
     are the `fused` and `pallas` tokens. `verify_alignment`
-    re-embeds a sample of the bank against its database rows first."""
+    re-embeds a sample of the bank against its database rows first. The
+    engine's query patches take the input encoder's geometry (its network
+    code, e.g. 48³ windows at stride 32 for "pc_32+8") unless the config
+    sets retrieval_patch_size_input / retrieval_patch_context_input."""
     from retrieval_fuse_tpu_torch.inference import RetrieveRefineEngine, variant_engine_kwargs
 
     dev = resolve_device(device)
@@ -152,6 +163,9 @@ def build_engine_from_artifacts(config: dict, retrieval_ckpt, refinement_ckpt,
     database = np.load(tree_path / "database.npy")
     scene_list = json.loads((tree_path / "index.json").read_text())
     config["retrieval_patch_size_target"] = dictionary_patch_size(database)
+    ps, ctx = code_geometry(config["retrieval_model"]["network_input"])
+    config.setdefault("retrieval_patch_size_input", ps)
+    config.setdefault("retrieval_patch_context_input", ctx)
 
     ds_train = PatchedSceneDataset("train", config["dataset_train"], SceneHandler("train", config))
     bank = build_patch_bank_from_database(database, scene_list, ds_train)

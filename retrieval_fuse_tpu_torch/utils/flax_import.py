@@ -5,6 +5,9 @@ port's modules carry the flax module names, so the nested-dict path of each
 leaf is its state_dict key; only the leaf names and layouts change:
 
   Conv   kernel (kD, kH, kW, I, O) -> weight (O, I, kD, kH, kW)
+  TorchConvTranspose2x (a module named `upconv`): its correlation kernel
+         (kD, kH, kW, I, O), spatially flipped -> ConvTranspose3d weight
+         (I, O, kD, kH, kW)
   Dense  kernel (I, O)             -> weight (O, I)
   GroupNorm / BatchNorm scale      -> weight
   bias, sig_scale, sig_shift       -> unchanged
@@ -28,6 +31,8 @@ import torch
 
 
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+#: flax modules whose 5-D kernel is a transposed conv's correlation kernel
+TRANSPOSED_CONV_NAMES = ("upconv",)
 
 
 def flax_to_state_dict(params: Mapping, batch_stats: Mapping | None = None
@@ -44,7 +49,10 @@ def flax_to_state_dict(params: Mapping, batch_stats: Mapping | None = None
                 continue
             a = np.asarray(leaf).astype(np.float32)
             if name == "kernel":
-                if a.ndim == 5:
+                if a.ndim == 5 and prefix.rstrip(".").rpartition(".")[2] in TRANSPOSED_CONV_NAMES:
+                    # a transposed conv is a correlation with the flipped kernel
+                    a, name = a[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2), "weight"
+                elif a.ndim == 5:
                     a, name = a.transpose(4, 3, 0, 1, 2), "weight"
                 elif a.ndim == 2:
                     a, name = a.T, "weight"

@@ -1,5 +1,6 @@
 """The port's seven CUDA kernels against their plain PyTorch versions, on a
-CUDA card (skipped elsewhere: the kernels have no CPU mode). This file imports
+CUDA card (skipped elsewhere: the kernels have no CPU mode), the attention
+kernels at F = 128 and 96 and the decoder tail at nf 4, 8, 12 and 16. This file imports
 neither JAX nor the JAX package, so it runs where only PyTorch is:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py
@@ -495,6 +496,130 @@ def test_chamfer_kernel_rejects_what_it_does_not_take(cuda):
         chamfer_minima(pts, n.cpu(), pts, n)
 
 
+# ------------------------------------------- the widths of nf 12 (F = 96)
+
+
+def _attention_at(dev, kernel, dtype, retrieval_mode, q, k, seed):
+    """One launch of attention kernel `kernel` ("v2", "v1" or "patch") at
+    F = 96 on seeded rows, and its plain version's output."""
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(seed), q, 50, 64, 96, k)
+    theta, phi = theta.to(dev, dtype), phi.to(dev, dtype)
+    xt, bank = (torch.from_numpy(a).to(dev, dtype) for a in (xt, bank))
+    idx = torch.from_numpy(idx).to(dev)
+    if kernel == "patch":
+        n = q * 64 - 23
+        rows = torch.from_numpy(np.random.default_rng(seed + 1).integers(0, 50 * 64, (n, k)))
+        args = (xt.reshape(-1, 96)[:n].contiguous(),
+                bank.reshape(-1, 96)[rows.to(dev)].contiguous())
+        fn, plain = pa.patch_attention, pa.patch_attention_plain
+    else:
+        args = (xt, bank, idx)
+        fn, plain = {"v2": (pa.gathered_patch_attention, pa.gathered_patch_attention_plain),
+                     "v1": (pa.gathered_patch_attention_v1,
+                            pa.gathered_patch_attention_v1_plain)}[kernel]
+    with torch.no_grad():
+        before = fn.launches
+        out, sel = fn(*args, theta, phi, k, retrieval_mode, return_selection=True)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert fn.math == ("mma.bf16" if dtype == torch.bfloat16 else "fma.f32")
+        want, want_sel = plain(*args, theta, phi, k, retrieval_mode)
+    assert out.shape == args[0].shape and out.dtype == dtype
+    return out, sel, want, want_sel
+
+
+@pytest.mark.parametrize("retrieval_mode", [True, False], ids=["hard", "softmax"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["v2", "v1", "patch"])
+def test_attention_kernels_at_f96_match_plain(cuda, kernel, dtype, retrieval_mode):
+    """F = 96, the surface-reconstruction width, through each of the three
+    kernels: ragged N for patch_attention, more tiles than one round of the
+    persistent grid (300), K = 4; the F = 128 tests' tolerances."""
+    out, sel, want, want_sel = _attention_at(cuda, kernel, dtype, retrieval_mode, 300, 4, 30)
+    if dtype == torch.float32:
+        _agree(out, sel, want, want_sel, 0.999, 1e-4)
+    else:
+        _agree(out, sel, want, want_sel, 0.99, _BF16_TOL[retrieval_mode])
+        assert float((out.float() - want.float()).abs().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("kernel, q, k", [("v2", 3, 8), ("v1", 5, 1), ("v1", 133, 8),
+                                          ("patch", 2, 8)])
+def test_attention_tensor_core_body_at_f96(cuda, kernel, q, k):
+    """bf16 at F = 96: under one tile, K = 1 and K = 8 (more candidates than
+    a v1 ring has slots)."""
+    out, sel, want, want_sel = _attention_at(cuda, kernel, torch.bfloat16, True, q, k, 31)
+    assert int(sel.min()) >= 0 and int(sel.max()) < k
+    _agree(out, sel, want, want_sel, 0.99, _BF16_TOL[True])
+
+
+def test_v1_float32_staging_at_f96(cuda):
+    """Float32 tiles of F = 96 take 24 KB: v1 stages K = 5 of them (one more
+    than at F = 128) and refuses K = 6."""
+    assert pa.V1_F32_MAX_K[96] == 5
+    out, sel, want, want_sel = _attention_at(cuda, "v1", torch.float32, True, 7, 5, 32)
+    _agree(out, sel, want, want_sel, 0.999, 1e-4)
+    with pytest.raises(ValueError, match="K <= 5"):
+        _attention_at(cuda, "v1", torch.float32, True, 7, 6, 32)
+
+
+def test_attention_kernels_refuse_other_widths(cuda):
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(33), 3, 9, 64, 64, 2)
+    args = [torch.from_numpy(a).to(cuda) for a in (xt, bank, idx)]
+    before = pa.gathered_patch_attention.launches
+    with pytest.raises(ValueError, match=r"F in \(96, 128\)"):
+        pa.gathered_patch_attention(*args, theta.to(cuda), phi.to(cuda), 2)
+    assert pa.gathered_patch_attention.launches == before
+
+
+@pytest.mark.parametrize("b, s", [(1, 1), (3, 5), (2, 32), (1, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decoder_tail_at_nf12_matches_plain(cuda, dtype, b, s):
+    """nf 12: bf16 on the tensor cores with the channels zero-padded to 16
+    (S below, at an odd count of and past the 2 x 2 tile, the serving S = 32
+    with two slabs and S = 33 with one), float32 on FMAs; the nf 16
+    tolerances."""
+    rng = np.random.default_rng(34)
+    nf = 12
+    hn = torch.zeros((b, s + 2, s + 2, s + 2, 8 * nf))
+    hn[:, 1:-1, 1:-1, 1:-1] = torch.from_numpy(
+        rng.standard_normal((b, s, s, s, 8 * nf)).astype(np.float32))
+    hn = hn.to(cuda, dtype)
+    w2 = torch.from_numpy(rng.standard_normal((3, 3, 3, nf, nf)).astype(np.float32)
+                          / np.sqrt(27 * nf)).to(cuda, dtype)
+    wh = torch.from_numpy(rng.standard_normal(nf).astype(np.float32) / np.sqrt(nf)).to(cuda, dtype)
+    before = dt.decoder_tail.launches
+    out = dt.decoder_tail(hn, w2, wh, 0.3)
+    torch.cuda.synchronize()
+    assert dt.decoder_tail.launches == before + 1
+    assert dt.decoder_tail.math == ("mma.bf16" if dtype == torch.bfloat16 else "fma.f32")
+    want = dt.decoder_tail_plain(hn, w2, wh, 0.3)
+    assert out.shape == (b, s, s, s, 8) and out.dtype == torch.float32
+    assert float((out - want).abs().max()) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def test_kernel_limits_at_nf12_and_past_the_widths():
+    """Runs on the CPU (a CUDA device is only named): the one set of
+    constants takes F = 96 and nf 12 (the 3DFront surface-reconstruction
+    config); nf 20 (F = 160) is refused by the attention kernels and the
+    decoder tail, each named."""
+    from chip_smoke import surface_config
+    from retrieval_fuse_tpu_torch.inference import check_kernel_limits, variant_engine_kwargs
+    kw = variant_engine_kwargs("fused+pallasp+topk1p+cdec")
+    for nf, ok in ((12, True), (16, True), (20, False)):
+        cfg = dict(surface_config(), nf=nf)
+        if ok:
+            check_kernel_limits(cfg, torch.device("cuda"), kw["attention"], kw["decoder"])
+            continue
+        with pytest.raises(ValueError, match="patch_attention kernel.*F = nf·e³ = 160"):
+            check_kernel_limits(cfg, torch.device("cuda"), kw["attention"], kw["decoder"])
+        with pytest.raises(ValueError, match=r"decoder_tail kernel.*\(4, 8, 12, 16\).*nf = 20"):
+            check_kernel_limits(cfg, torch.device("cuda"), "modules", "compact")
+    assert pa.KERNEL_FEATURE_WIDTHS == (96, 128) and dt.KERNEL_NF == (4, 8, 12, 16)
+    assert pa.V1_F32_MAX_K == {96: 5, 128: 4}
+    assert dt.kernel_math(torch.bfloat16, 12) == "mma.bf16"
+
+
 # ------------------------------------------------------------ training
 
 
@@ -546,8 +671,8 @@ def test_batchnorm_encoder_train_mode_on_the_card(cuda):
 
 @pytest.mark.parametrize("nf, variant, kernel", [
     (4, "fused+pallasg2+topk1p", "gathered_attention"),
-    (12, "fused+pallasp+topk1p+cdec", "patch_attention"),
-    (12, "cdec", "decoder_tail")])
+    (20, "fused+pallasp+topk1p+cdec", "patch_attention"),
+    (20, "cdec", "decoder_tail")])
 def test_engine_build_refuses_kernel_limits_on_the_card(cuda, nf, variant, kernel):
     """An engine on the card whose kernel path breaks a kernel's limits
     raises at construction, naming the kernel, before any launch."""

@@ -103,11 +103,14 @@ def printed_metrics(text: str) -> list:
 
 @pytest.mark.parametrize("rel", YAMLS)
 def test_read_config_matches_jax(rel):
-    path = jconfig.CONFIG_ROOT / rel
-    assert tconfig.CONFIG_ROOT == jconfig.CONFIG_ROOT
+    """Each package reads its own YAML tree, the port's a byte-for-byte
+    copy, to the same config."""
+    assert tconfig.CONFIG_ROOT != jconfig.CONFIG_ROOT
+    mine, theirs = tconfig.CONFIG_ROOT / rel, jconfig.CONFIG_ROOT / rel
+    assert mine.read_bytes() == theirs.read_bytes()
     args = {"K": 3, "seed": -100, "experiment": None, "new_key": 1}
-    assert tconfig.read_config(path) == jconfig.read_config(path)
-    assert tconfig.read_config(path, args) == jconfig.read_config(path, args)
+    assert tconfig.read_config(mine) == jconfig.read_config(theirs)
+    assert tconfig.read_config(mine, args) == jconfig.read_config(theirs, args)
 
 
 @pytest.mark.parametrize("task", ["superresolution", "surface_reconstruction"])

@@ -19,10 +19,11 @@ from retrieval_fuse_tpu_torch.ops import streaming_knn as sk
 @pytest.mark.parametrize("dtype, nf, want", [
     (torch.bfloat16, 16, "mma.bf16"), (torch.bfloat16, 8, "fma.f32"),
     (torch.bfloat16, 4, "fma.f32"), (torch.float32, 16, "fma.f32"),
-    (torch.float32, 4, "fma.f32")])
+    (torch.float32, 4, "fma.f32"), (torch.bfloat16, 12, "mma.bf16"),
+    (torch.float32, 12, "fma.f32")])
 def test_decoder_tail_math_follows_the_dispatch(dtype, nf, want):
-    """csrc/decoder_tail.cu sends bf16 at nf = 16 to the tensor-core body and
-    every other width and type it takes to the float32-FMA body."""
+    """csrc/decoder_tail.cu sends bf16 at nf 12 and 16 to the tensor-core
+    body and every other width and type it takes to the float32-FMA body."""
     assert nf in dt.KERNEL_NF
     assert dt.kernel_math(dtype, nf) == want
 

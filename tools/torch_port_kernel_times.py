@@ -2,7 +2,7 @@
 """Build, check and time the port's redesigned kernels alone, on one CUDA card.
 
     python tools/torch_port_kernel_times.py [--seed 0] [--batch 128] [--iters 10]
-                                            [--crossover]
+                                            [--crossover] [--nf 16 12]
 
 Builds csrc/knn.cu, gathered_attention.cu, gathered_attention_v1.cu,
 patch_attention.cu, decoder_tail.cu and chamfer.cu (printing the build's
@@ -16,9 +16,11 @@ times beside the bound, the dense path the engine takes below the crossover
 torch.topk). With --crossover it times the kernel against the dense path at
 Q in {1024, 2048, 4096, 8192} x N in {16,384, 27,132}, both dtypes, k in
 {4, 8}: the table that sets
-ops/knn.py's crossovers. Then at the serving shapes of `--batch` chunks
-(batch·64 tiles of 64 rows x 128 features, K = 4, a 27,132-tile bank; decoder
-tail B = batch, S = 32, nf = 16), on seeded random rows and weights:
+ops/knn.py's crossovers. Then for each width of `--nf` (16, the
+super-resolution configs', and 12, the surface-reconstruction configs'), at
+the serving shapes of `--batch` chunks (batch·64 tiles of 64 rows x F = 8·nf
+features, K = 4, a 27,132-tile bank; decoder tail B = batch, S = 32), on
+seeded random rows and weights:
   - holds each kernel against its plain PyTorch version in bf16 (selection
     agreement and max |diff| for the attentions, max |diff| for the tail)
     and in float32, with chip_smoke.py's tolerances;
@@ -187,6 +189,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--crossover", action="store_true")
+    ap.add_argument("--nf", type=int, nargs="+", default=[16, 12],
+                    help="conv widths: the attention kernels at F = 8·nf, the tail at nf")
     args = ap.parse_args(argv)
 
     import torch
@@ -217,7 +221,7 @@ def main(argv=None) -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    q, t, f, k, nf, s = args.batch * 64, 64, 128, 4, 16, 32
+    q, t, k, s = args.batch * 64, 64, 4, 32
     failed = []
 
     def hold(label, ok, text):
@@ -230,67 +234,73 @@ def main(argv=None) -> int:
             time_knn(gen, q, SEED_BANK_ROWS, knn_k, args.iters, card, hold)
         if args.crossover:
             knn_crossover(gen, args.iters, card)
-        torch.manual_seed(args.seed)
-        theta, phi = AttentionFeatureEncoder(f, 32).to(dev), AttentionFeatureEncoder(f, 32).to(dev)
-        mlps = {torch.float32: (theta, phi),
-                torch.bfloat16: tuple(AttentionFeatureEncoder(f, 32).to(dev).bfloat16()
-                                      for _ in range(2))}
-        for m16, m32 in zip(mlps[torch.bfloat16], (theta, phi)):
-            m16.load_state_dict({n: v.bfloat16() for n, v in m32.state_dict().items()})
-        bank = torch.randn((SEED_BANK_ROWS, t, f), generator=gen, device=dev).bfloat16()
-        xt = torch.randn((q, t, f), generator=gen, device=dev).bfloat16()
-        # candidates near their query row, so that scores are spread and the switch opens
-        idx = torch.randint(0, SEED_BANK_ROWS, (q, k), generator=gen, device=dev,
-                            dtype=torch.int32)
-        xt = (0.5 * xt.float() + 0.5 * bank[idx[:, 0].long()].float()).bfloat16()
-        p = bank[idx.long()].transpose(1, 2).reshape(q * t, k, f).contiguous()
-        x = xt.reshape(q * t, f)
+        for nf in args.nf:
+            f = 8 * nf
+            torch.manual_seed(args.seed)
+            theta = AttentionFeatureEncoder(f, 32).to(dev)
+            phi = AttentionFeatureEncoder(f, 32).to(dev)
+            mlps = {torch.float32: (theta, phi),
+                    torch.bfloat16: tuple(AttentionFeatureEncoder(f, 32).to(dev).bfloat16()
+                                          for _ in range(2))}
+            for m16, m32 in zip(mlps[torch.bfloat16], (theta, phi)):
+                m16.load_state_dict({n: v.bfloat16() for n, v in m32.state_dict().items()})
+            bank = torch.randn((SEED_BANK_ROWS, t, f), generator=gen, device=dev).bfloat16()
+            xt = torch.randn((q, t, f), generator=gen, device=dev).bfloat16()
+            # candidates near their query row, so that scores are spread and the switch opens
+            idx = torch.randint(0, SEED_BANK_ROWS, (q, k), generator=gen, device=dev,
+                                dtype=torch.int32)
+            xt = (0.5 * xt.float() + 0.5 * bank[idx[:, 0].long()].float()).bfloat16()
+            p = bank[idx.long()].transpose(1, 2).reshape(q * t, k, f).contiguous()
+            x = xt.reshape(q * t, f)
 
-        cases = (("gathered_patch_attention", pa.gathered_patch_attention,
-                  pa.gathered_patch_attention_plain, lambda d: (xt.to(d), bank.to(d), idx)),
-                 ("gathered_patch_attention_v1", pa.gathered_patch_attention_v1,
-                  pa.gathered_patch_attention_v1_plain, lambda d: (xt.to(d), bank.to(d), idx)),
-                 ("patch_attention", pa.patch_attention, pa.patch_attention_plain,
-                  lambda d: (x.to(d), p.to(d))))
-        for name, kernel, plain, operands in cases:
-            for dtype, share_min, tol in ((torch.bfloat16, 0.99, None),
-                                          (torch.float32, 0.999, 1e-4)):
-                ops = operands(dtype)
-                for mode in (True, False):
-                    out, sel = kernel(*ops, *mlps[dtype], k, mode, return_selection=True)
-                    want, want_sel = plain(*ops, *mlps[dtype], k, mode)
-                    torch.cuda.synchronize()
-                    agree = sel.long() == want_sel
-                    share = float(agree.float().mean())
-                    diff = (out.float() - want.float()).abs()[agree]
-                    ok = share >= share_min and (tol is None or float(diff.max()) <= tol)
-                    hold(f"{name} {dtype} {'hard' if mode else 'softmax'} [{kernel.math}]", ok,
-                         f"selections agree on {share:.5%}, max |diff| {float(diff.max()):.3e}, "
-                         f"mean {float(diff.mean()):.3e}")
-                    del out, want
-                ms = cuda_ms(lambda: kernel(*ops, *mlps[dtype], k), args.iters)
-                print(f"{name} {dtype} [{kernel.math}]: {ms:.3f} ms [{card}]", flush=True)
-                del ops
-        del bank, xt, p, x
+            cases = (("gathered_patch_attention", pa.gathered_patch_attention,
+                      pa.gathered_patch_attention_plain, lambda d: (xt.to(d), bank.to(d), idx)),
+                     ("gathered_patch_attention_v1", pa.gathered_patch_attention_v1,
+                      pa.gathered_patch_attention_v1_plain, lambda d: (xt.to(d), bank.to(d), idx)),
+                     ("patch_attention", pa.patch_attention, pa.patch_attention_plain,
+                      lambda d: (x.to(d), p.to(d))))
+            for name, kernel, plain, operands in cases:
+                for dtype, share_min, tol in ((torch.bfloat16, 0.99, None),
+                                              (torch.float32, 0.999, 1e-4)):
+                    ops = operands(dtype)
+                    for mode in (True, False):
+                        out, sel = kernel(*ops, *mlps[dtype], k, mode, return_selection=True)
+                        want, want_sel = plain(*ops, *mlps[dtype], k, mode)
+                        torch.cuda.synchronize()
+                        agree = sel.long() == want_sel
+                        share = float(agree.float().mean())
+                        diff = (out.float() - want.float()).abs()[agree]
+                        ok = share >= share_min and (tol is None or float(diff.max()) <= tol)
+                        hold(f"{name} F={f} {dtype} {'hard' if mode else 'softmax'} "
+                             f"[{kernel.math}]", ok,
+                             f"selections agree on {share:.5%}, max |diff| "
+                             f"{float(diff.max()):.3e}, mean {float(diff.mean()):.3e}")
+                        del out, want
+                    ms = cuda_ms(lambda: kernel(*ops, *mlps[dtype], k), args.iters)
+                    print(f"{name} F={f} {dtype} [{kernel.math}]: {ms:.3f} ms [{card}]",
+                          flush=True)
+                    del ops
+            del bank, xt, p, x
 
-        hn = torch.zeros((args.batch, s + 2, s + 2, s + 2, 8 * nf), device=dev)
-        hn[:, 1:-1, 1:-1, 1:-1] = torch.randn((args.batch, s, s, s, 8 * nf), generator=gen,
-                                              device=dev)
-        w2 = torch.randn((3, 3, 3, nf, nf), generator=gen, device=dev) / (27 * nf) ** 0.5
-        wh = torch.randn((nf,), generator=gen, device=dev) / nf ** 0.5
-        for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
-            h, w2d, whd = hn.to(dtype), w2.to(dtype), wh.to(dtype)
-            got = dt.decoder_tail(h, w2d, whd, 0.25)
-            want = dt.decoder_tail_plain(h, w2d, whd, 0.25)
-            torch.cuda.synchronize()
-            diff = (got - want).abs()
-            hold(f"decoder_tail {dtype} [{dt.decoder_tail.math}]", float(diff.max()) <= tol,
-                 f"max |diff| {float(diff.max()):.3e}, mean {float(diff.mean()):.3e}")
-            del got, want, diff
-            ms = cuda_ms(lambda: dt.decoder_tail(h, w2d, whd, 0.25), args.iters)
-            print(f"decoder_tail {dtype} [{dt.decoder_tail.math}]: {ms:.3f} ms [{card}]",
-                  flush=True)
-        del hn
+            hn = torch.zeros((args.batch, s + 2, s + 2, s + 2, 8 * nf), device=dev)
+            hn[:, 1:-1, 1:-1, 1:-1] = torch.randn((args.batch, s, s, s, 8 * nf), generator=gen,
+                                                  device=dev)
+            w2 = torch.randn((3, 3, 3, nf, nf), generator=gen, device=dev) / (27 * nf) ** 0.5
+            wh = torch.randn((nf,), generator=gen, device=dev) / nf ** 0.5
+            for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+                h, w2d, whd = hn.to(dtype), w2.to(dtype), wh.to(dtype)
+                got = dt.decoder_tail(h, w2d, whd, 0.25)
+                want = dt.decoder_tail_plain(h, w2d, whd, 0.25)
+                torch.cuda.synchronize()
+                diff = (got - want).abs()
+                hold(f"decoder_tail nf={nf} {dtype} [{dt.decoder_tail.math}]",
+                     float(diff.max()) <= tol,
+                     f"max |diff| {float(diff.max()):.3e}, mean {float(diff.mean()):.3e}")
+                del got, want, diff
+                ms = cuda_ms(lambda: dt.decoder_tail(h, w2d, whd, 0.25), args.iters)
+                print(f"decoder_tail nf={nf} {dtype} [{dt.decoder_tail.math}]: {ms:.3f} ms "
+                      f"[{card}]", flush=True)
+            del hn
 
         for label, cargs in chamfer_cases(gen, args.batch):
             got, want = chamfer_minima(*cargs), chamfer_minima_plain(*cargs)

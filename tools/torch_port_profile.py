@@ -3,12 +3,19 @@
 spends its device time.
 
     python tools/torch_port_profile.py [--seed 0] [--variant V] [--out chiprun_out/profile]
+                                       [--task flagship|surface|superres16] [--f32]
     python tools/torch_port_profile.py --train
     python tools/torch_port_profile.py --refine
 
 Builds the flagship engine of --variant (default FAST_VARIANT) in bf16 on
 one CUDA card (weights and data as chip_smoke.py draws them), then traces
 three engine calls at batch 64 and at batch 128 with torch.profiler. With
+--task surface it builds phase 9a's engine instead (3DFront surface
+reconstruction at full width, chip_smoke.surface_config, on 64 synthetic
+128³ occupancy grids) and traces batches 32 and 64; with --task superres16
+phase 9b's (Matterport3D 16³ -> 64³) at batch 64; --f32 serves in float32.
+Each engine batch also gets its stages timed alone with CUDA events (query
+encoder, kNN, backbone, attention, decoder). With
 --train it traces three retrieval train steps instead, at chip_smoke.py's
 config (ShapeNetV2's retrieval width, batch 128, float32) on one resident
 batch of a small synthetic dataset (no loader). Prints per batch or step:
@@ -57,13 +64,17 @@ def main(argv=None) -> int:
                     help="trace the retrieval trainer's steps instead of the engine")
     ap.add_argument("--refine", action="store_true",
                     help="trace the refinement trainer's steps instead of the engine")
+    ap.add_argument("--task", choices=("flagship", "surface", "superres16"), default="flagship",
+                    help="the engine's config: the 8³ flagship, or phase 9a's / 9b's")
+    ap.add_argument("--f32", action="store_true", help="serve in float32 (default bf16)")
     args = ap.parse_args(argv)
 
     import numpy as np
     import torch
 
-    from chip_smoke import (SEED_BANK_ROWS, flagship_config, flagship_data,
-                            flagship_params, synthetic_df)
+    from chip_smoke import (SEED_BANK_ROWS, SURFACE_BATCHES, SUPERRES16_BATCH, flagship_config,
+                            flagship_data, flagship_params, superres16_config, surface_config,
+                            surface_inputs, synthetic_df)
     from retrieval_fuse_tpu_torch.device import resolve_device
     from retrieval_fuse_tpu_torch.inference import (
         FAST_VARIANT, RetrieveRefineEngine, variant_engine_kwargs)
@@ -81,18 +92,58 @@ def main(argv=None) -> int:
     if args.refine:
         return profile_refine()
     _build.build_all()
-    cfg = flagship_config()
+    cfg = {"flagship": flagship_config, "surface": surface_config,
+           "superres16": superres16_config}[args.task]()
     rng = np.random.default_rng(args.seed)
     db, bank = flagship_data(cfg, rng, SEED_BANK_ROWS, dev)
-    eng = RetrieveRefineEngine(cfg, flagship_params(cfg, args.seed), db, bank,
-                               compute_dtype=torch.bfloat16, device=dev,
-                               **variant_engine_kwargs(args.variant or FAST_VARIANT))
+    # phi's output negated opens the flagship's attention switch, and shuts
+    # the other tasks' (chip_smoke.run_phase9)
+    params = flagship_params(cfg, args.seed, negate_phi=args.task == "flagship")
+    eng = RetrieveRefineEngine(cfg, params, db, bank,
+                               compute_dtype=torch.float32 if args.f32 else torch.bfloat16,
+                               device=dev, **variant_engine_kwargs(args.variant or FAST_VARIANT))
     del bank
-    chunks = synthetic_df(rng, 128, 8, cfg["dataset_train"]["voxel_size_input"], dev)[..., None]
-    for batch in (64, 128):
+    dtr = cfg["dataset_train"]
+    if args.task == "surface":
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            chunks = torch.from_numpy(surface_inputs(Path(tmp), SURFACE_BATCHES[-1], args.seed,
+                                                     dtr["input_chunk_size"]))[..., None].to(dev)
+        batches = SURFACE_BATCHES
+    else:
+        batches = (64, 128) if args.task == "flagship" else (SUPERRES16_BATCH,)
+        chunks = synthetic_df(rng, batches[-1], dtr["input_chunk_size"], dtr["voxel_size_input"],
+                              dev)[..., None]
+    for batch in batches:
         x = chunks[:batch]
-        trace(lambda: eng(x), f"batch {batch}", out / f"trace_b{batch}.json")
+        trace(lambda: eng(x), f"{args.task} batch {batch}",
+              out / f"trace_{args.task}_b{batch}.json")
+        stages(eng, x)
     return 0
+
+
+def stages(eng, x, iters: int = 2) -> None:
+    """Each stage of an engine call alone (CUDA events, ms): the query
+    encoder (embed_queries), the kNN (retrieve less the encoder), the
+    backbone, the attention path and the decoder, on the call's own
+    intermediates."""
+    import torch
+    from chip_smoke import cuda_ms
+    with torch.inference_mode():
+        xin = ((x.float() - eng.in_mean) / eng.in_std).to(eng.compute_dtype)
+        top_idx = eng.retrieve(x)
+        backbone = eng.unet_backbone if eng.fused_backbone is None else eng.fused_backbone
+        decoder = eng.decoder if eng.fused_decoder is None else eng.fused_decoder
+        feats = backbone(xin)
+        fused = eng._attend(feats, top_idx, x.shape[0])
+        ms = {"query encoder": cuda_ms(lambda: eng.embed_queries(x), iters)}
+        ms["kNN"] = cuda_ms(lambda: eng.retrieve(x), iters) - ms["query encoder"]
+        ms["backbone"] = cuda_ms(lambda: backbone(xin), iters)
+        ms["attention"] = cuda_ms(lambda: eng._attend(feats, top_idx, x.shape[0]), iters)
+        ms["decoder"] = cuda_ms(lambda: decoder(fused), iters)
+    total = sum(ms.values())
+    print("  stages alone: " + ", ".join(f"{k} {v:.2f} ms ({v / total:.0%})"
+                                         for k, v in ms.items()), flush=True)
 
 
 def trace(fn, label: str, path: Path | None, calls: int = 3) -> None:
