@@ -84,7 +84,25 @@ tiles) with `base` and four kernel paths at batch 32 and 64, bf16 and
 float32, each held against `base`, timed and counted, through
 serve_directory too, and the four widened kernels held against their plain
 versions on the engine's rows; then the Matterport3D 16³ super-resolution
-engine (F = 128), FAST_VARIANT against `base`.
+engine (F = 128), FAST_VARIANT against `base`. Phase 4g (run_narrow_widths,
+after the serving paths) serves the flagship geometry at nf 4 and 8 (F = 32
+and 64) through the three attention kernels' paths, held against `base`,
+and holds each attention kernel at both widths against its plain version
+(float32 with hard and with softmax selection, bf16 with both).
+
+Phase 10 (run_phase10, on phase 7's artifacts) makes meshes: 10a serves the
+64 val chunks (as 2 x 2 x 2 chunks of 8 scenes) through serve_directory with
+and without OBJ meshes and through serve.main --obj, each OBJ held equal to
+native marching cubes of the prediction it was made from; 10b recomposes
+the served and the ground-truth chunk meshes into scene meshes and runs
+`evaluation.cli metrics` (the ground truth against itself gives IoU 1,
+Chamfer-L1 0, normal correctness and F-scores 1); 10c, inside 7a and 7d:
+the retrieval trainer's validation writes the val_vis meshes and PNG
+previews (log_images counts them) and the refinement trainer's
+run_visualization writes its meshes, after validations that launch the
+kNN or topk and the chamfer kernels; the 2x upsample of
+fast_visualization False on the card equals the CPU's; 10d holds 7b's
+compose, pasted by the native C++, against the numpy paste.
 
 Prints the card (nvidia-smi name and power limit), one line per check,
 a `{"kernels": [...]}` JSON line and, last, `{"ok": true, "device": ...}`.
@@ -98,6 +116,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import io
 import json
 import os
 import subprocess
@@ -174,6 +193,26 @@ SURFACE_VARIANTS = ("fused+pallasg2+topk1p", "fused+pallasg2+topk1p+cdec",
 SURFACE_BATCHES = (32, 64)
 SURFACE_CHUNKS = 64
 SUPERRES16_BATCH = 64
+#: phase 4g: the flagship geometry at nf 4 and 8 (attention rows of F = 32
+#: and 64), each attention kernel's variant -> the kernel's record key
+NARROW_NF = (4, 8)
+#: whether 4g's seeded weights (flagship_params, seed + nf) negate phi's
+#: output layer: the attention's switch is then open on most rows (a CPU
+#: reading on 4 chunks: nf 4 99.8% negated, 1.8% not; nf 8 0.0% negated,
+#: 100% not)
+NARROW_NEGATE_PHI = {4: True, 8: False}
+NARROW_VARIANTS = {"fused+pallasg2+topk1p": "attention", "fused+pallasg+topk1p": "attention_v1",
+                   "fused+pallasp+topk1p+cdec": "patch_attention"}
+#: float32 softmax selection at sharpness 1024 turns a score's float32 order
+#: difference (~1e-7) into a weight difference of ~1e-4 on rows of |p| ~ 1-3
+#: (tools/torch_port_kernel_times.py read 2e-4 at F = 96 on the serving rows),
+#: so the float32 softmax holds take this max |diff|; hard selection 1e-4
+SOFTMAX_F32_ATOL = 5e-4
+#: phase 10: scenes of 2 x 2 x 2 val chunks (the recompose naming) and how
+#: many of them the mesh metrics sweep; scenes whose compose is held
+MESH_SCENE_SIDE = 2
+METRIC_SCENES = 2
+COMPOSE_HOLD_SCENES = 4
 
 
 def flagship_config() -> dict:
@@ -808,28 +847,39 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
 
 
 def hold_attention(label: str, kernel, plain, args32: tuple, args16: tuple,
-                   math16: str) -> tuple[float, float]:
-    """An attention kernel against its plain version: float32 (selections
-    agree on >= 99.9% of rows, max |diff| <= 1e-4 on them) and bf16 with
-    hard and with softmax selection (argmax candidates agree on >= 99%, mean
-    |diff| <= 1e-3 on them: rows differ only where float32 sums taken in
-    another order round to a neighbouring bf16 value); the float32 launch
-    must report the FMA path and the bf16 launches the path `math16`.
-    Returns (float32 max |diff|, bf16 share with hard selection, the share
-    of rows whose switch is open)."""
+                   math16: str, f32_modes: tuple = (None,)) -> tuple[float, float]:
+    """An attention kernel against its plain version: float32 in each of
+    `f32_modes` (None: the kernel's default selection; True hard, False
+    softmax) (selections agree on >= 99.9% of rows, max |diff| <= 1e-4 on
+    them, SOFTMAX_F32_ATOL with softmax selection) and bf16 with hard and
+    with softmax selection (argmax candidates agree on >= 99%, mean |diff|
+    <= 1e-3 on them: rows differ only where float32 sums taken in another
+    order round to a neighbouring bf16 value); the float32 launches must
+    report the FMA path and the bf16 launches the path `math16`. Returns
+    (float32 max |diff| with hard selection, bf16 share with hard
+    selection, the share of rows whose switch is open)."""
     import torch
-    out, sel = kernel(*args32, return_selection=True)
-    check(kernel.math == "fma.f32", f"{label} f32: launch took {kernel.math}")
-    want, want_sel = plain(*args32)
-    torch.cuda.synchronize()
-    agree = sel.long() == want_sel
-    share = float(agree.float().mean())
-    err = float((out - want).abs()[agree].max())
-    switch_open = float((want != args32[0]).any(dim=-1).float().mean())
-    check(share >= 0.999, f"{label} f32: selections agree on {share:.5f}")
-    check(err <= 1e-4, f"{label} f32: max |diff| {err} on agreeing rows")
-    log(f"{label} f32: selections agree on {share:.5%} of rows, max |diff| {err:.2e} on "
-        f"them; switch open on {switch_open:.1%} of rows")
+    err = switch_open = None
+    for mode in f32_modes:
+        extra, tag = ((), "f32") if mode is None else ((mode,), f"f32 {'hard' if mode else 'softmax'}")
+        out, sel = kernel(*args32, *extra, return_selection=True)
+        check(kernel.math == "fma.f32", f"{label} {tag}: launch took {kernel.math}")
+        want, want_sel = plain(*args32, *extra)
+        torch.cuda.synchronize()
+        agree = sel.long() == want_sel
+        share = float(agree.float().mean())
+        diff = (out - want).abs()[agree]
+        tol = SOFTMAX_F32_ATOL if mode is False else 1e-4
+        check(share >= 0.999, f"{label} {tag}: selections agree on {share:.5f}")
+        check(float(diff.max()) <= tol, f"{label} {tag}: max |diff| {float(diff.max())} on "
+                                        f"agreeing rows (bound {tol:g})")
+        if mode is not False:
+            err = float(diff.max())
+        if switch_open is None:
+            switch_open = float((want != args32[0]).any(dim=-1).float().mean())
+        log(f"{label} {tag}: selections agree on {share:.5%} of rows, max |diff| "
+            f"{float(diff.max()):.2e} (bound {tol:g}), mean {float(diff.mean()):.2e} on them; "
+            f"switch open on {switch_open:.1%} of rows")
     shares = {}
     for mode, hard in (("hard", True), ("softmax", False)):
         out16, sel16 = kernel(*args16, hard, return_selection=True)
@@ -1280,6 +1330,344 @@ def run_phase9(dev, rng, seed: int, kernels: dict, counters: dict, drive, card: 
 
 
 
+@contextlib.contextmanager
+def timed_attrs(module, names, into: dict):
+    """Within the block, each function `names` of `module` adds its seconds
+    to into[name] (the module attribute is swapped, so callers that look
+    it up at call time are timed)."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                into[name] = into.get(name, 0.0) + time.perf_counter() - t0
+        return call
+
+    for name, fn in saved.items():
+        setattr(module, name, timed(name, fn))
+    try:
+        yield into
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def run_phase10(root: Path, dev, scfg: dict, scfg_path: Path, ckpt, fckpt, val_names: list,
+                rcfg: dict, maps: dict, datasets: dict, compose: dict, drive, card: str) -> dict:
+    """Phase 10, meshes, on phase 7's artifacts in its working directory
+    `root` (10c runs inside 7a and 7d):
+      10a serving with meshes: the 64 val chunks, renamed as 2 x 2 x 2 chunks
+          of 8 scenes (<scene>__<x>_<y>_<z>), through serve_directory with
+          and without write_obj on one FAST_VARIANT bf16 engine from the
+          artifacts (chunks/s, and the seconds in marching cubes and in OBJ
+          writing), then through serve.main --obj, each OBJ held equal to
+          native marching cubes + export_obj of the float32 prediction it was
+          made from (recorded at the SceneHandler) and every chunk whose
+          prediction crosses the level held non-empty;
+      10b mesh metrics: the served chunk meshes and the ground-truth meshes
+          (visualize_target_chunk of the targets) recomposed into scene
+          meshes by `evaluation.cli recompose`, `evaluation.cli metrics` over
+          METRIC_SCENES scenes: the ground truth against itself gives IoU 1,
+          Chamfer-L1 0, normal correctness 1 and F-scores 1, the served
+          meshes finite values in range; seconds per scene;
+      10d compose with the C++ paste: COMPOSE_HOLD_SCENES scenes of 7b's
+          compose equal the numpy paste's volumes exactly; compose's seconds
+          and the paste's share of them (`compose`: 7b's readings).
+    Returns the readings."""
+    import torch
+    from retrieval_fuse_tpu_torch import native, serve
+    from retrieval_fuse_tpu_torch.data import SceneHandler
+    from retrieval_fuse_tpu_torch.evaluation import cli as eval_cli
+    from retrieval_fuse_tpu_torch.inference import FAST_VARIANT
+    from retrieval_fuse_tpu_torch.retrieval.engine import create_retrieval_from_mapping
+    from retrieval_fuse_tpu_torch.utils.misc import get_retrievals_dir
+    t10 = time.perf_counter()
+    out = {}
+    # 10a) the val chunks as chunks of scenes, served with meshes
+    per_scene = MESH_SCENE_SIDE ** 3
+    sources = {}
+    vin = root / "serve_in_meshes"
+    vin.mkdir()
+    for j in range(len(val_names) // per_scene):
+        for c in range(per_scene):
+            x, y, z = (64 * ((c >> b) & 1) for b in (2, 1, 0))
+            name = f"synth__s{j:02d}__{x}_{y}_{z}"
+            sources[name] = val_names[j * per_scene + c]
+            (vin / f"{name}.npz").symlink_to(
+                root / "data" / "sdf_008" / "SynthSet" / f"{sources[name]}.npz")
+    names = sorted(sources)
+    handler = SceneHandler("val", scfg)
+    level = float(handler.target_voxel_size * 0.75)
+    eng = serve.build_engine_from_artifacts(scfg, ckpt, fckpt, compute_dtype=torch.bfloat16,
+                                            device=dev, variant=FAST_VARIANT)
+    batch = len(names)
+    eng(np.stack([np.load(vin / f"{n}.npz")["arr"] for n in names])[..., None]
+        .astype(np.float32))  # warm-up: cuDNN plans, allocator
+    serving = {}
+    for label, kw in (("npz", {}), ("npz+obj", dict(write_obj=True, scene_handler=handler))):
+        spent = {}
+        with timed_attrs(native, ("marching_cubes", "export_obj"), spent):
+            t0 = time.perf_counter()
+            done, counts = drive(f"serve_directory {label}", ("knn_bf16", "attention"),
+                                 lambda: serve.serve_directory(eng, vin, root / f"served_{label}",
+                                                               batch_size=batch, **kw))
+            wall = time.perf_counter() - t0
+        check(done == names, f"serve_directory {label}: served {len(done)} of {len(names)}")
+        serving[label] = dict(wall_s=wall, chunks_per_s=len(done) / wall, launches=counts,
+                              mc_s=spent.get("marching_cubes", 0.0),
+                              obj_s=spent.get("export_obj", 0.0))
+    rec = serving["npz+obj"]
+    rec["mesh_share"] = (rec["mc_s"] + rec["obj_s"]) / rec["wall_s"]
+    log(f"serve with meshes (serve_directory, {FAST_VARIANT} bf16, batch {batch}): "
+        f"{serving['npz']['chunks_per_s']:.1f} chunks/s without meshes, "
+        f"{rec['chunks_per_s']:.1f} with (marching cubes {rec['mc_s']:.2f} s + OBJ writing "
+        f"{rec['obj_s']:.2f} s = {rec['mesh_share']:.1%} of {rec['wall_s']:.2f} s); launches "
+        f"{rec['launches']} [{card}]")
+    del eng
+    meshed, visualize = {}, SceneHandler.visualize_target_chunk
+
+    def recording(self, chunk_df, output_path, device=None):
+        meshed[Path(output_path).name] = np.array(chunk_df, copy=True)
+        return visualize(self, chunk_df, output_path, device=device)
+
+    argv = ["--config", str(scfg_path), "--retrieval_ckpt", str(ckpt), "--refinement_ckpt",
+            str(fckpt), "--input", str(vin), "--output", str(root / "cli_obj"), "--batch_size",
+            str(batch), "--fast", "--obj"]
+    SceneHandler.visualize_target_chunk = recording
+    try:
+        t0 = time.perf_counter()
+        done, counts = drive("serve CLI --obj", ("knn_bf16", "attention"),
+                             lambda: serve.main(argv))
+        serving["cli_obj"] = dict(wall_s=time.perf_counter() - t0, launches=counts)
+    finally:
+        SceneHandler.visualize_target_chunk = visualize
+    check(done == names and sorted(meshed) == [f"{n}_pred.obj" for n in names],
+          f"serve CLI --obj: {len(done)} chunks, {len(meshed)} meshes")
+    crossing = faces = 0
+    for n in names:
+        vol = meshed[f"{n}_pred.obj"]
+        check(vol.dtype == np.float32 and vol.shape == (64, 64, 64)
+              and np.array_equal(vol.astype(np.float16),
+                                 np.load(root / "cli_obj" / f"{n}_pred.npz")["arr"]),
+              f"serve CLI --obj {n}: the meshed prediction is not the served one")
+        v, t = native.marching_cubes(vol, level)
+        native.export_obj(v, t, root / "want.obj")
+        check((root / "cli_obj" / f"{n}_pred.obj").read_text() == (root / "want.obj").read_text(),
+              f"serve CLI --obj {n}: the OBJ is not marching cubes of its prediction")
+        if vol.min() < level < vol.max():
+            crossing += 1
+            check(len(t) > 0, f"serve CLI --obj {n}: the prediction crosses the level, no mesh")
+        faces += len(t)
+    check(crossing > 0, "serve CLI --obj: no prediction crosses the level")
+    serving["cli_obj"].update(crossing=crossing, faces=faces)
+    log(f"serve CLI (serve.main --fast --obj): {len(names)} chunks in "
+        f"{serving['cli_obj']['wall_s']:.1f} s wall (engine build included); every OBJ equals "
+        f"marching cubes + export_obj of its float32 prediction at level {level:.6f}; "
+        f"{crossing} predictions cross the level, all meshed ({faces} triangles); launches "
+        f"{counts} [{card}]")
+    out["serving"] = serving
+
+    # 10b) recomposed scene meshes and the mesh metrics
+    gt_chunks = root / "gt_chunks"
+    gt_chunks.mkdir()
+    ds_val = datasets["val"]
+    for n in names:
+        handler.visualize_target_chunk(ds_val.get_scene_target(sources[n]).astype(np.float32),
+                                       gt_chunks / f"{n}_gt.obj", device=dev)
+    meshes = root / "meshes"
+    t0 = time.perf_counter()
+    eval_cli.main(["recompose", "--base_path", str(root / "cli_obj"), "--suffix", "_pred.obj",
+                   "--output_path", str(meshes / "ours")])
+    eval_cli.main(["recompose", "--base_path", str(gt_chunks), "--suffix", "_gt.obj",
+                   "--output_path", str(meshes / "gt")])
+    recompose_s = time.perf_counter() - t0
+    scenes = sorted(p.stem for p in (meshes / "gt").iterdir())
+    served = sorted(p.stem for p in (meshes / "ours").iterdir())
+    # a scene none of whose served chunks crosses the level has no mesh
+    check(scenes == sorted({n.rsplit("__", 1)[0] for n in names}) and served
+          and set(served) <= set(scenes), f"recompose: scene meshes {scenes}, served {served}")
+    self_dir = root / "meshes_self"
+    (self_dir / "ours").mkdir(parents=True)
+    (self_dir / "gt").symlink_to(meshes / "gt")
+    for sc in scenes:
+        (self_dir / "ours" / f"{sc}.obj").symlink_to(meshes / "gt" / f"{sc}.obj")
+    metrics, buf = {}, io.StringIO()
+    for label, pred_dir in (("served", meshes / "ours"), ("gt_vs_gt", self_dir / "ours")):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rows = eval_cli.main(["metrics", "--pred_dir", str(pred_dir), "--dataset", "SynthSet",
+                                  "--task", "superresolution", "--method", label, "--limit",
+                                  str(METRIC_SCENES)])
+        dt_ = time.perf_counter() - t0
+        want = min(METRIC_SCENES, len(served if label == "served" else scenes))
+        check(rows is not None and len(rows) == want,
+              f"metrics {label}: {rows} (the sweep skips a scene that raises: {buf.getvalue()})")
+        metrics[label] = dict(rows=rows, s_per_scene=dt_ / len(rows))
+    for row in metrics["gt_vs_gt"]["rows"]:
+        iou, cd, nc, f9, f14 = row[1:6]
+        check(iou == 1.0 and cd == 0.0 and abs(nc - 1.0) <= 1e-12 and f9 == 1.0 and f14 == 1.0,
+              f"metrics of the ground truth against itself: {row}")
+    for row in metrics["served"]["rows"]:
+        iou, cd, nc, f9, f14 = row[1:6]
+        check(0 <= iou <= 1 and np.isfinite(cd) and cd >= 0 and 0 <= nc <= 1 + 1e-12
+              and 0 <= f9 <= 1 and 0 <= f14 <= 1, f"metrics of the served meshes: {row}")
+    out["metrics"] = dict(metrics, recompose_s=recompose_s, scenes=len(scenes),
+                          served_scenes=len(served))
+    log(f"mesh metrics (evaluation.cli): {len(scenes)} ground-truth and {len(served)} served "
+        f"scene meshes recomposed from {len(names)} chunk meshes each in {recompose_s:.1f} s; "
+        f"ground truth against itself "
+        f"[iou, chamfer-L1, normal correctness, F@t9, F@t14] = "
+        f"{[float(v) for v in metrics['gt_vs_gt']['rows'][0][1:6]]}; served: "
+        f"{[[round(float(v), 4) for v in r[1:6]] for r in metrics['served']['rows']]}; "
+        f"{metrics['served']['s_per_scene']:.2f} s a scene, against itself "
+        f"{metrics['gt_vs_gt']['s_per_scene']:.2f} s (host) [{card}]")
+
+    # 10d) compose with the C++ paste against the numpy paste
+    k = rcfg["K"]
+    rdir = get_retrievals_dir(rcfg)
+    held, numpy_s, native_s = 0, 0.0, 0.0
+    for split in ("train", "val"):
+        ds = datasets[split]
+        for scene in ds.scenes[:COMPOSE_HOLD_SCENES // 2]:
+            saved = np.load(rdir / "compose" / f"{scene}.npz")["arr_0"]
+            t0 = time.perf_counter()
+            want = create_retrieval_from_mapping(scene, maps[split], k, datasets["train"], ds,
+                                                 compose["tree"])
+            numpy_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = create_retrieval_from_mapping(scene, maps[split], k, datasets["train"], ds,
+                                                compose["tree"], use_native=True)
+            native_s += time.perf_counter() - t0
+            check(np.array_equal(saved, want) and np.array_equal(got, want),
+                  f"compose {scene}: the C++ paste's volume differs from the numpy paste's")
+            held += 1
+    out["compose"] = dict(compose, held=held, numpy_s=numpy_s, native_s=native_s,
+                          paste_share=compose["paste_s"] / compose["compose_s"])
+    log(f"compose (retrieval CLI, C++ paste): {compose['compose_s']:.1f} s for "
+        f"{compose['scenes']} scenes, the paste {compose['paste_s']:.2f} s of it "
+        f"({out['compose']['paste_share']:.1%}); {held} scenes equal the numpy paste's "
+        f"volumes exactly (numpy {numpy_s:.2f} s, C++ {native_s:.2f} s for them, crops "
+        f"included) [{card}]")
+    out["phase_s"] = time.perf_counter() - t10
+    log(f"phase 10 (meshes): {out['phase_s']:.1f} s")
+    return out
+
+
+def run_narrow_widths(dev, rng, seed: int, kernels: dict, counters: dict, drive, card: str,
+                      chunks: np.ndarray) -> dict:
+    """Phase 4g, the attention kernels at the widths the decoder tail takes
+    besides 12 and 16: the flagship geometry at nf 4 and 8 (F = 32, 64; hard
+    selection, K 4, a seeded bank of SEED_BANK_ROWS rows). For each nf:
+    `base` and the three attention kernels' paths (NARROW_VARIANTS) at
+    STREAM_BATCH in bf16 and float32, each through `drive` (its kernel, and
+    the decoder tail for cdec, must launch) and held against `base` (TSDF
+    MAE < 1e-3 and < 1e-5); then each kernel against its plain version on
+    the FAST_VARIANT engine's rows: float32 with hard and with softmax
+    selection, bf16 with both (hold_attention). Adds records
+    `<kernel>_f32` / `_f64` to `kernels`, whose launches are this phase's.
+    Returns {nf: {variant: TSDF MAEs and ms}}."""
+    import torch
+    from retrieval_fuse_tpu_torch.inference import RetrieveRefineEngine, variant_engine_kwargs
+    from retrieval_fuse_tpu_torch.ops import patch_attention as pa
+    out = {}
+    xb = chunks[:STREAM_BATCH, ..., None]
+    for nf in NARROW_NF:
+        cfg = dict(flagship_config(), nf=nf)
+        k = cfg["K"]
+        params = flagship_params(cfg, seed + nf, negate_phi=NARROW_NEGATE_PHI[nf])
+        db, bank = flagship_data(cfg, rng, SEED_BANK_ROWS, dev)
+        engines = {}
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            base_ = RetrieveRefineEngine(cfg, params, db, bank, compute_dtype=dtype, device=dev)
+            engines["base", tag] = base_
+            for variant in NARROW_VARIANTS:
+                engines[variant, tag] = RetrieveRefineEngine(
+                    cfg, params, db, compute_dtype=dtype, device=dev,
+                    feature_bank=base_.feature_bank, **variant_engine_kwargs(variant))
+        del bank
+        with torch.inference_mode():
+            want = {tag: engines["base", tag](xb) for tag in ("bf16", "f32")}
+        launches, rec = {}, {}
+        for variant, key in NARROW_VARIANTS.items():
+            needed = (key, "decoder_tail") if variant.endswith("cdec") else (key,)
+            launches[variant] = dict.fromkeys(counters, 0)
+            got, counts = drive(f"nf {nf} {variant}", needed, lambda: {
+                tag: engines[variant, tag](xb) for tag in ("bf16", "f32")},
+                into=launches[variant])
+            mae = {tag: float((got[tag] - want[tag]).abs().mean()) for tag in got}
+            check(all(torch.isfinite(o).all().item() for o in got.values()),
+                  f"nf {nf} {variant}: TSDF not finite")
+            check(mae["bf16"] < 1e-3 and mae["f32"] < 1e-5,
+                  f"nf {nf} {variant}: MAE vs base bf16 {mae['bf16']}, f32 {mae['f32']}")
+            eng = engines[variant, "bf16"]
+            rec[variant] = dict(mae_vs_base=mae, engine_ms=cuda_ms(lambda: eng(xb), 3),
+                                launches=counts)
+            log(f"nf {nf} (F = {8 * nf}) {variant} batch {STREAM_BATCH}: TSDF MAE vs base bf16 "
+                f"{mae['bf16']:.2e} (< 1e-3), f32 {mae['f32']:.2e} (< 1e-5); engine "
+                f"{rec[variant]['engine_ms']:.2f} ms/batch bf16; launches {counts} [{card}]")
+        # each kernel against its plain version on the FAST_VARIANT engine's rows
+        fast = engines["fused+pallasg2+topk1p", "bf16"]
+        with torch.inference_mode():
+            x = torch.from_numpy(xb).to(dev)
+            top_idx = fast.retrieve(x)
+            x_back = fast.unet_backbone(((x - fast.in_mean) / fast.in_std).bfloat16())
+            xt16 = fast._tile_major_rows(x_back).contiguous()
+        att = fast.attention.attention_blocks_layer
+        q, t_rows, f = xt16.shape
+        check(f == 8 * nf, f"nf {nf}: attention rows of F = {f}")
+        theta32, phi32 = [copy.deepcopy(m).float() for m in (att.theta, att.phi)]
+        xt32, bank32, bank16 = xt16.float(), fast.feature_bank.float(), fast.feature_bank
+        mlp_flops = 2 * (f * 128 + 2 * 128 * 128 + 128 * 32)
+        width_bound = bound(2 * (2 * q * t_rows * f + q * k * t_rows * f) + q * k * 4,
+                            q * t_rows * (1 + k) * mlp_flops, BF16_FLOPS)
+        n_rows = q * t_rows
+        p16 = bank16[top_idx.long()].transpose(1, 2).reshape(n_rows, k, f).contiguous()
+        x16 = xt16.reshape(n_rows, f)
+        variant_of = {key: v for v, key in NARROW_VARIANTS.items()}
+        with torch.inference_mode():
+            for key, name, fn, plain, a32, a16 in (
+                    ("attention", "gathered_patch_attention", pa.gathered_patch_attention,
+                     pa.gathered_patch_attention_plain,
+                     (xt32, bank32, top_idx, theta32, phi32, k),
+                     (xt16, bank16, top_idx, att.theta, att.phi, k)),
+                    ("attention_v1", "gathered_patch_attention_v1",
+                     pa.gathered_patch_attention_v1, pa.gathered_patch_attention_v1_plain,
+                     (xt32, bank32, top_idx, theta32, phi32, k),
+                     (xt16, bank16, top_idx, att.theta, att.phi, k)),
+                    ("patch_attention", "patch_attention", pa.patch_attention,
+                     pa.patch_attention_plain,
+                     (x16.float(), p16.float(), theta32, phi32, k),
+                     (x16, p16, att.theta, att.phi, k))):
+                err, share16, switch_open = hold_attention(
+                    f"{name} F={f} Q={q}", fn, plain, a32, a16, "mma.bf16",
+                    f32_modes=(True, False))
+                check(switch_open >= 0.5, f"{name} F={f}: the switch is open on only "
+                                          f"{switch_open:.1%} of the rows")
+                old = kernels[key]
+                kernels[f"{key}_f{f}"] = dict(
+                    name=f"{name}@F{f}", route="cuda", math="mma.bf16",
+                    source=old["source"], replaces=old["replaces"], max_abs_err=err,
+                    launches=launches[variant_of[key]][key],
+                    ms=cuda_ms(lambda: fn(*a16), 5), plain_ms=cuda_ms(lambda: plain(*a16), 2),
+                    library_ms=None, bound_ms=width_bound[0], bound_by=width_bound[1],
+                    f32_ms=cuda_ms(lambda: fn(*a32), 2), bf16_agreement=share16,
+                    f128_ms=old["ms"],
+                    shape=f"{'N=' + str(n_rows) if key == 'patch_attention' else 'Q=' + str(q)}"
+                          f" T={t_rows} F={f} K={k} bf16 hard")
+                kr = kernels[f"{key}_f{f}"]
+                log(f"{kr['name']} [mma.bf16]: kernel {kr['ms']:.3f} ms (at F = 128: "
+                    f"{kr['f128_ms']:.3f} ms), plain {kr['plain_ms']:.3f} ms, library none, "
+                    f"bound {kr['bound_ms']:.3f} ms ({kr['bound_by']}), float32 "
+                    f"{kr['f32_ms']:.3f} ms; {kr['launches']} launches in 4g "
+                    f"[{kr['shape']}; {card}]")
+        del engines, fast, xt32, bank32, bank16, p16, x16, xt16, x_back, want
+        out[nf] = rec
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1318,6 +1706,9 @@ def main(argv=None) -> int:
         from retrieval_fuse_tpu_torch.train.refinement_trainer import (
             RefinementTrainer, train_refinement_phases)
         from retrieval_fuse_tpu_torch.utils.misc import get_retrievals_dir, get_tree_path
+        from retrieval_fuse_tpu_torch.utils.logger import MetricsLogger
+        from retrieval_fuse_tpu_torch.utils.visualization import trilinear_upsample_2x
+        from retrieval_fuse_tpu_torch import native
         import yaml  # the trainer's and the serving CLI's configs
     except ImportError as e:
         print(f"chip_smoke: the port package or PyYAML is missing ({e})", file=sys.stderr)
@@ -1685,6 +2076,17 @@ def main(argv=None) -> int:
                 f"bf16 = {rec['engine_chunks_per_s']:.1f} chunks/s; launches {counts} [{card}]")
         results["paths"] = paths
 
+        # 4g) the attention kernels at F = 32 and 64: the flagship geometry at
+        # nf 4 and 8, served (through `drive`) and held against the plain
+        # versions; its draws come from a generator of its own, so that the
+        # later phases' data are what they were without it
+        t4g = time.perf_counter()
+        results["narrow_widths"] = run_narrow_widths(
+            dev, np.random.default_rng([args.seed, 4]), args.seed, kernels, counters, drive,
+            card, chunks)
+        results["phase4g_s"] = time.perf_counter() - t4g
+        log(f"phase 4g (nf 4 and 8): {results['phase4g_s']:.1f} s")
+
         # 7) the retrieval trainer, then the retrieval pipeline (map ->
         # compose -> evaluate) with its checkpoint, then serving from those
         # artifacts, at the full width of ShapeNetV2's configs, on a synthetic
@@ -1773,12 +2175,35 @@ def main(argv=None) -> int:
                     f"resident batch [{card}]")
                 t0 = time.perf_counter()
                 training["val_loss"] = trainer.validate(0, run_retrieval_validation=False)
-                val_metrics, counts = drive("train validation", ("chamfer",),
-                                            lambda: trainer.retrieval_validation(0))
+                # 10c) the CLI's trainer visualises (enable_vis): the val_vis
+                # scenes' meshes and previews after the metrics, counted by
+                # log_images in the run's metrics stream
+                check(trainer.enable_vis, "train CLI: the trainer's visualisations are off")
+                vis_spent, vlog = {}, MetricsLogger(trainer.config["experiment"])
+                with timed_attrs(trainer, ("_visualize",), vis_spent):
+                    val_metrics, counts = drive("train validation", ("chamfer",),
+                                                lambda: trainer.retrieval_validation(0, vlog))
+                vlog.close()
                 training.update(validation_s=time.perf_counter() - t0,
-                                validation_launches=counts, metrics=val_metrics)
+                                validation_launches=counts, metrics=val_metrics,
+                                visualization_s=vis_spent["_visualize"])
                 check(counts.get("knn", 0) + counts.get("topk", 0) > 0,
                       f"train validation launched no kNN or topk kernel: {counts}")
+                vdir = run / "visualization" / "epoch_0000"
+                vis_scenes = sorted(trainer.dataset("val_vis").scenes)
+                logged = [json.loads(line) for line in (run / "metrics.jsonl").read_text()
+                          .splitlines() if "visualization/count" in line]
+                check(sorted(p_.name for p_ in (vdir / "visualization_val_vis").iterdir())
+                      == sorted(f"{sc}{suffix}" for sc in vis_scenes
+                                for suffix in ("_gt.obj", "_pred.obj", "_input.obj"))
+                      and sorted(p_.stem for p_ in (vdir / "render_val_vis").glob("*.png"))
+                      == vis_scenes and len(vis_scenes) == 2
+                      and [r["visualization/count"] for r in logged] == [2],
+                      f"train validation visualisations: {vis_scenes}, logged {logged}")
+                log(f"train validation visualisations: {len(vis_scenes)} val_vis scenes as "
+                    f"_input/_pred/_gt OBJs and one PNG each, log_images counted "
+                    f"{logged[0]['visualization/count']:.0f}; {vis_spent['_visualize']:.1f} s "
+                    f"of the validation (host) [{card}]")
                 check(np.isfinite(training["val_loss"])
                       and all(np.isfinite(v) for m in val_metrics.values() for v in m),
                       f"train validation: val loss {training['val_loss']}, {val_metrics}")
@@ -1789,13 +2214,16 @@ def main(argv=None) -> int:
                 training["phase_s"] = time.perf_counter() - t_train
                 rcfg = retrieval_config(root / "data", ckpt)
 
-                # 7b) the retrieval pipeline with the trained checkpoint
-                outs = {}
+                # 7b) the retrieval pipeline with the trained checkpoint; the
+                # C++ paste's seconds in compose are timed for 10d
+                outs, paste_spent = {}, {}
                 for mode, needed in (("map", ("knn",)), ("compose", ()),
                                      ("evaluate", ("chamfer",))):
                     t0 = time.perf_counter()
-                    outs[mode], counts = drive(f"retrieval {mode}", needed,
-                                               lambda: retrievals_to_disk(mode, rcfg, device=dev))
+                    with timed_attrs(native, ("compose_paste",), paste_spent):
+                        outs[mode], counts = drive(f"retrieval {mode}", needed,
+                                                   lambda: retrievals_to_disk(mode, rcfg,
+                                                                              device=dev))
                     retrieval[f"{mode}_s"] = time.perf_counter() - t0
                     retrieval[f"{mode}_launches"] = counts
                     log(f"retrieval {mode}: {retrieval[f'{mode}_s']:.1f} s wall; launches "
@@ -1980,6 +2408,30 @@ def main(argv=None) -> int:
                 check(all(np.isfinite(m[k]) for m in refine["metrics"].values()
                           for k in ("iou", "precision", "recall")),
                       f"refine validation metrics {refine['metrics']}")
+                # 10c) the refinement trainer's visualisation after its
+                # validation, and the 2x upsample of fast_visualization False
+                # on the card against the CPU's
+                t0 = time.perf_counter()
+                vis_dir = refiner.run_visualization("val")
+                refine["visualization_s"] = time.perf_counter() - t0
+                vis_ds = refiner.dataset("val_vis")
+                check(sorted(p_.name for p_ in vis_dir.iterdir())
+                      == sorted(f"{sc}{suffix}" for sc in vis_ds.scenes
+                                for suffix in ("_gt.obj", "_fuse.obj", "_input.obj")),
+                      f"refine run_visualization: {sorted(vis_dir.iterdir())}")
+                vol = vis_ds.get_scene_target(vis_ds.scenes[0]).astype(np.float32)
+                up_err = float((trilinear_upsample_2x(torch.from_numpy(vol).to(dev)).cpu()
+                                - trilinear_upsample_2x(torch.from_numpy(vol))).abs().max())
+                check(up_err <= 1e-6, f"trilinear_upsample_2x: card vs CPU max |diff| {up_err}")
+                slow = SceneHandler("val", dict(fcfg, fast_visualization=False))
+                slow.visualize_target_chunk(vol, root / "target_2x.obj", device=dev)
+                check("\nf " in (root / "target_2x.obj").read_text(),
+                      "fast_visualization False: an empty mesh")
+                refine["upsample_max_diff"] = up_err
+                log(f"refine run_visualization('val'): {len(vis_ds.scenes)} val_vis scenes as "
+                    f"_gt/_fuse/_input OBJs in {refine['visualization_s']:.1f} s; "
+                    f"trilinear_upsample_2x (fast_visualization False) on the card within "
+                    f"{up_err:.1e} of the CPU's (<= 1e-6) [{card}]")
                 for key, m in refine["metrics"].items():
                     log(f"refine validation {key}: iou {m['iou']:.4f}, cd {m['cd']:.4f}, "
                         f"precision {m['precision']:.4f}, recall {m['recall']:.4f}, "
@@ -2139,6 +2591,15 @@ def main(argv=None) -> int:
                         f"files); launches {counts} [{card}]")
                 del art, mem, eng
                 from_artifacts["phase_s"] = time.perf_counter() - t_serve
+
+                # 10) meshes: serving with meshes, mesh metrics, the C++ paste
+                results["meshes"] = run_phase10(
+                    root, dev, scfg, scfg_path, ckpt, fckpt, sorted(made["val"]), rcfg, maps,
+                    {"train": ds_train, "val": ds_val},
+                    dict(tree=tree, compose_s=retrieval["compose_s"],
+                         paste_s=paste_spent.get("compose_paste", 0.0),
+                         scenes=len(ds_train.scenes) + len(ds_val.scenes)),
+                    drive, card)
                 log(f"phase 7a (training) {training['phase_s']:.1f} s, phase 7d (refinement "
                     f"training) {refine['phase_s']:.1f} s, phase 7c (serving from artifacts) "
                     f"{from_artifacts['phase_s']:.1f} s wall [{card}]")

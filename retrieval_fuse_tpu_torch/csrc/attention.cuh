@@ -4,7 +4,7 @@
 // which each kernel describes by a row source (StridedRows or BankRows)
 // before it calls `attend_tile`.
 //
-// For each row r (F = nf·e³ features: 128 at nf 16, 96 at nf 12) and each
+// For each row r (F = nf·e³ features: 32, 64, 96, 128 at nf 4, 8, 12, 16) and each
 // of its K candidate rows p_k:
 //   xf = l2norm(theta(x)), pf_k = l2norm(phi(p_k)); theta and phi are
 //   F->128->128->128->C MLPs with LeakyReLU 0.01 (C = cf_feat = 32)
@@ -19,7 +19,7 @@
 // selection and blend are float32.
 //
 // Two bodies compute this, chosen by a kernel from its element type. Both
-// are templates on F, built for the widths of `with_width` (96 and 128):
+// are templates on F, built for the widths of `with_width` (32 to 128):
 // only layer 0's contraction, the row loads and the blend change with it;
 // hidden 128 and C 32 are the attention module's own and do not depend on
 // nf.
@@ -103,11 +103,14 @@ struct Width {
 };
 
 // Calls fn(std::integral_constant<int, F>{}) for the row width f, one of
-// the widths the kernels are built for (F = nf·e³ at e = 2: nf 12 and 16);
-// returns cudaErrorInvalidValue for any other.
+// the widths the kernels are built for (F = nf·e³ at e = 2: nf 4, 8, 12 and
+// 16, the nf the decoder tail takes); returns cudaErrorInvalidValue for any
+// other.
 template <typename Fn>
 int with_width(int f, Fn fn) {
   switch (f) {
+    case 32: return fn(std::integral_constant<int, 32>{});
+    case 64: return fn(std::integral_constant<int, 64>{});
     case 96: return fn(std::integral_constant<int, 96>{});
     case 128: return fn(std::integral_constant<int, 128>{});
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -7,8 +7,8 @@
 // attention body is attention.cuh's; this kernel's rows are tile q of xt
 // and, for each of its K retrieved bank rows idx[q, k], that (T, F) bank
 // tile, read from global memory. No (Q, K, T, F) tensor exists. Rows are
-// F = nf·e³ values, F one of attention.cuh's `with_width` (96 or 128; the
-// entry point takes f and dispatches).
+// F = nf·e³ values, F one of attention.cuh's `with_width` (32, 64, 96 or
+// 128; the entry point takes f and dispatches).
 //
 // bf16 runs attention.cuh's tensor-core body as a persistent launch (one
 // block per SM with theta's and phi's weights resident in shared memory,

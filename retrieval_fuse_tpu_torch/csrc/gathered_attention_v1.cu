@@ -14,8 +14,8 @@
 // arrival to an mbarrier, and the compute warps spend no instruction on the
 // bytes. Python side: ops/patch_attention.py; the attention arithmetic is
 // attention.cuh's, the copy and barrier wrappers are mma.cuh's. Rows are
-// F = nf·e³ values, F one of attention.cuh's `with_width` (96 or 128; the
-// entry point takes f and dispatches); a slot is one (64, F) tile.
+// F = nf·e³ values, F one of attention.cuh's `with_width` (32, 64, 96 or
+// 128; the entry point takes f and dispatches); a slot is one (64, F) tile.
 //
 // Bound on the H100: as gathered_attention.cu, 0.282 ms at Q=8192, K=4,
 // bf16 (279 GFLOP of MLP GEMMs at 989 TFLOP/s).
@@ -49,7 +49,7 @@
 // float32, on FMAs (`gathered_attention_v1`; TF32 would cost ~3 decimal
 // digits): attention.cuh's `attend_tile`, one block a tile, whose K
 // candidate tiles (K·256·F bytes beside the body's 96,768 bytes: K <= 4 at
-// F = 128, K <= 5 at F = 96; the wrapper raises beyond) are copied up front
+// F = 128, K <= 5 at F = 96, K <= 8 at F = 64 and 32; the wrapper raises beyond) are copied up front
 // by one thread, in flight under theta; phi and the blend read them from
 // shared memory.
 
@@ -292,7 +292,8 @@ int launch_bf16(const void* xt, const void* bank, const int* idx, int q, int k,
 // `scratch`: q * 64 * 32 float32 for bfloat16 (the theta embeddings between
 // the kernel's phases), unused for float32. bfloat16 runs on the tensor
 // cores with 1 <= k <= 8; float32 on FMAs with k * 64 * f * 4 bytes of
-// staging (k <= 4 at f = 128, k <= 5 at f = 96). Returns a cudaError_t value.
+// staging (k <= 4 at f = 128, k <= 5 at f = 96, k <= 8 at f = 64 and 32).
+// Returns a cudaError_t value.
 extern "C" int rf_gathered_attention_v1(int dtype, const void* xt, const void* bank,
                                         const int* idx, int q, int k, int f,
                                         const void* w_theta, const float* b_theta,

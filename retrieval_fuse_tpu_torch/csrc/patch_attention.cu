@@ -8,8 +8,8 @@
 // the candidate rows differs: candidate k of row i is p[i, k, :], so a
 // block's candidate-k rows lie K*F elements apart.
 //
-// Rows are F = nf·e³ values, F one of attention.cuh's `with_width` (96 or
-// 128; the entry point takes f and dispatches).
+// Rows are F = nf·e³ values, F one of attention.cuh's `with_width` (32, 64,
+// 96 or 128; the entry point takes f and dispatches).
 //
 // A tile is 64 consecutive rows of x; N need not be a multiple of 64: the
 // last tile's missing rows are zero in the MLPs and never written. The TPU

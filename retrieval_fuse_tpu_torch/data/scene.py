@@ -12,8 +12,8 @@ package's data/scene.py (SceneHandler):
   * patch extents lie on a regular stride grid; patch names are
     "scene--x0_x1_y0_y1_z0_z1".
 
-Host-side numpy. The mesh visualisation methods of the JAX class need
-marching cubes and are not ported (ROADMAP Queue 1 item 16).
+Host-side numpy; the visualisation methods write OBJ files through the
+native marching cubes and utils/visualization.py.
 """
 
 from __future__ import annotations
@@ -282,3 +282,41 @@ class SceneHandler:
 
     def get_patch_occupancy(self, scene: str, target_extent) -> int:
         return self.scene_occupancy.get(SceneHandler.get_name_from_extent(scene, target_extent), 1)
+
+    # ----------------------------------------------------------- visualization
+
+    def visualize_target_chunk(self, chunk_df: np.ndarray, output_path, device=None) -> None:
+        """A target-resolution TSDF as an OBJ mesh at 0.75 target voxel.
+        Unless fast_visualization, the TSDF is first upsampled 2x
+        (trilinear, on `device`: the CUDA card unless "cpu" is asked for)
+        and the mesh scaled back."""
+        from retrieval_fuse_tpu_torch.utils import visualization
+        scale_factor = 1
+        if not self.fast_visualization:
+            import torch
+            from retrieval_fuse_tpu_torch.device import resolve_device
+            vol = torch.from_numpy(np.ascontiguousarray(chunk_df, np.float32))
+            chunk_df = visualization.trilinear_upsample_2x(
+                vol.to(resolve_device(device))).cpu().numpy()
+            scale_factor = 2
+        visualization.visualize_sdf_as_mesh(chunk_df, output_path, self.target_voxel_size * 0.75,
+                                            scale_factor=scale_factor)
+
+    def visualize_input_chunk(self, chunk, output_path) -> None:
+        """An input chunk as voxel boxes: occupied cells of a point-cloud
+        grid, or cells at or below 0.675 input voxel of a TSDF."""
+        from retrieval_fuse_tpu_torch.utils import visualization
+        if self.task == "surface_reconstruction":
+            visualization.visualize_grid_as_voxels(chunk, output_path)
+        else:
+            visualization.visualize_sdf_as_voxels(chunk, output_path, self.input_voxel_size * 0.675)
+
+    @staticmethod
+    def visualize_weight(chunk_weight, output_path):
+        from retrieval_fuse_tpu_torch.utils import visualization
+        visualization.visualize_float_grid(chunk_weight, 1, 1, 4, output_path)
+
+    @staticmethod
+    def visualize_normal(chunk_normal, output_path):
+        from retrieval_fuse_tpu_torch.utils import visualization
+        visualization.visualize_normals(chunk_normal, output_path)

@@ -40,7 +40,7 @@ a ring fills with `cp.async.bulk` ahead of the warps
 (csrc/gathered_attention_v1.cu). In float32 (TF32 would cost ~3 decimal
 digits) the body multiplies with float32 FMAs from shared memory; v1 then
 stages a tile's K candidates whole, which caps K at 4 (F = 128) or 5 (F =
-96). Each wrapper's `.math`
+96); at F = 64 and 32 the wrappers' K <= 8 holds. Each wrapper's `.math`
 names the path of its last launch. The TPU workarounds are not carried
 over: the 512-row padding of N, the flattened index operand, the padding of
 Q to a group multiple.
@@ -62,15 +62,16 @@ from retrieval_fuse_tpu_torch.ops import _build
 
 #: what the kernels take (the plain versions take any): T rows a tile (the
 #: gathered kernels), MLP hidden width, C embedding width, K candidates, and
-#: the widths F of a row they are built for (nf·e³ at e = 2: nf 12 and 16;
-#: csrc/attention.cuh `with_width`)
+#: the widths F of a row they are built for (nf·e³ at e = 2: nf 4, 8, 12 and
+#: 16; csrc/attention.cuh `with_width`)
 KERNEL_ROWS, KERNEL_HIDDEN, KERNEL_EMBED = 64, 128, 32
 KERNEL_MAX_K = 8
-KERNEL_FEATURE_WIDTHS = (96, 128)
+KERNEL_FEATURE_WIDTHS = (32, 64, 96, 128)
 #: shared memory for gathered_patch_attention_v1's float32 staging (K whole
-#: tiles), and the K it takes in float32 at each width
+#: tiles), and the K it takes in float32 at each width (KERNEL_MAX_K at most)
 V1_STAGE_BYTES = 128 * 1024
-V1_F32_MAX_K = {f: V1_STAGE_BYTES // (KERNEL_ROWS * f * 4) for f in KERNEL_FEATURE_WIDTHS}
+V1_F32_MAX_K = {f: min(KERNEL_MAX_K, V1_STAGE_BYTES // (KERNEL_ROWS * f * 4))
+                for f in KERNEL_FEATURE_WIDTHS}
 _LAYERS = ("fc0", "fc1", "fc2", "out")
 
 

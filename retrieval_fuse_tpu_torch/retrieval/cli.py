@@ -4,7 +4,9 @@ retrieval volumes (`compose`), score the 1-NN composed scenes (`evaluate`).
 
   map      -> database.npy + index.json + params.json under the scratch tree
               path, map_train.npy / map_val.npy under the retrievals dir
-  compose  -> compose/<scene>.npz per scene, shardable with --num_proc/--proc
+  compose  -> compose/<scene>.npz per scene, pasted by the native C++ paste
+              (native/compose.cpp; g++ is needed), shardable with
+              --num_proc/--proc
   evaluate -> prints (and returns) [iou, cd, precision, recall]
 
     python -m retrieval_fuse_tpu_torch.retrieval.cli --config C.yaml \\
@@ -75,7 +77,8 @@ def retrievals_to_disk(mode: str, config: dict, use_target_for_feats: bool = Fal
             mapping = np.load(retrievals_dir / map_name, allow_pickle=True)[()]
             for scene in split_scenes:
                 retrieval = create_retrieval_from_mapping(
-                    scene, mapping, config["K"], dataset_train, dataset, tree_path)
+                    scene, mapping, config["K"], dataset_train, dataset, tree_path,
+                    use_native=True)
                 np.savez_compressed(retrievals_dir / "compose" / f"{scene}.npz", retrieval)
     elif mode == "evaluate":
         from retrieval_fuse_tpu_torch.train.retrieval_trainer import get_metrics_for_retrieval

@@ -9,9 +9,10 @@ pasted with lowest-distance priority where strides overlap.
 
 The search is exact: ops/knn.auto_exact_knn, which takes the streaming kNN
 kernel at float32 query batches >= 4096 against >= 16,384 rows and the dense
-path below (a float32 matmul and the topk kernel, for k <= 8). The JAX
-package's C++ paste and its database sharding over a device mesh are not
-ported (ROADMAP Queue 1 items 16 and 13).
+path below (a float32 matmul and the topk kernel, for k <= 8). Compose
+pastes in numpy, or with `use_native` in the native C++ paste
+(native/compose.cpp), which gives the same volumes. The JAX package's
+database sharding over a device mesh is not ported (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -74,11 +75,17 @@ def query_dictionary_using_features(query_config: dict, patch_names, input_featu
 
 
 def create_retrieval_from_mapping(scene_name: str, retrieval_mappings: dict, K: int,
-                                  dataset_train, dataset, tree_path) -> np.ndarray:
+                                  dataset_train, dataset, tree_path,
+                                  use_native: bool = False) -> np.ndarray:
     """Paste retrieved train-scene crops into K full-scene volumes: crops are
     rescaled by the trunc ratio, zero-patch rows paste trunc everywhere, and
     where strides overlap the lowest-distance patch wins per region through
-    a running distance volume. Host-side numpy, per scene."""
+    a running distance volume. Host-side, per scene: numpy, or with
+    `use_native` the C++ paste (Python gathers the crops, C++ applies the
+    priority rule; the same volumes)."""
+    if use_native:
+        return _create_retrieval_from_mapping_native(
+            scene_name, retrieval_mappings, K, dataset_train, dataset, tree_path)
     dataset_index = json.loads((Path(tree_path) / "index.json").read_text())
     scene_size = dataset.get_scene_size(scene_name)
     scene_retrieval = np.ones((K, scene_size[0], scene_size[1], scene_size[2]),
@@ -101,6 +108,37 @@ def create_retrieval_from_mapping(scene_name: str, retrieval_mappings: dict, K: 
                                     dtype=np.float32) * dataset.target_trunc)[X0:X1, Y0:Y1, Z0:Z1]
                 scene_retrieval[k, xx0:xx1, yy0:yy1, zz0:zz1] = crop * scale
                 distances[k, xx0:xx1, yy0:yy1, zz0:zz1] = float(current_distance)
+    return scene_retrieval
+
+
+def _create_retrieval_from_mapping_native(scene_name, retrieval_mappings, K, dataset_train,
+                                          dataset, tree_path) -> np.ndarray:
+    """create_retrieval_from_mapping with the paste in C++: per k, the
+    scene's P crops (trunc-ratio scaled; a zero-patch row's crop is trunc,
+    scaled as well) go to native.compose_paste in one call."""
+    from retrieval_fuse_tpu_torch.native import compose_paste
+    dataset_index = json.loads((Path(tree_path) / "index.json").read_text())
+    scene_size = tuple(dataset.get_scene_size(scene_name))
+    scene_retrieval = np.ones((K,) + scene_size, dtype=np.float32) * dataset.target_trunc
+    patches = dataset.patch_from_scene_lookup[scene_name]
+    scale = dataset.target_trunc / dataset_train.target_trunc
+    ps = dataset.target_patch_size
+    extents = np.array([dataset_train.unpad(*SceneHandler.get_extent_from_name(p)[1])
+                        for p in patches], np.int32).reshape(len(patches), 6)
+    for k in range(K):
+        crops = np.empty((len(patches), ps, ps, ps), np.float32)
+        dists = np.empty(len(patches), np.float32)
+        for i, p in enumerate(patches):
+            row = retrieval_mappings[p][k]
+            dists[i] = row[7]
+            index_ptr = int(row[0])
+            if index_ptr >= 0:
+                crops[i] = dataset_train.get_scene_target_crop(
+                    dataset_index[index_ptr], *row[1:7].astype(np.int32).tolist()) * scale
+            else:
+                crops[i] = dataset.target_trunc * scale
+        distances = np.full(scene_size, 100.0, np.float32)
+        compose_paste(scene_retrieval[k], distances, crops, extents, dists, dataset.no_overlap)
     return scene_retrieval
 
 

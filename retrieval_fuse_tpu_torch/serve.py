@@ -8,13 +8,15 @@ database, zero-patch row included), and the two checkpoints the weights.
         --retrieval_ckpt runs/<exp>/ckpt_epoch=N \\
         --refinement_ckpt runs/<exp2>/ckpt_epoch=M \\
         --input <dir of <scene>.npz raw input chunks> --output <dir> \\
-        [--batch_size 8] [--f32] [--fast | --variant V] [--device cpu]
+        [--batch_size 8] [--f32] [--fast | --variant V] [--obj] [--device cpu]
 
-Writes <scene>_pred.npz (key "arr", float16 TSDF). The checkpoints are in
-the port's layout (train/checkpoint.py). The dictionary is the one `map`
-built for the retrieval checkpoint (retrieval/cli.py), found where
-utils/misc.get_tree_path puts it, relative to the working directory.
-`--obj` (marching-cubes meshes) is not ported yet (ROADMAP Queue 1 item 8).
+Writes <scene>_pred.npz (key "arr", float16 TSDF) and, with --obj,
+<scene>_pred.obj: the native marching cubes of the float32 prediction at
+0.75 target voxel (the val SceneHandler's visualize_target_chunk). The
+checkpoints are in the port's layout (train/checkpoint.py). The dictionary
+is the one `map` built for the retrieval checkpoint (retrieval/cli.py),
+found where utils/misc.get_tree_path puts it, relative to the working
+directory.
 """
 
 from __future__ import annotations
@@ -31,9 +33,6 @@ from retrieval_fuse_tpu_torch.data import SceneHandler, PatchedSceneDataset
 from retrieval_fuse_tpu_torch.device import resolve_device
 from retrieval_fuse_tpu_torch.train.checkpoint import load_checkpoint
 from retrieval_fuse_tpu_torch.utils.misc import get_tree_path
-
-OBJ_NOT_PORTED = "--obj needs marching cubes, which is not ported yet (ROADMAP Queue 1 item 8)"
-
 
 def code_geometry(code: str) -> tuple[int, int]:
     """(patch size, context) of a retrieval network code such as "2+1",
@@ -184,10 +183,16 @@ def build_engine_from_artifacts(config: dict, retrieval_ckpt, refinement_ckpt,
                                 **variant_engine_kwargs(variant))
 
 
-def serve_directory(engine, input_dir, output_dir, batch_size: int = 8) -> list[str]:
+def serve_directory(engine, input_dir, output_dir, batch_size: int = 8,
+                    write_obj: bool = False, scene_handler=None) -> list[str]:
     """Run every <scene>.npz raw input chunk (key "arr") through the engine
     in fixed-size batches (the tail batch padded with its last chunk) and
-    write <scene>_pred.npz (float16 TSDF). Returns the served scene names."""
+    write <scene>_pred.npz (float16 TSDF); with `write_obj`, also
+    <scene>_pred.obj, the mesh of the float32 prediction that
+    `scene_handler`.visualize_target_chunk makes (on the engine's device).
+    Returns the served scene names."""
+    if write_obj and scene_handler is None:
+        raise ValueError("write_obj needs the scene_handler whose voxel size sets the level")
     input_dir, output_dir = Path(input_dir), Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     files = sorted(input_dir.glob("*.npz"))
@@ -205,6 +210,10 @@ def serve_directory(engine, input_dir, output_dir, batch_size: int = 8) -> list[
         pred = engine(batch)[: len(chunk_files), ..., 0].cpu().numpy()
         for f, vol in zip(chunk_files, pred):
             np.savez_compressed(output_dir / f"{f.stem}_pred.npz", arr=vol.astype(np.float16))
+            if write_obj:
+                scene_handler.visualize_target_chunk(vol.astype(np.float32),
+                                                     output_dir / f"{f.stem}_pred.obj",
+                                                     device=engine.device)
             done.append(f.stem)
     return done
 
@@ -220,8 +229,7 @@ def main(argv=None):
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--K", type=int, default=None)
     parser.add_argument("--f32", action="store_true", help="serve in float32 (default bf16)")
-    parser.add_argument("--obj", action="store_true", help="also write marching-cubes meshes "
-                        "(not ported yet)")
+    parser.add_argument("--obj", action="store_true", help="also write marching-cubes meshes")
     parser.add_argument("--fused_decoder", action="store_true")
     parser.add_argument("--pallas_attention", action="store_true")
     parser.add_argument("--variant", type=str, default=None,
@@ -231,8 +239,6 @@ def main(argv=None):
                         help="serve with the shipped configuration (inference.FAST_VARIANT)")
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.obj:
-        raise NotImplementedError(OBJ_NOT_PORTED)
 
     from retrieval_fuse_tpu_torch.config import read_config
     from retrieval_fuse_tpu_torch.inference import FAST_VARIANT
@@ -249,7 +255,9 @@ def main(argv=None):
         compute_dtype=torch.float32 if args.f32 else torch.bfloat16, device=args.device,
         use_fused_decoder=args.fused_decoder, use_pallas_attention=args.pallas_attention,
         variant=variant)
-    done = serve_directory(engine, args.input, args.output, args.batch_size)
+    sh = SceneHandler("val", config) if args.obj else None
+    done = serve_directory(engine, args.input, args.output, args.batch_size,
+                           write_obj=args.obj, scene_handler=sh)
     print(f"served {len(done)} chunks -> {args.output}")
     return done
 

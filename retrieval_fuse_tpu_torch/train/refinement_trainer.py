@@ -28,9 +28,12 @@ backward pass (torch.utils.checkpoint), and `frozen_phase_cache` runs phase
 2 on features computed once per `fit` (held on the device when they fit
 4 GB).
 
-Not ported yet: the visualisations (`enable_vis`, `run_visualization`; they
-need marching cubes and a renderer, ROADMAP Queue 1 item 8) and training
-over several cards (Queue 1 item 10).
+With `enable_vis`, each validation ends in `run_visualization("val")` (and
+"train" unless `disable_train_vis`): the vis split's fused predictions,
+targets and inputs, stitched per scene, as OBJ meshes under
+runs/<experiment>/vis_<split>/<global_step // 1000>/.
+
+Not ported yet: training over several cards (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -72,9 +75,7 @@ CONTRASTIVE_CAP = 1280
 #: bytes the frozen phase-2 cache may take on the device
 CACHE_BUDGET_BYTES = 4 * 1024 ** 3
 VAL_SEED = 11  # the validation's Gumbel draws
-VIS_NOT_PORTED = ("the refinement trainer's visualisations need marching cubes and the "
-                  "renderer, which are not ported yet (ROADMAP Queue 1 item 8); "
-                  "pass enable_vis=False")
+VIS_SEED = 3  # run_visualization's Gumbel draws
 
 
 class _Method(nn.Module):
@@ -96,10 +97,10 @@ class RefinementTrainer:
         """`deterministic_attention` (default False): the attention block
         selects by Gumbel-softmax in training, as the JAX trainer's does,
         while serving (models.get_attention_block's default) selects the
-        argmax. True makes training select deterministically too."""
-        if enable_vis:
-            raise NotImplementedError(VIS_NOT_PORTED)
+        argmax. True makes training select deterministically too.
+        `enable_vis`: each validation ends with run_visualization."""
         self.config = config
+        self.enable_vis = enable_vis
         self.device = resolve_device(device)
         self.mixed_precision = bool(config.get("mixed_precision", False))
         self.remat = bool(config.get("remat", False))
@@ -639,10 +640,42 @@ class RefinementTrainer:
                 logger.log({f"{key}/{m}": v for m, v in results[key].items()},
                            step=self.global_step)
         print(format_table(table))
+        if self.enable_vis:
+            self.run_visualization("val")
+            if not self.config.get("disable_train_vis", True):
+                self.run_visualization("train")
         return results
 
-    def run_visualization(self, out_tag: str = "val"):
-        raise NotImplementedError(VIS_NOT_PORTED)
+    def run_visualization(self, out_tag: str = "val") -> Path:
+        """forward_full over the `<out_tag>_vis` split (Gumbel draws seeded
+        with VIS_SEED), the predictions stitched per scene, and
+        <scene>_gt.obj, _fuse.obj and _input.obj written under
+        runs/<experiment>/vis_<out_tag>/<global_step // 1000>/, whose path
+        it returns. The meshes come from the split's own SceneHandler."""
+        ds = self.dataset(f"{out_tag}_vis")
+        gen = self._generator(VIS_SEED)
+        pred_shapes = []
+        with torch.no_grad():
+            for batch in batch_iterator(ds, self.batch_size, shuffle=False):
+                pred_shape = self.forward_full(self._device_batch(batch),
+                                               self.gumbel_draw(self.batch_size, gen))[0]
+                pred_df = self.network_pred_to_df(pred_shape)[..., 0].float().cpu().numpy()
+                pred_shapes.append(pred_df[: batch["valid"]].astype(np.float16))
+        combined_pred = ds.combine_retrievals(np.concatenate(pred_shapes)[:, None], 0)
+        combined_inputs = ds.combine_inputs()
+        combined_targets = ds.combine_targets()
+        out = (Path("runs") / self.config["experiment"] / f"vis_{out_tag}"
+               / f"{self.global_step // 1000:05d}")
+        out.mkdir(exist_ok=True, parents=True)
+        handler = self.scene_handlers.get(out_tag, self.scene_handlers["val"])
+        for scene in combined_targets:
+            handler.visualize_target_chunk(combined_targets[scene].astype(np.float32),
+                                           out / f"{scene}_gt.obj", device=self.device)
+            handler.visualize_target_chunk(combined_pred[scene].astype(np.float32),
+                                           out / f"{scene}_fuse.obj", device=self.device)
+            handler.visualize_input_chunk(combined_inputs[scene].astype(np.float32),
+                                          out / f"{scene}_input.obj")
+        return out
 
     # ------------------------------------------------------------ checkpoints
 
@@ -748,9 +781,9 @@ def main(argv=None):
     The retrievals are the composed volumes of `--retrieval_ckpt` (the
     retrieval CLI's `compose`); `--no_retrievals` trains on trunc-filled
     dummies instead (the flag, absent, overrides the YAML's value). With
-    `--resume` it trains on from the checkpoint (`--sanity_steps -1`:
-    validates only). One card. Visualisations are off: the trainer runs
-    with enable_vis=False (ROADMAP Queue 1 item 8)."""
+    `--resume` it trains on from the checkpoint with the visualisations on
+    (`--sanity_steps -1`: validates once, meshes included, and stops), as
+    the JAX CLI does. One card."""
     from retrieval_fuse_tpu_torch.config.arguments import parse_arguments
     from retrieval_fuse_tpu_torch.utils.logger import FilesystemLogger
 
@@ -758,11 +791,9 @@ def main(argv=None):
     device = resolve_device(config.get("device"))  # before anything is written
     np.random.seed(config["seed"])
     FilesystemLogger(config)
-    print("[refinement trainer] visualisations off: marching cubes and the renderer are "
-          "not ported yet (ROADMAP Queue 1 item 8)")
     if not config.get("resume"):
         return train_refinement_phases(config, device=device)
-    trainer = RefinementTrainer(config, device=device)
+    trainer = RefinementTrainer(config, device=device, enable_vis=True)
     trainer.load(config["resume"])
     if config.get("sanity_steps") == -1:
         trainer.validate()

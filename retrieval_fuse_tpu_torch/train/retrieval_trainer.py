@@ -6,16 +6,17 @@ Adam (weight decay 5e-5, coupled) with MultiStepLR(0.5) and a 1500-step
 linear warm-up (train/schedule.py), optional Gaussian input and code noise,
 NT-Xent with the optional IoU-scaled temperature, and a validation stage
 that rebuilds the patch dictionary, runs retrieval for train_eval (with and
-without same-scene exclusion) and val, and logs the four rough metrics.
+without same-scene exclusion) and val, logs the four rough metrics and,
+with `enable_vis`, writes the val_vis scenes' input, 1-NN retrieval and
+target meshes with one rendered preview (PNG) per scene.
 
 One eager step: both encoders, the loss, `loss.backward()`,
 `optimizer.step()`, on the trainer's device (the CUDA card unless "cpu" is
 asked for). The retrieval validation runs the port's dictionary, kNN (the
 kNN or topk kernel on the card) and chamfer kernel on that device.
 
-Not ported yet: the rendered visualisations (`enable_vis`; they need
-marching cubes and a renderer, ROADMAP Queue 1 item 8) and data-parallel
-training over several cards (Queue 1 item 10).
+Not ported yet: data-parallel training over several cards (ROADMAP Queue 1
+item 10).
 """
 
 from __future__ import annotations
@@ -34,22 +35,21 @@ from retrieval_fuse_tpu_torch.retrieval.dictionary import create_dictionary, mak
 from retrieval_fuse_tpu_torch.retrieval.engine import RetrievalInterface
 from retrieval_fuse_tpu_torch.train import schedule as sched
 from retrieval_fuse_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from retrieval_fuse_tpu_torch.utils.logger import MetricsLogger
+from retrieval_fuse_tpu_torch.utils.logger import MetricsLogger, log_images
 from retrieval_fuse_tpu_torch.utils.misc import get_iou_matrix
 
 ENCODERS = ("fenc_input", "fenc_target")
-VIS_NOT_PORTED = ("the retrieval trainer's visualisations need marching cubes and the "
-                  "renderer, which are not ported yet (ROADMAP Queue 1 item 8); "
-                  "pass enable_vis=False")
 
 
 class RetrievalTrainer:
 
     def __init__(self, config: dict, device=None, enable_vis: bool = False):
-        if enable_vis:
-            raise NotImplementedError(VIS_NOT_PORTED)
+        """`enable_vis`: the retrieval validation also writes the val_vis
+        scenes' meshes and previews (main turns it on, as the JAX CLI
+        does)."""
         self.config = config
         self.device = resolve_device(device)
+        self.enable_vis = enable_vis
         rt = config["retrieval_training"]
         self.temperature = rt["temprature"]
         self.base_lr = rt["lr"]
@@ -233,8 +233,9 @@ class RetrievalTrainer:
 
     def retrieval_validation(self, epoch: int, logger=None) -> dict:
         """Dictionary -> kNN -> compose -> metrics for train_eval (without
-        and with the query's own scene) and val; returns {split: [iou, cd,
-        precision, recall]}."""
+        and with the query's own scene) and val, then, with enable_vis, the
+        val_vis meshes and previews (their count logged by log_images);
+        returns {split: [iou, cd, precision, recall]}."""
         output_dir = (Path("runs") / self.config["experiment"] / "visualization"
                       / f"epoch_{epoch:04d}")
         output_dir.mkdir(exist_ok=True, parents=True)
@@ -249,14 +250,41 @@ class RetrievalTrainer:
             retrievals = self.retrieval_handler.create_mapping_and_retrieve_nearest_scenes_for_all(
                 encode_in, output_dir, ds_train_eval, ds, 1, ignore_source)
             metrics = get_metrics_for_retrieval(retrievals, ds, device=self.device)
-            results[key] = metrics
+            results[key] = (retrievals, metrics)
             if logger:
                 logger.log({f"{key}/{m}": v for m, v in
                             zip(["iou", "cd", "precision", "recall"], metrics)},
                            step=self.global_step)
             print(f"[{key}] rough IoU: {metrics[0]:.3f} | CD: {metrics[1]:.3f} | "
                   f"P: {metrics[2]:.3f} | R: {metrics[3]:.3f}")
-        return results
+        if self.enable_vis:
+            self._visualize(output_dir, ds_val, results["val"][0])
+            if logger:
+                log_images(logger, output_dir / "render_val_vis", step=self.global_step)
+        return {key: metrics for key, (_, metrics) in results.items()}
+
+    def _visualize(self, output_dir: Path, ds_val, val_retrievals) -> None:
+        """The val_vis scenes, stitched from their chunks: <scene>_gt.obj
+        (target), _pred.obj (the 1-NN retrieval) and _input.obj (input
+        voxels) under <output_dir>/visualization_val_vis, and one rendered
+        preview each under <output_dir>/render_val_vis."""
+        from retrieval_fuse_tpu_torch.utils.visualization import render_visualizations_to_image
+        ds_vis = self.dataset("val_vis")
+        vis_idx = [ds_val.scenes.index(x) for x in ds_vis.scenes]
+        combined_retrievals = ds_vis.combine_retrievals(val_retrievals[vis_idx], 0)
+        combined_inputs = ds_vis.combine_inputs()
+        combined_targets = ds_vis.combine_targets()
+        mesh_dir = output_dir / "visualization_val_vis"
+        mesh_dir.mkdir(exist_ok=True, parents=True)
+        handler = self.scene_handlers["val"]
+        for scene in combined_retrievals:
+            handler.visualize_target_chunk(combined_targets[scene].astype(np.float32),
+                                           mesh_dir / f"{scene}_gt.obj", device=self.device)
+            handler.visualize_target_chunk(combined_retrievals[scene].astype(np.float32),
+                                           mesh_dir / f"{scene}_pred.obj", device=self.device)
+            handler.visualize_input_chunk(combined_inputs[scene].astype(np.float32),
+                                          mesh_dir / f"{scene}_input.obj")
+        render_visualizations_to_image(mesh_dir, output_dir / "render_val_vis")
 
     # ------------------------------------------------------------ checkpoints
 
@@ -292,8 +320,8 @@ def main(argv=None):
         python -m retrieval_fuse_tpu_torch.train.retrieval_trainer --config C.yaml \\
             [--max_epoch N] [--sanity_steps S] [--val_check_interval I] [--device cpu]
 
-    One card. Visualisations are off: the trainer runs with
-    enable_vis=False (ROADMAP Queue 1 item 8)."""
+    One card. The retrieval validation writes the val_vis meshes and
+    previews (enable_vis), as the JAX CLI's does."""
     from retrieval_fuse_tpu_torch.config.arguments import parse_arguments
     from retrieval_fuse_tpu_torch.utils.logger import FilesystemLogger
 
@@ -302,9 +330,7 @@ def main(argv=None):
     config["no_retrievals"] = True
     np.random.seed(config["seed"])
     FilesystemLogger(config)
-    print("[retrieval trainer] visualisations off: marching cubes and the renderer are "
-          "not ported yet (ROADMAP Queue 1 item 8)")
-    trainer = RetrievalTrainer(config, device=device, enable_vis=False)
+    trainer = RetrievalTrainer(config, device=device, enable_vis=True)
     if config.get("resume"):
         trainer.load(config["resume"])
     if config.get("sanity_steps"):

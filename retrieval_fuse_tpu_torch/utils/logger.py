@@ -4,17 +4,24 @@
     config into runs/<experiment>/ at run start;
   * `MetricsLogger` appends one JSON record of scalar metrics per call to
     runs/<experiment>/metrics.jsonl (keys `_time`, `_step` and the metric
-    names), mirrored to W&B when it is asked for and importable.
+    names), mirrored to W&B when it is asked for and importable;
+  * `log_images` records the rendered preview images of a directory
+    (`<prefix>/count`, `<prefix>/dir`) and mirrors them to W&B;
+  * `trace_profile` wraps a code region in torch.profiler (CPU, and CUDA
+    where there is a card) and writes a Chrome trace.
 
 PyYAML is imported inside FilesystemLogger only, as in config.read_config.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import time
 from pathlib import Path
+
+import torch
 
 
 class FilesystemLogger:
@@ -77,3 +84,38 @@ class MetricsLogger:
 
     def close(self):
         self._fh.close()
+
+
+@contextlib.contextmanager
+def trace_profile(log_dir, enabled: bool = True):
+    """torch.profiler around a code region (CPU activity, and CUDA when a
+    card is present); on exit writes <log_dir>/trace.json (Chrome trace
+    format). Yields the profiler (None when not enabled), whose
+    key_averages() sum the time by operation and kernel."""
+    if not enabled:
+        yield None
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(str(log_dir / "trace.json"))
+
+
+def log_images(logger: MetricsLogger, image_dir, step: int | None = None,
+               prefix: str = "visualization") -> int:
+    """Record the rendered preview images (utils/visualization.IMAGE_SUFFIX)
+    of `image_dir` in the metrics stream as `<prefix>/count` and
+    `<prefix>/dir`, and mirror them to W&B when it is on. Returns the count."""
+    from retrieval_fuse_tpu_torch.utils.visualization import IMAGE_SUFFIX
+    images = sorted(Path(image_dir).glob(f"*{IMAGE_SUFFIX}"))
+    if not images:
+        return 0
+    logger.log({f"{prefix}/count": len(images), f"{prefix}/dir": str(image_dir)}, step=step)
+    if logger._wandb is not None:
+        wandb = logger._wandb
+        wandb.log({f"{prefix}/{im.name}": [wandb.Image(str(im))] for im in images}, step=step)
+    return len(images)

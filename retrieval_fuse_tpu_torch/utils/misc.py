@@ -1,5 +1,6 @@
-"""Helpers (list IO, grids, artifact paths, the batch IoU matrix), as in the
-JAX package's utils/misc.py, with the same artifact addressing."""
+"""Helpers (list IO, grids, artifact paths, the batch IoU matrix, SDF
+truncation, state_dict prefixes), as in the JAX package's utils/misc.py,
+with the same artifact addressing."""
 
 from __future__ import annotations
 
@@ -67,3 +68,14 @@ def get_iou_matrix(batch_occupancy):
     sums = occ.sum(dim=1)
     union = sums[:, None] + sums[None, :] - inter
     return inter / (union + 1e-5)
+
+
+def truncate_sdf(sdf, truncation_val: float):
+    """Symmetric clamp of a signed distance field to ±truncation_val."""
+    return np.clip(sdf, -truncation_val, truncation_val)
+
+
+def rename_state_dict(state_dict: dict, key: str) -> dict:
+    """The entries of a flat checkpoint under `key.`, with the prefix
+    stripped (the sub-network's own state_dict)."""
+    return {k[len(key) + 1:]: v for k, v in state_dict.items() if k.startswith(key + ".")}

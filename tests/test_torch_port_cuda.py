@@ -1,6 +1,6 @@
 """The port's seven CUDA kernels against their plain PyTorch versions, on a
 CUDA card (skipped elsewhere: the kernels have no CPU mode), the attention
-kernels at F = 128 and 96 and the decoder tail at nf 4, 8, 12 and 16. This file imports
+kernels at F = 128, 96, 64 and 32 and the decoder tail at nf 4, 8, 12 and 16. This file imports
 neither JAX nor the JAX package, so it runs where only PyTorch is:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py
@@ -499,18 +499,18 @@ def test_chamfer_kernel_rejects_what_it_does_not_take(cuda):
 # ------------------------------------------- the widths of nf 12 (F = 96)
 
 
-def _attention_at(dev, kernel, dtype, retrieval_mode, q, k, seed):
+def _attention_at(dev, kernel, dtype, retrieval_mode, q, k, seed, f=96):
     """One launch of attention kernel `kernel` ("v2", "v1" or "patch") at
-    F = 96 on seeded rows, and its plain version's output."""
-    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(seed), q, 50, 64, 96, k)
+    F = f on seeded rows, and its plain version's output."""
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(seed), q, 50, 64, f, k)
     theta, phi = theta.to(dev, dtype), phi.to(dev, dtype)
     xt, bank = (torch.from_numpy(a).to(dev, dtype) for a in (xt, bank))
     idx = torch.from_numpy(idx).to(dev)
     if kernel == "patch":
         n = q * 64 - 23
         rows = torch.from_numpy(np.random.default_rng(seed + 1).integers(0, 50 * 64, (n, k)))
-        args = (xt.reshape(-1, 96)[:n].contiguous(),
-                bank.reshape(-1, 96)[rows.to(dev)].contiguous())
+        args = (xt.reshape(-1, f)[:n].contiguous(),
+                bank.reshape(-1, f)[rows.to(dev)].contiguous())
         fn, plain = pa.patch_attention, pa.patch_attention_plain
     else:
         args = (xt, bank, idx)
@@ -563,13 +563,38 @@ def test_v1_float32_staging_at_f96(cuda):
         _attention_at(cuda, "v1", torch.float32, True, 7, 6, 32)
 
 
+@pytest.mark.parametrize("f", [32, 64])
+@pytest.mark.parametrize("retrieval_mode", [True, False], ids=["hard", "softmax"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["v2", "v1", "patch"])
+def test_attention_kernels_at_f32_and_f64_match_plain(cuda, kernel, dtype, retrieval_mode, f):
+    """F = 32 and 64 (nf 4 and 8) through each of the three kernels, as
+    the F = 96 test: 300 tiles, K = 4, the F = 128 tests' tolerances."""
+    out, sel, want, want_sel = _attention_at(cuda, kernel, dtype, retrieval_mode, 300, 4, 35, f)
+    if dtype == torch.float32:
+        _agree(out, sel, want, want_sel, 0.999, 1e-4)
+    else:
+        _agree(out, sel, want, want_sel, 0.99, _BF16_TOL[retrieval_mode])
+
+
+def test_v1_float32_staging_at_f64(cuda):
+    """Float32 tiles of F = 64 take 16 KB: v1 stages K = 8 of them, the
+    wrappers' K limit."""
+    assert pa.V1_F32_MAX_K[64] == pa.V1_F32_MAX_K[32] == pa.KERNEL_MAX_K == 8
+    out, sel, want, want_sel = _attention_at(cuda, "v1", torch.float32, True, 7, 8, 36, 64)
+    _agree(out, sel, want, want_sel, 0.999, 1e-4)
+
+
 def test_attention_kernels_refuse_other_widths(cuda):
-    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(33), 3, 9, 64, 64, 2)
-    args = [torch.from_numpy(a).to(cuda) for a in (xt, bank, idx)]
-    before = pa.gathered_patch_attention.launches
-    with pytest.raises(ValueError, match=r"F in \(96, 128\)"):
-        pa.gathered_patch_attention(*args, theta.to(cuda), phi.to(cuda), 2)
-    assert pa.gathered_patch_attention.launches == before
+    """F = 80 (no multiple of 32) and F = 160 (past the hidden width) are
+    refused by name, before any launch."""
+    for f in (80, 160):
+        xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(33), 3, 9, 64, f, 2)
+        args = [torch.from_numpy(a).to(cuda) for a in (xt, bank, idx)]
+        before = pa.gathered_patch_attention.launches
+        with pytest.raises(ValueError, match=r"F in \(32, 64, 96, 128\)"):
+            pa.gathered_patch_attention(*args, theta.to(cuda), phi.to(cuda), 2)
+        assert pa.gathered_patch_attention.launches == before
 
 
 @pytest.mark.parametrize("b, s", [(1, 1), (3, 5), (2, 32), (1, 33)])
@@ -600,23 +625,27 @@ def test_decoder_tail_at_nf12_matches_plain(cuda, dtype, b, s):
 
 def test_kernel_limits_at_nf12_and_past_the_widths():
     """Runs on the CPU (a CUDA device is only named): the one set of
-    constants takes F = 96 and nf 12 (the 3DFront surface-reconstruction
-    config); nf 20 (F = 160) is refused by the attention kernels and the
-    decoder tail, each named."""
+    constants takes nf 4, 8, 12 and 16 (F = 32, 64, 96, 128; nf 12 is the
+    3DFront surface-reconstruction config) on every attention path; nf 20
+    (F = 160) is refused by the attention kernels and the decoder tail, each
+    named."""
     from chip_smoke import surface_config
     from retrieval_fuse_tpu_torch.inference import check_kernel_limits, variant_engine_kwargs
     kw = variant_engine_kwargs("fused+pallasp+topk1p+cdec")
-    for nf, ok in ((12, True), (16, True), (20, False)):
+    for nf, ok in ((4, True), (8, True), (12, True), (16, True), (20, False)):
         cfg = dict(surface_config(), nf=nf)
         if ok:
-            check_kernel_limits(cfg, torch.device("cuda"), kw["attention"], kw["decoder"])
+            for attention in ("patches", "packedrows", "gathered", "gathered2"):
+                for dtype in (torch.bfloat16, torch.float32):
+                    check_kernel_limits(cfg, torch.device("cuda"), attention, kw["decoder"],
+                                        dtype)
             continue
         with pytest.raises(ValueError, match="patch_attention kernel.*F = nf·e³ = 160"):
             check_kernel_limits(cfg, torch.device("cuda"), kw["attention"], kw["decoder"])
         with pytest.raises(ValueError, match=r"decoder_tail kernel.*\(4, 8, 12, 16\).*nf = 20"):
             check_kernel_limits(cfg, torch.device("cuda"), "modules", "compact")
-    assert pa.KERNEL_FEATURE_WIDTHS == (96, 128) and dt.KERNEL_NF == (4, 8, 12, 16)
-    assert pa.V1_F32_MAX_K == {96: 5, 128: 4}
+    assert pa.KERNEL_FEATURE_WIDTHS == (32, 64, 96, 128) and dt.KERNEL_NF == (4, 8, 12, 16)
+    assert pa.V1_F32_MAX_K == {32: 8, 64: 8, 96: 5, 128: 4}
     assert dt.kernel_math(torch.bfloat16, 12) == "mma.bf16"
 
 

@@ -191,6 +191,8 @@ def test_new_modules_import_without_jax():
         "import retrieval_fuse_tpu_torch.models.losses, retrieval_fuse_tpu_torch.ops.sobel\n"
         "import retrieval_fuse_tpu_torch.ops.init, retrieval_fuse_tpu_torch.config.arguments\n"
         "import retrieval_fuse_tpu_torch.utils.logger, retrieval_fuse_tpu_torch.models.unet\n"
+        "import retrieval_fuse_tpu_torch.train.refinement_trainer\n"
+        "import retrieval_fuse_tpu_torch.retrieval.engine, retrieval_fuse_tpu_torch.data.scene\n"
         "bad = [m for m in sys.modules if m == 'retrieval_fuse_tpu'"
         " or m.startswith('retrieval_fuse_tpu.')]\n"
         "assert not bad, bad\n"

@@ -169,6 +169,11 @@ def test_package_imports_without_jax():
         "import retrieval_fuse_tpu_torch.utils.flax_import, retrieval_fuse_tpu_torch.ops._build\n"
         "import retrieval_fuse_tpu_torch.retrieval.cli, retrieval_fuse_tpu_torch.data.synthetic\n"
         "import retrieval_fuse_tpu_torch.evaluation.metrics, retrieval_fuse_tpu_torch.config\n"
+        "import retrieval_fuse_tpu_torch.native, retrieval_fuse_tpu_torch.evaluation.mesh\n"
+        "import retrieval_fuse_tpu_torch.evaluation.mesh_metrics\n"
+        "import retrieval_fuse_tpu_torch.evaluation.cli, retrieval_fuse_tpu_torch.data.prep\n"
+        "import retrieval_fuse_tpu_torch.utils.visualization, retrieval_fuse_tpu_torch.ops.patcher\n"
+        "import retrieval_fuse_tpu_torch.utils.reference_import\n"
         "bad = [m for m in sys.modules if m == 'retrieval_fuse_tpu'"
         " or m.startswith('retrieval_fuse_tpu.')]\n"
         "assert not bad, bad\n"

@@ -734,7 +734,7 @@ def test_phase_chain_writes_checkpoints_and_the_jax_metric_keys(trainers):
 
 def test_cli_validation_only_resume(trainers, capsys):
     """main --resume <ckpt> --sanity_steps -1: one full validation of the
-    checkpoint's weights, no training, the visualisations said to be off."""
+    checkpoint's weights, no training, with the visualisations."""
     import yaml
     os.environ.pop("experiment", None)
     work = trainers["port_dir"]
@@ -750,16 +750,56 @@ def test_cli_validation_only_resume(trainers, capsys):
         finally:
             os.environ.pop("experiment", None)
     out = capsys.readouterr().out
-    assert "visualisations off" in out and "| val   | fuse" in out
+    assert "| val   | fuse" in out
     assert tr.global_step == 0 and tr.config["experiment"] == ckpt.name
+    # the visualisations are on, as in the JAX CLI: the val_vis meshes (and
+    # train_vis's unless disable_train_vis)
+    vis = work / "runs" / ckpt.name
+    train_vis = not trainers["port_cfg"].get("disable_train_vis", True)
+    assert (vis / "vis_train").exists() == train_vis
+    meshes = sorted(p.name for p in (vis / "vis_val" / "00000").iterdir())
+    assert len(meshes) == 6 and all(m.endswith(("_gt.obj", "_fuse.obj", "_input.obj"))
+                                    for m in meshes), meshes
     assert not changed_subnets(src.params(), tr.params())
 
 
 def test_visualisation_is_refused(trainers):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        rt.RefinementTrainer(trainers["port_cfg"], device="cpu", enable_vis=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        trainers["port"].run_visualization("val")
+    """enable_vis (refused before the meshes were ported; the name stays):
+    run_visualization("val") writes each val_vis scene's _gt, _fuse and
+    _input OBJs under runs/<experiment>/vis_val/<step // 1000>/, identical
+    to the JAX SceneHandler's meshes of the JAX dataset's stitched targets,
+    inputs and (by its combine_retrievals) the trainer's forward_full
+    predictions under VIS_SEED's Gumbel draws."""
+    from retrieval_fuse_tpu.data import PatchedSceneDataset as JaxDataset, SceneHandler as JaxScenes
+    from retrieval_fuse_tpu_torch.data import batch_iterator
+    cfg, tr = trainers["port_cfg"], trainers["port"]
+    with working_dir(trainers["port_dir"]):
+        assert rt.RefinementTrainer(cfg, device="cpu", enable_vis=True).enable_vis
+        out = tr.run_visualization("val")
+        assert out == (Path("runs") / cfg["experiment"] / "vis_val"
+                       / f"{tr.global_step // 1000:05d}").resolve().relative_to(Path.cwd())
+        out = trainers["port_dir"] / out
+        jds = JaxDataset("val_vis", cfg["dataset_val"], JaxScenes("val", cfg))
+        handler = JaxScenes("val", cfg)
+    ds, gen, preds = tr.dataset("val_vis"), tr._generator(rt.VIS_SEED), []
+    with torch.no_grad():
+        for batch in batch_iterator(ds, tr.batch_size, shuffle=False):
+            pred = tr.forward_full(tr._device_batch(batch), tr.gumbel_draw(tr.batch_size, gen))[0]
+            preds.append(tr.network_pred_to_df(pred)[: batch["valid"], ..., 0].numpy())
+    fused = jds.combine_retrievals(np.concatenate(preds).astype(np.float16)[:, None], 0)
+    want = trainers["port_dir"] / "vis_want"
+    want.mkdir()
+    for scene in jds.scenes:
+        handler.visualize_target_chunk(jds.combine_targets()[scene].astype(np.float32),
+                                       want / f"{scene}_gt.obj")
+        handler.visualize_target_chunk(fused[scene].astype(np.float32), want / f"{scene}_fuse.obj")
+        handler.visualize_input_chunk(jds.combine_inputs()[scene].astype(np.float32),
+                                      want / f"{scene}_input.obj")
+    names = sorted(p.name for p in want.iterdir())
+    assert len(names) == 3 * len(jds.scenes) == 6
+    assert sorted(p.name for p in out.iterdir()) == names
+    for n in names:
+        assert (out / n).read_text() == (want / n).read_text(), n
 
 
 def test_training_selects_by_gumbel_and_serving_deterministically(trainers):

@@ -11,7 +11,8 @@ patch size and the patch bank bit-equal; the alignment guard passes on the
 dictionary and raises on one whose embeddings were shuffled across rows;
 the port's engine from artifacts (float32, the plain and the shipped
 variant) and the port's CLI give the TSDFs the JAX CLI writes (float32,
-1e-4 against its float16 files).
+1e-4 against its float16 files); the CLI's --obj meshes are the JAX
+package's marching cubes of the predictions it served.
 """
 
 import contextlib
@@ -26,6 +27,7 @@ import pytest
 import torch
 import yaml
 
+from retrieval_fuse_tpu import native as jnative
 from retrieval_fuse_tpu import serve as jserve
 from retrieval_fuse_tpu.data import PatchedSceneDataset as JaxDataset, SceneHandler as JaxHandler
 from retrieval_fuse_tpu.data.synthetic import make_synthetic_config
@@ -153,17 +155,36 @@ def test_engine_flags_select_the_variant(artifacts):
     assert eng.attention_path == "patches" and eng.fused_decoder is not None
 
 
-def test_serve_main_matches_jax_cli(artifacts):
+def test_serve_main_matches_jax_cli(artifacts, monkeypatch):
+    """serve.main's TSDFs are the JAX CLI's; with --obj it also writes each
+    chunk's mesh: the JAX package's marching cubes + OBJ of the float32
+    prediction it served, at the val SceneHandler's level."""
     work = artifacts["work"]
     rc, fc = artifacts["ckpts"]
     argv = ["--config", str(work / "cfg.yaml"), "--retrieval_ckpt", str(rc),
             "--refinement_ckpt", str(fc), "--input", str(work / "data" / "sdf_008" / "SynthSet"),
             "--output", str(work / "served_port"), "--batch_size", "4", "--f32", "--fast",
             "--K", str(K), "--device", "cpu"]
+    meshed, visualize = {}, SceneHandler.visualize_target_chunk
+
+    def recording(self, chunk_df, output_path, device=None):
+        meshed[Path(output_path).name] = (chunk_df.copy(), float(self.target_voxel_size * 0.75))
+        return visualize(self, chunk_df, output_path, device=device)
+
+    monkeypatch.setattr(SceneHandler, "visualize_target_chunk", recording)
     with working_dir(work):
         done = serve.main(argv)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            serve.main(argv + ["--obj"])
+        assert not meshed and not list((work / "served_port").glob("*.obj"))
+        with_obj = serve.main([*argv[:9], str(work / "served_obj"), *argv[10:], "--obj"])
+    assert with_obj == done and sorted(meshed) == [f"{n}_pred.obj" for n in done]
+    for name in done:
+        vol, level = meshed[f"{name}_pred.obj"]
+        assert vol.dtype == np.float32 and vol.shape == (64, 64, 64)
+        np.testing.assert_array_equal(
+            vol.astype(np.float16), np.load(work / "served_obj" / f"{name}_pred.npz")["arr"])
+        jnative.export_obj(*jnative.marching_cubes(vol, level), work / "want.obj")
+        assert (work / "served_obj" / f"{name}_pred.obj").read_text() == \
+            (work / "want.obj").read_text()
     assert len(done) == 8
     for name in done:
         got = np.load(work / "served_port" / f"{name}_pred.npz")["arr"]

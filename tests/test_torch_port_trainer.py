@@ -14,6 +14,8 @@ test_torch_port_train_parts.py).
 - The port's `main` writes metrics.jsonl with the JAX keys and a
   checkpoint that the port's retrieval CLI maps with; the experiment names
   and parsed configs equal the JAX ones.
+- The validation's visualisations (enable_vis): the val_vis meshes equal
+  the JAX SceneHandler's, and one PNG a scene.
 
 The synthetic dataset is the session fixture `synth_superres_root` at nf 4,
 latent 16, batch 8. One JAX train step and one eval step are compiled.
@@ -165,10 +167,43 @@ def test_fit_validation_and_retrieval_validation_match_jax(trainers):
                                    err_msg=key)
 
 
-def test_trainer_refuses_visualisation(synth_superres_root):
-    cfg = synthetic_config(synth_superres_root)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        trt.RetrievalTrainer(cfg, device="cpu", enable_vis=True)
+def test_trainer_refuses_visualisation(synth_superres_root, tmp_path):
+    """enable_vis (refused before the meshes were ported; the name stays):
+    the retrieval validation's _visualize writes each val_vis scene's
+    _gt/_pred/_input OBJs, identical to the JAX SceneHandler's of the same
+    stitched volumes, and one PNG of the three panels. One val_vis scene,
+    its 1-NN retrieval another val scene's target."""
+    from PIL import Image
+    from retrieval_fuse_tpu.data import PatchedSceneDataset as JaxDataset, SceneHandler as JaxScenes
+    data = copy_dataset(synth_superres_root, tmp_path / "data")
+    split = data / "splits" / "SynthSet" / "main"
+    (split / "val_vis.txt").write_text((split / "val.txt").read_text().split()[0])
+    cfg = synthetic_config(data)
+    with working_dir(tmp_path):
+        tr = trt.RetrievalTrainer(cfg, device="cpu", enable_vis=True)
+        ds_val = tr.dataset("val")
+        targets = np.stack([ds_val.get_scene_target(s) for s in ds_val.scenes])
+        tr._visualize(tmp_path / "vis", ds_val, np.roll(targets, 1, axis=0)[:, None])
+        jds = JaxDataset("val_vis", cfg["dataset_val"], JaxScenes("val", cfg))
+    assert tr.enable_vis and jds.scenes == [ds_val.scenes[0]]
+    scene = jds.scenes[0]
+    want = tmp_path / "want"
+    want.mkdir()
+    handler = JaxScenes("val", cfg)
+    handler.visualize_target_chunk(jds.combine_targets()[scene].astype(np.float32),
+                                   want / f"{scene}_gt.obj")
+    handler.visualize_target_chunk(targets[-1].astype(np.float32), want / f"{scene}_pred.obj")
+    handler.visualize_input_chunk(jds.combine_inputs()[scene].astype(np.float32),
+                                  want / f"{scene}_input.obj")
+    mesh_dir = tmp_path / "vis" / "visualization_val_vis"
+    assert sorted(p.name for p in mesh_dir.iterdir()) == sorted(p.name for p in want.iterdir())
+    for f in want.iterdir():
+        assert (mesh_dir / f.name).read_text() == f.read_text(), f.name
+    pngs = sorted((tmp_path / "vis" / "render_val_vis").iterdir())
+    assert [p.name for p in pngs] == [f"{scene}.png"]
+    img = np.asarray(Image.open(pngs[0]).convert("RGB"))
+    assert img.shape == (480, 1440, 3)
+    assert all((img[:, 480 * i: 480 * (i + 1)] < 255).any() for i in range(3))
 
 
 def test_save_load_round_trip(trainers, tmp_path):
@@ -234,7 +269,7 @@ def test_parse_arguments_matches_jax(synth_superres_root, tmp_path, extra, env, 
     assert out["port"]["experiment"] == want
 
 
-def test_main_writes_metrics_and_a_checkpoint_that_maps(synth_superres_root, tmp_path, capsys):
+def test_main_writes_metrics_and_a_checkpoint_that_maps(synth_superres_root, tmp_path):
     """The port's CLI: one epoch of 2 steps' worth of data, no validation,
     then `map` with its checkpoint."""
     work = tmp_path
@@ -260,4 +295,4 @@ def test_main_writes_metrics_and_a_checkpoint_that_maps(synth_superres_root, tmp
         from retrieval_fuse_tpu_torch.utils.misc import get_retrievals_dir
         mapping = np.load(get_retrievals_dir(map_cfg) / "map_val.npy", allow_pickle=True)[()]
         assert len(mapping) > 0 and all(v.shape == (2, 8) for v in mapping.values())
-    assert "visualisations off" in capsys.readouterr().out
+    assert trainer.enable_vis  # as the JAX CLI's trainer

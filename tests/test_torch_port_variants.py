@@ -106,9 +106,9 @@ def test_kernel_paths_need_the_feature_bank(setup):
 
 
 @pytest.mark.parametrize("cfg_over, variant, dtype, names", [
-    ({"nf": 4}, "fused+pallasg2+topk1p", torch.bfloat16,
-     ("'pallasg2'", "gathered_attention kernel", "F in (96, 128)", "T = 64",
-      "F = nf·e³ = 32")),
+    ({"nf": 10}, "fused+pallasg2+topk1p", torch.bfloat16,
+     ("'pallasg2'", "gathered_attention kernel", "F in (32, 64, 96, 128)", "T = 64",
+      "F = nf·e³ = 80")),
     ({"nf": 20}, "fused+pallasp+topk1p+cdec", torch.bfloat16,
      ("'pallasp'", "patch_attention kernel", "F = nf·e³ = 160")),
     ({"nf": 20}, "cdec", torch.bfloat16, ("'cdec'", "decoder_tail", "(4, 8, 12, 16)", "nf = 20")),
