@@ -19,13 +19,26 @@ native marching cubes and utils/visualization.py.
 from __future__ import annotations
 
 import json
+import os
 import random
+import tempfile
 from pathlib import Path
 
 import numpy as np
 
 from retrieval_fuse_tpu_torch.utils.misc import (
     read_list, point_cloud_to_grid, get_retrievals_dir)
+
+
+def _write_atomic(path: Path, write) -> None:
+    """write(file) into a temporary file beside `path`, then rename it onto
+    `path`: processes that share a working directory (the ranks of a mesh)
+    never read a cache file half written."""
+    path.parents[0].mkdir(exist_ok=True, parents=True)
+    with tempfile.NamedTemporaryFile(dir=path.parents[0], prefix=path.name, suffix=".part",
+                                     delete=False) as f:
+        write(f)
+    os.replace(f.name, path)
 
 
 class SceneHandler:
@@ -168,8 +181,7 @@ class SceneHandler:
             for i in range(pool_size):
                 pool[i] = rng.choice(20000, size=self.number_point_samples, replace=False)
             self.random_indices_list = pool
-            filepath.parents[0].mkdir(exist_ok=True, parents=True)
-            np.savez_compressed(filepath, arr=self.random_indices_list)
+            _write_atomic(filepath, lambda f: np.savez_compressed(f, arr=self.random_indices_list))
 
     def initialize_scene_sizes(self, filepath: Path) -> None:
         needs_recreation = not filepath.exists()
@@ -180,8 +192,7 @@ class SceneHandler:
             for scene in self.scenes:
                 self.scene_size[scene] = [s - 2 * self.patch_context_target
                                           for s in self.get_scene_target_raw(scene).shape]
-            filepath.parents[0].mkdir(exist_ok=True, parents=True)
-            filepath.write_text(json.dumps(self.scene_size))
+            _write_atomic(filepath, lambda f: f.write(json.dumps(self.scene_size).encode()))
 
     def initialize_scene_occupancy(self, filepath: Path) -> None:
         needs_recreation = not filepath.exists()
@@ -202,8 +213,7 @@ class SceneHandler:
                     self.scene_occupancy[name] = int(
                         (target_scene[e[0]:e[1], e[2]:e[3], e[4]:e[5]]
                          <= 0.75 * 2 * self.target_voxel_size).sum())
-            filepath.parents[0].mkdir(exist_ok=True, parents=True)
-            filepath.write_text(json.dumps(self.scene_occupancy))
+            _write_atomic(filepath, lambda f: f.write(json.dumps(self.scene_occupancy).encode()))
 
     def calculate_occupancy_for_name(self, patch_identifier: str) -> int:
         scene, extent = SceneHandler.get_extent_from_name(patch_identifier)

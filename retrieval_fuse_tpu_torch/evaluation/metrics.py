@@ -82,6 +82,17 @@ class _SumMetric:
         self.value_sum += other.value_sum
         self.total += other.total
 
+    def all_reduce(self, mesh) -> None:
+        """Sum the accumulated value and count over the ranks of `mesh`
+        (parallel/mesh.py), as JAX's sharded validation reduces them;
+        nothing without one."""
+        from retrieval_fuse_tpu_torch.parallel.mesh import all_reduce_sum
+        if mesh is None:
+            return
+        sums = torch.tensor([self.value_sum, self.total], dtype=torch.float64,
+                            device=mesh.device)
+        self.value_sum, self.total = all_reduce_sum(sums, mesh).tolist()
+
     def _reduce(self, fn, preds, target, n_valid):
         preds, target = _maybe_trim(_as_bool(preds, self.device), _as_bool(target, self.device),
                                     n_valid)

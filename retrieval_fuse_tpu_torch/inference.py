@@ -16,8 +16,12 @@ the attention paths `pallas`, `pallasp` (+ `flatg`), `pallasg`, `pallasg2`
 and `phib`, the decoders `fused`, `packed`, `dconv` and `cdec`, the fused
 backbone `fbb`, and the selects `topk1p`, `approxk`, `streamknn`,
 `denseknn`. The streaming kNN kernel is auto-selected against N >= 16384
-rows at Q >= 4096 queries in float32 and at Q >= 1024 in bf16. Not ported
-yet: multi-device serving (`mesh`).
+rows at Q >= 4096 queries in float32 and at Q >= 1024 in bf16.
+
+With a `mesh` (parallel/mesh.py: one process per card), every rank is
+called with the same batch, serves its contiguous B/W rows on its own card
+and all-gathers the outputs in rank order, so every rank returns the whole
+batch, as JAX's engine does with the batch sharded over its mesh.
 """
 
 from __future__ import annotations
@@ -139,7 +143,8 @@ class RetrieveRefineEngine:
                  feature_bank=None, use_feature_bank: bool = True,
                  attention: str = "modules", flat_gather: bool = False,
                  decoder: str = "modules", fused_backbone: bool = False,
-                 streaming_knn: bool | None = None, topk_impl: str = "iterative"):
+                 streaming_knn: bool | None = None, topk_impl: str = "iterative",
+                 mesh=None):
         """
         params: {'fenc_input', 'unet_backbone', 'decoder', 'retrieval_backbone',
                  'patched_attention_block'} state_dicts (utils/flax_import for
@@ -166,8 +171,12 @@ class RetrieveRefineEngine:
                  True/False forces it on/off.
         topk_impl: dense-path select: 'iterative', 'approx' or 'top_k' (the
                  plain tie-exact select) or 'single_pass' (the topk kernel).
+        mesh:    serve each call's batch data-parallel over the mesh's ranks
+                 (parallel/mesh.py), on the mesh's device; the kernel limits
+                 and crossovers apply to each rank's rows.
         """
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         check_kernel_limits(config, self.device, attention, decoder, compute_dtype)
         self.compute_dtype = cd = compute_dtype
         self.K = config["K"]
@@ -468,7 +477,11 @@ class RetrieveRefineEngine:
         """(B, ics, ics, ics, 1) raw low-res df -> (B, tcs, tcs, tcs, 1) TSDF
         (float32, on the engine's device)."""
         x = _tensor(raw_input_chunks, self.device, torch.float32)
-        return self.refine(x, self.retrieve(x))
+        if self.mesh is None:
+            return self.refine(x, self.retrieve(x))
+        from retrieval_fuse_tpu_torch.parallel.mesh import gather_rows
+        x = x[self.mesh.rows(x.shape[0])]
+        return gather_rows(self.refine(x, self.retrieve(x)), self.mesh)
 
 
 #: the shipped serving configuration of the JAX package (inference.py:685)

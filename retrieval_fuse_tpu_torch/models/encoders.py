@@ -74,7 +74,14 @@ class BatchNorm3d(nn.Module):
     values, running = 0.9 · running + 0.1 · batch (nn.BatchNorm3d would
     update the variance with the unbiased one). In eval mode it normalises
     with the running statistics. Buffers and parameters carry
-    nn.BatchNorm3d's names, without num_batches_tracked."""
+    nn.BatchNorm3d's names, without num_batches_tracked.
+
+    With a `mesh` set (parallel/mesh.py; `set_batchnorm_mesh`), the training
+    statistics are the global batch's, as JAX's jit over a sharded batch
+    computes them: the float32 sums of x and x² and the count are summed
+    over the ranks, gradient included, in one collective."""
+
+    mesh = None  # the data-parallel mesh whose global batch the statistics cover
 
     def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -87,9 +94,18 @@ class BatchNorm3d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1, 1, 1, 1)
         if self.training:
-            xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3, 4))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3, 4)) - mean * mean, min=0.0)
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))  # float32 over bf16
+            if self.mesh is None:
+                mean = xf.mean(dim=(0, 2, 3, 4))
+                mean_sq = (xf * xf).mean(dim=(0, 2, 3, 4))
+            else:
+                from retrieval_fuse_tpu_torch.parallel.mesh import all_reduce_sum
+                dims = (0, 2, 3, 4)
+                sums = all_reduce_sum(torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)]),
+                                      self.mesh)
+                count = xf.numel() // xf.shape[1] * self.mesh.size
+                mean, mean_sq = sums[0] / count, sums[1] / count
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1 - m) * mean)
@@ -151,6 +167,14 @@ class MLPPatchEncoder(nn.Module):
         for i in range(self.n_hidden):
             x = F.relu(getattr(self, f"fc{i}")(x))
         return self.final_layer(x).reshape(b, 1, 1, 1, self.z_dim)
+
+
+def set_batchnorm_mesh(module: nn.Module, mesh) -> None:
+    """Make every BatchNorm3d in `module` take its training statistics over
+    `mesh`'s global batch (None: this process's batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm3d):
+            m.mesh = mesh
 
 
 def make_encoder(name: str, nf: int, z_dim: int) -> nn.Module:

@@ -98,6 +98,14 @@ def patch_style_loss(zis: torch.Tensor, zjs: torch.Tensor) -> torch.Tensor:
 def get_cosine_similarity(pred_norms: torch.Tensor, target_norms: torch.Tensor) -> torch.Tensor:
     """Mean cosine similarity of (B, D, H, W, 3) normal fields over the
     voxels where both normals are nonzero (0 when there is none)."""
+    total, count = cosine_similarity_sums(pred_norms, target_norms)
+    return total / torch.clamp(count, min=1)
+
+
+def cosine_similarity_sums(pred_norms: torch.Tensor, target_norms: torch.Tensor):
+    """(sum of the cosine similarities, count) over the voxels where both
+    normals are nonzero: get_cosine_similarity's numerator and denominator,
+    which a data-parallel step sums over the ranks."""
     p = pred_norms.reshape(-1, 3)
     t = target_norms.reshape(-1, 3)
     valid = (torch.sum(p * p, dim=1) > 0) & (torch.sum(t * t, dim=1) > 0)
@@ -105,5 +113,4 @@ def get_cosine_similarity(pred_norms: torch.Tensor, target_norms: torch.Tensor) 
     p_safe = torch.where(v, p, torch.ones_like(p))
     t_safe = torch.where(v, t, torch.ones_like(t))
     cos = torch.sum(_unit_rows(p_safe, 1e-24) * _unit_rows(t_safe, 1e-24), dim=1)
-    return torch.sum(torch.where(valid, cos, torch.zeros_like(cos))) / torch.clamp(
-        torch.sum(valid), min=1)
+    return torch.sum(torch.where(valid, cos, torch.zeros_like(cos))), torch.sum(valid)

@@ -89,6 +89,82 @@ def auto_exact_knn(queries: torch.Tensor, database: torch.Tensor, k: int,
     return exact_knn(queries, database, k)
 
 
+def shard_bounds(n_rows: int, n_shards: int, shard: int) -> tuple[int, int]:
+    """[start, stop) of shard `shard` of `n_rows` database rows split into
+    `n_shards` blocks of ceil(n_rows / n_shards), the last one short (or
+    empty), as JAX pads the database to a multiple of the mesh."""
+    size = -(-n_rows // n_shards)
+    return min(shard * size, n_rows), min((shard + 1) * size, n_rows)
+
+
+def shard_candidates(queries: torch.Tensor, shard_rows: torch.Tensor, k: int, offset: int,
+                     shard_size: int, streaming: bool | None = None):
+    """One shard's local top-k: (similarities (Q, kk) float32, global int64
+    indices (Q, kk)), kk = min(k, shard_size), best first. The search is
+    auto_exact_knn's at the shard's own size (the dense path and the topk
+    kernel, or the streaming kernel); `shard_size` is the padded size of
+    every shard, so a short or empty last shard fills its list with -inf
+    similarities that never win a merge (JAX masks pad rows to -inf).
+    `streaming` True / False forces the streaming kernel / the dense path."""
+    kk = min(k, shard_size)
+    q, n = queries.shape[0], shard_rows.shape[0]
+    sims = torch.full((q, kk), float("-inf"), dtype=torch.float32, device=queries.device)
+    idx = torch.full((q, kk), offset + n, dtype=torch.int64, device=queries.device)
+    take = min(kk, n)
+    if take:
+        if streaming if streaming is not None else use_streaming_knn(
+                n, n_queries=q, dtype=shard_rows.dtype):
+            from retrieval_fuse_tpu_torch.ops.streaming_knn import streaming_knn_sims
+            s, i = streaming_knn_sims(queries, shard_rows, take)
+        else:
+            from retrieval_fuse_tpu_torch.ops.topk import TOPK_MAX_K, topk
+            scores = queries.float() @ shard_rows.float().T
+            s, i = (topk if take <= TOPK_MAX_K else iterative_topk)(scores, take)
+        sims[:, :take] = s
+        idx[:, :take] = i.long() + offset
+    return sims, idx
+
+
+def merge_candidates(sims: torch.Tensor, idx: torch.Tensor, k: int):
+    """Merge the shards' candidate lists, laid side by side in shard order
+    ((Q, n_shards·kk) similarities and global indices): the top k by
+    similarity, ties to the earlier column, which is the lower global index
+    (shards hold ascending row blocks, each list is best first with ties
+    to the lower row). Returns (int32 indices, sq_dists = max(2 - 2·cos, 0))."""
+    from retrieval_fuse_tpu_torch.ops.topk import TOPK_MAX_K, topk
+    select = topk if k <= TOPK_MAX_K else iterative_topk
+    top_sims, pos = select(sims.contiguous(), k)
+    top_idx = torch.gather(idx, 1, pos.long()).to(torch.int32)
+    return top_idx, torch.clamp(2.0 - 2.0 * top_sims, min=0.0)
+
+
+def sharded_exact_knn(queries: torch.Tensor, database, k: int, mesh,
+                      streaming: bool | None = None):
+    """Exact kNN with the database's rows sharded over the ranks of `mesh`
+    (parallel/mesh.py), as the JAX package's sharded_exact_knn: every rank
+    holds the same queries and moves only its own row block of `database`
+    (which may stay on the host) to its device, takes a local top-k there
+    (shard_candidates), all-gathers the (Q, kk) lists and merges them
+    (merge_candidates), so every rank returns the same (int32 indices,
+    sq_dists). Ties go to the lowest global index. `streaming` as in
+    shard_candidates."""
+    from retrieval_fuse_tpu_torch.parallel.mesh import gather_rows
+    n = database.shape[0]
+    start, stop = shard_bounds(n, mesh.size, mesh.rank)
+    shard = torch.as_tensor(database[start:stop]).to(mesh.device)
+    if shard.dtype in (torch.float32, torch.bfloat16):
+        from retrieval_fuse_tpu_torch.ops.streaming_knn import knn_rows
+        shard = knn_rows(shard)
+    queries = queries.to(device=mesh.device, dtype=shard.dtype).contiguous()
+    sims, idx = shard_candidates(queries, shard, k, start, -(-n // mesh.size), streaming)
+    # (W, Q, kk) in rank order -> (Q, W·kk) in shard order
+    all_sims = gather_rows(sims[None], mesh)
+    all_idx = gather_rows(idx[None], mesh)
+    q = queries.shape[0]
+    return merge_candidates(all_sims.permute(1, 0, 2).reshape(q, -1),
+                            all_idx.permute(1, 0, 2).reshape(q, -1), k)
+
+
 def demote_same_scene(top_idx: torch.Tensor, sq_dists: torch.Tensor, db_scene_ids: torch.Tensor,
                       query_scene_ids: torch.Tensor, k: int):
     """Move hits from the query's own scene behind all other hits, keeping

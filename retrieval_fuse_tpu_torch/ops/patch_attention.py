@@ -75,20 +75,28 @@ V1_F32_MAX_K = {f: min(KERNEL_MAX_K, V1_STAGE_BYTES // (KERNEL_ROWS * f * 4))
 _LAYERS = ("fc0", "fc1", "fc2", "out")
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' arithmetic: float32 for float32 and bf16 values,
+    float64 for float64 ones (the reference the float32 holds measure
+    their distance from)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _mlp(x: torch.Tensor, w: nn.Module) -> torch.Tensor:
-    """x (R, F) through fc0..fc2 (LeakyReLU 0.01) + out -> (R, C) float32.
+    """x (R, F) through fc0..fc2 (LeakyReLU 0.01) + out -> (R, C) float32
+    (float64 for float64 x).
 
     As the JAX `_mlp`: every GEMM multiplies values of x's dtype (weights
     rounded to it) with float32 accumulation and a float32 bias; in bf16 the
     hidden activations are rounded back to bf16 between layers. The products
     are formed in float32, because a bf16 torch.matmul would round its
     result to bf16."""
-    dt = x.dtype
+    dt, acc = x.dtype, _acc(x.dtype)
     for name in _LAYERS[:3]:
         fc = getattr(w, name)
-        h = x.float() @ fc.weight.to(dt).float().T + fc.bias.float()
+        h = x.to(acc) @ fc.weight.to(dt).to(acc).T + fc.bias.to(acc)
         x = torch.where(h >= 0, h, 0.01 * h).to(dt)
-    return x.float() @ w.out.weight.to(dt).float().T + w.out.bias.float()
+    return x.to(acc) @ w.out.weight.to(dt).to(acc).T + w.out.bias.to(acc)
 
 
 def _l2n(v: torch.Tensor) -> torch.Tensor:
@@ -96,7 +104,8 @@ def _l2n(v: torch.Tensor) -> torch.Tensor:
 
 
 def embed(rows: torch.Tensor, w: nn.Module) -> torch.Tensor:
-    """L2-normalised MLP embedding of (R, F) rows -> (R, C) float32."""
+    """L2-normalised MLP embedding of (R, F) rows -> (R, C) float32
+    (float64 for float64 rows)."""
     return _l2n(_mlp(rows, w))
 
 
@@ -120,19 +129,21 @@ def pack_tile_rows(tile_feats: torch.Tensor, e: int) -> torch.Tensor:
 def patch_attention_plain(x, p, theta, phi, K: int, retrieval_mode: bool = True,
                           sharpness: float = 1024.0):
     """The plain PyTorch version of patch_attention. Returns (out (N, F) in
-    x's dtype, selection (N,) int64: the argmax candidate of each row)."""
+    x's dtype, selection (N,) int64: the argmax candidate of each row).
+    Float32 arithmetic for float32 and bf16 rows, float64 for float64 ones."""
     n, f = x.shape
     xf = embed(x, theta)                                            # (N, C)
     pf = embed(p.reshape(n * K, f), phi).reshape(n, K, -1)          # (N, K, C)
     s = torch.sum(xf[:, None, :] * pf, dim=-1)                      # (N, K)
     switch = F.relu(torch.amax(s, dim=-1, keepdim=True))
     sel = hard_selection(s)
+    acc = _acc(x.dtype)
     if retrieval_mode:
-        weights = F.one_hot(sel, K).float()
+        weights = F.one_hot(sel, K).to(acc)
     else:
         weights = torch.softmax(sharpness * s, dim=-1)
-    weighted = sum(weights[:, k:k + 1] * p[:, k].float() for k in range(K))
-    out = x.float() * (1.0 - switch) + weighted * switch
+    weighted = sum(weights[:, k:k + 1] * p[:, k].to(acc) for k in range(K))
+    out = x.to(acc) * (1.0 - switch) + weighted * switch
     return out.to(x.dtype), sel
 
 

@@ -45,9 +45,12 @@ def load_encoders_from_checkpoint(config: dict, device):
 
 
 def retrievals_to_disk(mode: str, config: dict, use_target_for_feats: bool = False,
-                       num_proc: int = 1, proc: int = 0, device=None):
-    """Run one mode of the pipeline. `evaluate` returns the metric list."""
-    dev = resolve_device(device)
+                       num_proc: int = 1, proc: int = 0, device=None, mesh=None):
+    """Run one mode of the pipeline. `evaluate` returns the metric list.
+    With `mesh`, `map` shards the dictionary's rows over its ranks (every
+    rank computes the same mapping; rank 0 writes the files)."""
+    from retrieval_fuse_tpu_torch.parallel.mesh import barrier, is_writer
+    dev = mesh.device if mesh is not None else resolve_device(device)
     retrievals_dir = get_retrievals_dir(config)
     tree_path = get_tree_path(config)
 
@@ -60,16 +63,22 @@ def retrievals_to_disk(mode: str, config: dict, use_target_for_feats: bool = Fal
         encode_in, encode_tgt = load_encoders_from_checkpoint(config, dev)
         retrievals_dir.mkdir(exist_ok=True, parents=True)
         latent_dim = config["retrieval_model"]["latent_dim"]
-        create_dictionary(encode_tgt, config["dictionary"], latent_dim, dataset_train, tree_path)
-        handler = RetrievalInterface(config["query"], latent_dim, device=dev)
+        if is_writer(mesh):
+            create_dictionary(encode_tgt, config["dictionary"], latent_dim, dataset_train,
+                              tree_path)
+        barrier(mesh)
+        handler = RetrievalInterface(config["query"], latent_dim, device=dev, mesh=mesh)
         encode = encode_tgt if use_target_for_feats else encode_in
         extract = extract_target_features if use_target_for_feats else extract_input_features
         mapping = handler.get_retrieval_mapping(encode, extract, tree_path, dataset_train, True)
-        with Timer("np_save_train"):
-            np.save(retrievals_dir / "map_train.npy", mapping)  # a pickled dict payload
+        if is_writer(mesh):
+            with Timer("np_save_train"):
+                np.save(retrievals_dir / "map_train.npy", mapping)  # a pickled dict payload
         mapping = handler.get_retrieval_mapping(encode, extract, tree_path, dataset_val, False)
-        with Timer("np_save_val"):
-            np.save(retrievals_dir / "map_val.npy", mapping)
+        if is_writer(mesh):
+            with Timer("np_save_val"):
+                np.save(retrievals_dir / "map_val.npy", mapping)
+        barrier(mesh)
     elif mode == "compose":
         (retrievals_dir / "compose").mkdir(exist_ok=True, parents=True)
         for map_name, dataset in [("map_train.npy", dataset_train), ("map_val.npy", dataset_val)]:

@@ -11,8 +11,10 @@ The search is exact: ops/knn.auto_exact_knn, which takes the streaming kNN
 kernel at float32 query batches >= 4096 against >= 16,384 rows and the dense
 path below (a float32 matmul and the topk kernel, for k <= 8). Compose
 pastes in numpy, or with `use_native` in the native C++ paste
-(native/compose.cpp), which gives the same volumes. The JAX package's
-database sharding over a device mesh is not ported (ROADMAP Queue 1 item 10).
+(native/compose.cpp), which gives the same volumes. With a `mesh`
+(parallel/mesh.py) the database's rows are sharded over its ranks
+(ops/knn.sharded_exact_knn): each rank searches its own block on its card
+and every rank gets the merged mapping.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from retrieval_fuse_tpu_torch.data.scene import SceneHandler
 from retrieval_fuse_tpu_torch.device import resolve_device
-from retrieval_fuse_tpu_torch.ops.knn import auto_exact_knn, demote_same_scene
+from retrieval_fuse_tpu_torch.ops.knn import auto_exact_knn, demote_same_scene, sharded_exact_knn
 from retrieval_fuse_tpu_torch.ops.streaming_knn import knn_rows
 from retrieval_fuse_tpu_torch.utils.timer import Timer
 
@@ -41,10 +43,12 @@ def query_batch_size(n_rows: int) -> int:
 
 def query_dictionary_using_features(query_config: dict, patch_names, input_features: np.ndarray,
                                     dataset, tree_path, ignore_patches_from_source: bool,
-                                    device=None) -> dict:
+                                    device=None, mesh=None) -> dict:
     """kNN query of 2K neighbours per patch, same-scene demotion (when
-    `ignore_patches_from_source`), keep the top K. Returns the mapping."""
-    dev = resolve_device(device)
+    `ignore_patches_from_source`), keep the top K. Returns the mapping.
+    With `mesh`, the database is sharded over its ranks (on the mesh's
+    device)."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     tree_path = Path(tree_path)
     database = np.load(tree_path / "database.npy")
     dataset_index = json.loads((tree_path / "index.json").read_text())
@@ -54,13 +58,17 @@ def query_dictionary_using_features(query_config: dict, patch_names, input_featu
         [scene_to_id.get(s, -2) for s in dataset.get_scene_names_from_patches(patch_names)],
         dtype=torch.int32, device=dev)
     db_scene_ids = torch.from_numpy(database[:, 0].astype(np.int32)).to(dev)
-    db_embeddings = knn_rows(torch.from_numpy(np.ascontiguousarray(database[:, 7:])).to(dev))
-    q_batch = query_batch_size(db_embeddings.shape[0])
+    rows = torch.from_numpy(np.ascontiguousarray(database[:, 7:]))
+    db_embeddings = rows if mesh is not None else knn_rows(rows.to(dev))
+    q_batch = query_batch_size(-(-db_embeddings.shape[0] // (mesh.size if mesh else 1)))
     retrieval_mapping: dict = {}
     with Timer("ExactKNN", verbose=False):
         for start in range(0, input_features.shape[0], q_batch):
             q = torch.from_numpy(input_features[start: start + q_batch]).to(dev)
-            top_idx, sq_d = auto_exact_knn(q, db_embeddings, 2 * k)
+            if mesh is not None:
+                top_idx, sq_d = sharded_exact_knn(q, db_embeddings, 2 * k, mesh)
+            else:
+                top_idx, sq_d = auto_exact_knn(q, db_embeddings, 2 * k)
             if ignore_patches_from_source:
                 top_idx, sq_d = demote_same_scene(top_idx, sq_d, db_scene_ids,
                                                   query_scene_ids[start: start + q.shape[0]], k)
@@ -145,17 +153,19 @@ def _create_retrieval_from_mapping_native(scene_name, retrieval_mappings, K, dat
 class RetrievalInterface:
     """High-level retrieve API over a dictionary on disk."""
 
-    def __init__(self, config_query: dict, latent_dim: int, device=None):
+    def __init__(self, config_query: dict, latent_dim: int, device=None, mesh=None):
+        """`mesh`: shard the dictionary's rows over its ranks (sharded kNN)."""
         self.config = config_query
         self.latent_dim = latent_dim
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
 
     def get_retrieval_mapping(self, encode_fn, extraction_func, tree_path, dataset,
                               ignore_patches_from_source: bool) -> dict:
         patch_names, feats = extraction_func(encode_fn, self.config, self.latent_dim, dataset)
         return query_dictionary_using_features(
             self.config, patch_names, feats, dataset, tree_path, ignore_patches_from_source,
-            self.device)
+            self.device, self.mesh)
 
     def get_features(self, encode_input, encode_target, dataset):
         from retrieval_fuse_tpu_torch.retrieval.dictionary import (

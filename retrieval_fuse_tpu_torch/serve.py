@@ -141,7 +141,8 @@ def build_engine_from_artifacts(config: dict, retrieval_ckpt, refinement_ckpt,
                                 compute_dtype: torch.dtype = torch.bfloat16, device=None,
                                 use_fused_decoder: bool = False,
                                 use_pallas_attention: bool = False,
-                                variant: str | None = None, verify_alignment: bool = True):
+                                variant: str | None = None, verify_alignment: bool = True,
+                                mesh=None):
     """The engine from on-disk artifacts: the dictionary (database.npy and
     index.json under the tree path of config + retrieval_ckpt, as `map`
     wrote them), the train scenes (the patch bank) and the two checkpoints
@@ -152,10 +153,11 @@ def build_engine_from_artifacts(config: dict, retrieval_ckpt, refinement_ckpt,
     re-embeds a sample of the bank against its database rows first. The
     engine's query patches take the input encoder's geometry (its network
     code, e.g. 48³ windows at stride 32 for "pc_32+8") unless the config
-    sets retrieval_patch_size_input / retrieval_patch_context_input."""
+    sets retrieval_patch_size_input / retrieval_patch_context_input.
+    `mesh` serves each call data-parallel over its ranks, on its device."""
     from retrieval_fuse_tpu_torch.inference import RetrieveRefineEngine, variant_engine_kwargs
 
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     config = dict(config)
     config["retrieval_ckpt"] = str(retrieval_ckpt)
     tree_path = Path(get_tree_path(config))
@@ -180,7 +182,7 @@ def build_engine_from_artifacts(config: dict, retrieval_ckpt, refinement_ckpt,
                            + ["pallas"] * use_pallas_attention)
     return RetrieveRefineEngine(config, params, database[:, 7:], bank,
                                 compute_dtype=compute_dtype, device=dev, use_feature_bank=True,
-                                **variant_engine_kwargs(variant))
+                                mesh=mesh, **variant_engine_kwargs(variant))
 
 
 def serve_directory(engine, input_dir, output_dir, batch_size: int = 8,
@@ -190,7 +192,10 @@ def serve_directory(engine, input_dir, output_dir, batch_size: int = 8,
     write <scene>_pred.npz (float16 TSDF); with `write_obj`, also
     <scene>_pred.obj, the mesh of the float32 prediction that
     `scene_handler`.visualize_target_chunk makes (on the engine's device).
-    Returns the served scene names."""
+    Under an engine's mesh every rank runs every batch and rank 0 alone
+    writes. Returns the served scene names."""
+    from retrieval_fuse_tpu_torch.parallel.mesh import barrier, is_writer
+    writer = is_writer(getattr(engine, "mesh", None))
     if write_obj and scene_handler is None:
         raise ValueError("write_obj needs the scene_handler whose voxel size sets the level")
     input_dir, output_dir = Path(input_dir), Path(output_dir)
@@ -209,12 +214,15 @@ def serve_directory(engine, input_dir, output_dir, batch_size: int = 8,
             batch = np.concatenate([batch, np.repeat(batch[-1:], pad, axis=0)])
         pred = engine(batch)[: len(chunk_files), ..., 0].cpu().numpy()
         for f, vol in zip(chunk_files, pred):
+            done.append(f.stem)
+            if not writer:
+                continue
             np.savez_compressed(output_dir / f"{f.stem}_pred.npz", arr=vol.astype(np.float16))
             if write_obj:
                 scene_handler.visualize_target_chunk(vol.astype(np.float32),
                                                      output_dir / f"{f.stem}_pred.obj",
                                                      device=engine.device)
-            done.append(f.stem)
+    barrier(getattr(engine, "mesh", None))
     return done
 
 
@@ -240,6 +248,9 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
+    from retrieval_fuse_tpu_torch.parallel.mesh import initialize_from_environment, mesh_for_batch
+    initialize_from_environment(args.device)
+
     from retrieval_fuse_tpu_torch.config import read_config
     from retrieval_fuse_tpu_torch.inference import FAST_VARIANT
 
@@ -254,7 +265,7 @@ def main(argv=None):
         config, args.retrieval_ckpt, args.refinement_ckpt,
         compute_dtype=torch.float32 if args.f32 else torch.bfloat16, device=args.device,
         use_fused_decoder=args.fused_decoder, use_pallas_attention=args.pallas_attention,
-        variant=variant)
+        variant=variant, mesh=mesh_for_batch(args.batch_size, device=args.device))
     sh = SceneHandler("val", config) if args.obj else None
     done = serve_directory(engine, args.input, args.output, args.batch_size,
                            write_obj=args.obj, scene_handler=sh)

@@ -33,7 +33,20 @@ With `enable_vis`, each validation ends in `run_visualization("val")` (and
 targets and inputs, stitched per scene, as OBJ meshes under
 runs/<experiment>/vis_<split>/<global_step // 1000>/.
 
-Not ported yet: training over several cards (ROADMAP Queue 1 item 10).
+With a `mesh` (parallel/mesh.py: one process per card), `batch_size` is
+the global batch and each rank trains on its contiguous 1/W of it (the
+loader's process sharding, host-major). Each rank's loss is its share of
+the global batch's loss, so that the shares and their gradients sum over
+the ranks to the one-process step's: the L1 terms are this rank's sums over
+the global row (or valid-row) count, the normals' cosine term divides by
+the global count of valid voxels, and the contrastive loss counts the
+slices that the global slice order admits under CONTRASTIVE_CAP. The
+gradients are summed over the ranks; the reported losses are the global
+ones. Each rank draws the Gumbel noise of the whole global batch and keeps
+its own rows, so its rows get the one-process step's noise. Validation
+runs each rank's shard, masks wrapped filler rows, divides by the global
+valid count and sums the metrics over the ranks; the phase-2 cache holds
+each rank's shard. Rank 0 alone writes logs, checkpoints and meshes.
 """
 
 from __future__ import annotations
@@ -52,9 +65,11 @@ from retrieval_fuse_tpu_torch.evaluation.metrics import Chamfer3D, IoU, Precisio
 from retrieval_fuse_tpu_torch.models import (
     get_attention_block, get_decoder, get_retrieval_backbone, get_unet_backbone,
     init_module_params)
-from retrieval_fuse_tpu_torch.models.losses import get_cosine_similarity, nt_xent_loss_masked
+from retrieval_fuse_tpu_torch.models.losses import cosine_similarity_sums, nt_xent_loss_masked
 from retrieval_fuse_tpu_torch.ops.fold3d import fold3d, unfold3d
 from retrieval_fuse_tpu_torch.ops.sobel import compute_normals
+from retrieval_fuse_tpu_torch.parallel.mesh import (
+    all_reduce_sum, data_parallel_jit, gather_rows, is_writer, make_global_batch, replicate)
 from retrieval_fuse_tpu_torch.train import schedule as sched
 from retrieval_fuse_tpu_torch.train.checkpoint import (
     load_checkpoint, load_subnet_params, save_checkpoint)
@@ -93,22 +108,27 @@ class _Method(nn.Module):
 class RefinementTrainer:
 
     def __init__(self, config: dict, device=None, enable_vis: bool = False,
-                 deterministic_attention: bool = False):
+                 deterministic_attention: bool = False, mesh=None):
         """`deterministic_attention` (default False): the attention block
         selects by Gumbel-softmax in training, as the JAX trainer's does,
         while serving (models.get_attention_block's default) selects the
         argmax. True makes training select deterministically too.
-        `enable_vis`: each validation ends with run_visualization."""
+        `enable_vis`: each validation ends with run_visualization.
+        `mesh`: train data-parallel over its ranks, on its device."""
         self.config = config
         self.enable_vis = enable_vis
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.mixed_precision = bool(config.get("mixed_precision", False))
         self.remat = bool(config.get("remat", False))
         self.K = config["K"]
         self.phase = config.get("current_phase", 0)
         self.base_lr = config["lr"]
         self.milestones = config.get("scheduler")
-        self.batch_size = config["batch_size"]
+        self.batch_size = config["batch_size"]  # the global batch
+        self.world = mesh.size if mesh is not None else 1
+        self.rank = mesh.rank if mesh is not None else 0
+        self.local_batch = self.batch_size // self.world
         self.seed = config.get("seed", 0) or 0
 
         self.unet_backbone = get_unet_backbone(config)
@@ -122,6 +142,12 @@ class RefinementTrainer:
             net.load_state_dict(init_module_params(net, rng))
             net.to(self.device)
         self._load_subnet_ckpts_if_needed(config)
+        if mesh is not None:
+            for net in self.nets.values():
+                replicate(net, mesh)
+        # the loss's backward, its gradients summed over the mesh's ranks
+        self._backward = data_parallel_jit(torch.Tensor.backward, mesh,
+                                           self.trainable_parameters)
         # bf16 parameter casts of the current step (mixed precision), by net
         self._cast = None
         self._methods = {}
@@ -251,16 +277,18 @@ class RefinementTrainer:
                           method="get_features")
 
     def gumbel_draw(self, batch_size: int, generator: torch.Generator | None = None):
-        """The attention's Gumbel noise for a batch: a uniform (B·R³, K)
-        draw in [1e-20, 1) from `generator` (the trainer's by default);
-        None with deterministic selection."""
+        """The attention's Gumbel noise for this rank's `batch_size` rows: a
+        uniform (B·R³, K) draw in [1e-20, 1) from `generator` (the
+        trainer's by default); None with deterministic selection. Under a
+        mesh the draw is the global batch's (W·B rows) and this rank keeps
+        its block."""
         attn = self.patched_attention_block.attention_blocks_layer
         if attn.deterministic_selection or not attn.retrieval_mode:
             return None
         rows = batch_size * self.patched_attention_block.num_patch_x ** 3
-        u = torch.rand((rows, self.K), generator=generator or self.generator,
+        u = torch.rand((rows * self.world, self.K), generator=generator or self.generator,
                        device=self.device)
-        return u.clamp_(min=1e-20)
+        return u[self.rank * rows: (self.rank + 1) * rows].clamp_(min=1e-20)
 
     def forward_full(self, batch: dict, gumbel_uniform_draw: torch.Tensor | None = None):
         """The full fusion forward: backbone features attend over K
@@ -328,7 +356,9 @@ class RefinementTrainer:
         """(total, l1, normal): weighted L1 in tanh space and the normals'
         cosine loss. With `n_valid` (a padded validation batch whose padded
         rows' weights and normals are zeroed) the L1 mean is over the real
-        rows only."""
+        rows only: `n_valid` counts them over the global batch. Under a
+        mesh each value is this rank's share: the shares sum over the ranks
+        to the global batch's loss."""
         zero = pred_shape.new_zeros(())
         loss_l1 = loss_normal = zero
         if self.w_rec > 0:
@@ -338,9 +368,13 @@ class RefinementTrainer:
                 pred_shape - self.normalized_target_to_network_pred(batch["target"])) * weights)
             if n_valid is not None:
                 loss_l1 = loss_l1 * pred_shape.shape[0] / torch.clamp(n_valid, min=1)
+            else:
+                loss_l1 = loss_l1 / self.world
         if self.w_norm > 0:
             pred_normals = compute_normals(self.network_pred_to_df(pred_shape), self.target_trunc)
-            loss_normal = torch.mean(1 - get_cosine_similarity(pred_normals, batch["normals"]))
+            cos_sum, count = cosine_similarity_sums(pred_normals, batch["normals"])
+            count = all_reduce_sum(count.to(cos_sum.dtype), self.mesh)
+            loss_normal = 1 / self.world - cos_sum / torch.clamp(count, min=1)
         total = self.w_rec * loss_l1 + self.w_norm * loss_normal
         return total, loss_l1, loss_normal
 
@@ -350,17 +384,20 @@ class RefinementTrainer:
         the patches: a slice counts if it holds an occupied patch and the
         occupied patches of the slices counted before it and its own stay
         within CONTRASTIVE_CAP (in slice order); the loss is the sum of the
-        counted slices' masked NT-Xent."""
+        counted slices' masked NT-Xent. Under a mesh the slice order is the
+        global batch's: this rank's slices follow those of the ranks before
+        it, and the sum is this rank's share."""
         n = x_attn_fpred.shape[0]
         split = n // batch_size
         fpred = x_attn_fpred.reshape(batch_size, split, -1)
         ftgt = x_attn_ftgt.reshape(batch_size, split, -1)
         occ = occupancy_attn.reshape(batch_size, split)
         include, total = [], 0
-        for count in occ.sum(dim=1).tolist():
+        for count in gather_rows(occ.sum(dim=1), self.mesh).tolist():
             take = count > 0 and total + count <= CONTRASTIVE_CAP
             total += count if take else 0
             include.append(take)
+        include = include[self.rank * batch_size: (self.rank + 1) * batch_size]
         per_slice = torch.func.vmap(
             lambda a, b, v: nt_xent_loss_masked(a, b, v, self.attn_temperature))(fpred, ftgt, occ)
         include = torch.tensor(include, device=per_slice.device)
@@ -415,7 +452,8 @@ class RefinementTrainer:
         x_target, occ) under the precision setting, and its backward: the
         trainable parameters' .grad hold the gradients (`gradients`).
         Returns the detached (total, aux). `train_step` is this and one Adam
-        step."""
+        step. Under a mesh the gradients and the returned losses are summed
+        over the ranks: the global batch's."""
         self.optimizer.zero_grad(set_to_none=True)
         if cached:
             total, aux = self._with_precision(self._cached_phase2_loss, batch)
@@ -423,8 +461,16 @@ class RefinementTrainer:
             total, aux = self._with_precision(
                 lambda b: self._phase_loss(self.phase, b, gumbel_uniform_draw),
                 self.augment_batch_data(batch))
-        total.backward()
-        return total.detach(), {k: v.detach() for k, v in aux.items()}
+        self._backward(total)
+        return self._global_losses(total.detach(), {k: v.detach() for k, v in aux.items()})
+
+    def _global_losses(self, total: torch.Tensor, aux: dict):
+        """(total, aux) summed over the ranks, in one collective (as they
+        are without a mesh)."""
+        if self.mesh is None:
+            return total, aux
+        sums = all_reduce_sum(torch.stack([total, *aux.values()]), self.mesh)
+        return sums[0], dict(zip(aux, sums[1:]))
 
     def gradients(self) -> dict:
         """{subnet: {key: a copy of its .grad}} of the current phase's
@@ -460,8 +506,10 @@ class RefinementTrainer:
         (N, ...) tensors on the device (x_back, x_target: (N, S/2, S/2, S/2,
         nf), bf16 under mixed precision, else float32; occ (N, S/2, S/2,
         S/2, 1) bool) when they fit `budget_bytes`, else a list of host
-        item dicts (float32 numpy)."""
-        n = len(self.train_dataset)
+        item dicts (float32 numpy). Under a mesh, of this rank's shard of
+        the train set (its wrapped filler included, so that every rank
+        holds as many items and takes as many steps)."""
+        n = -(-len(self.train_dataset) // self.world)
         fg = self.config["dataset_train"]["target_chunk_size"] // 2
         nf = self.config["nf"]
         fdt = torch.bfloat16 if self.mixed_precision else torch.float32
@@ -474,17 +522,17 @@ class RefinementTrainer:
                      "occ": torch.empty((n, fg, fg, fg, 1), dtype=torch.bool, device=self.device)}
         items, start = [], 0
         with torch.no_grad():
-            for batch in batch_iterator(self.train_dataset, self.batch_size, shuffle=False):
+            for batch in self._batches(self.train_dataset, shuffle=False):
                 db = self._device_batch(batch, with_retrieval=False)
                 feats = dict(zip(("x_back", "x_target", "occ"), self._frozen_features(db)))
-                v = batch["valid"]
+                v = min(self.local_batch, n - start)  # the shard's rows, not the padding
                 if on_device:
                     for k, t in feats.items():
                         cache[k][start:start + v] = t[:v]
-                    start += v
-                    continue
-                host = {k: t[:v].cpu().numpy() for k, t in feats.items()}
-                items.extend({k: a[i] for k, a in host.items()} for i in range(v))
+                else:
+                    host = {k: t[:v].cpu().numpy() for k, t in feats.items()}
+                    items.extend({k: a[i] for k, a in host.items()} for i in range(v))
+                start += v
         return cache if on_device else items
 
     def _cached_phase2_loss(self, cb: dict):
@@ -495,9 +543,29 @@ class RefinementTrainer:
 
     # ------------------------------------------------------------------ loops
 
+    def _batches(self, dataset, **kwargs):
+        """batch_iterator over this rank's shard of `dataset` (all of it
+        without a mesh), in batches of its rows of the global batch."""
+        return batch_iterator(dataset, self.local_batch, process_index=self.rank,
+                              process_count=self.world, **kwargs)
+
     def _device_batch(self, batch: dict, with_retrieval: bool = True) -> dict:
+        """A loader batch on the device: this rank's rows of the global batch."""
         keys = ("input", "target", "retrieval") if with_retrieval else ("input", "target")
         return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device) for k in keys}
+
+    def _cached_device_batch(self, batch: dict) -> dict:
+        """A batch of host cache items on the device."""
+        return {k: torch.from_numpy(batch[k]).to(self.device) for k in ("x_back", "x_target", "occ")}
+
+    def _global_rowmask(self, n_valid_local: int) -> torch.Tensor:
+        """(W·B,) bool validity of the global batch's rows, rank-major as the
+        rows themselves: each rank's rows are valid up to its own count, so
+        its padding lies in its own block."""
+        local = torch.arange(self.local_batch, device=self.device) < int(n_valid_local)
+        if self.mesh is None:
+            return local
+        return make_global_batch({"rowmask": local}, self.mesh)["rowmask"]
 
     def _current_lr(self, epoch: int) -> float:
         """MultiStepLR milestones apply in phase 3 only, with no warm-up."""
@@ -508,7 +576,7 @@ class RefinementTrainer:
         """(device batch, cached) pairs of one epoch: the train set
         shuffled with `epoch` as seed, the last partial batch dropped; the
         cached phase-2 features when `cache` is given."""
-        bs = self.batch_size
+        bs = self.local_batch
         if isinstance(cache, dict):
             n_items = cache["occ"].shape[0]
             perm = np.random.default_rng(epoch).permutation(n_items)
@@ -516,18 +584,19 @@ class RefinementTrainer:
                 idx = torch.from_numpy(perm[s:s + bs]).to(self.device)
                 yield {k: v[idx] for k, v in cache.items()}, True
             return
-        source = self.train_dataset if cache is None else cache
-        for batch in batch_iterator(source, bs, shuffle=True, drop_last=True, seed=epoch):
-            if cache is None:
+        if cache is None:
+            for batch in self._batches(self.train_dataset, shuffle=True, drop_last=True,
+                                       seed=epoch):
                 yield self._device_batch(batch), False
-            else:
-                yield {k: torch.from_numpy(batch[k]).to(self.device)
-                       for k in ("x_back", "x_target", "occ")}, True
+            return
+        for batch in batch_iterator(cache, bs, shuffle=True, drop_last=True, seed=epoch):
+            yield self._cached_device_batch(batch), True
 
     def fit(self, max_epochs: int, save_epoch: int = 1, val_check_interval: int = 1,
             max_steps_per_epoch: int | None = None, logger=None):
-        own_logger = logger is None
-        logger = logger or MetricsLogger(self.config["experiment"])
+        writer = is_writer(self.mesh)
+        own_logger = logger is None and writer
+        logger = logger or (MetricsLogger(self.config["experiment"]) if writer else None)
         self.generator = self._generator(self.seed)
         cache = None
         if self.phase == 2 and self.config.get("frozen_phase_cache"):
@@ -542,14 +611,14 @@ class RefinementTrainer:
                 n += 1
                 if max_steps_per_epoch and n >= max_steps_per_epoch:
                     break
-            if total is not None:
+            if total is not None and logger:
                 logger.log({"train/total_loss": float(total), "phase": self.phase,
                             "lr": lr, "epoch": epoch,
                             **{f"train/{k}": float(v) for k, v in aux.items()}},
                            step=self.global_step)
             if (epoch + 1) % max(1, int(val_check_interval)) == 0:
                 self.validate(logger)
-            if (epoch + 1) % save_epoch == 0:
+            if (epoch + 1) % save_epoch == 0 and writer:
                 self.save(epoch)
         if own_logger:
             logger.close()
@@ -558,11 +627,12 @@ class RefinementTrainer:
     # -------------------------------------------------------------- validation
 
     def _val_batch_limit(self, n_items: int) -> int | None:
-        """`val_check_percent` -> the most validation batches per split."""
+        """`val_check_percent` -> the most validation batches per split (of
+        this rank's shard)."""
         pct = float(self.config.get("val_check_percent", 1.0) or 1.0)
         if pct >= 1.0:
             return None
-        n_batches = -(-n_items // self.batch_size)
+        n_batches = -(-(-(-n_items // self.world)) // self.local_batch)
         return max(1, int(n_batches * pct))
 
     def val_losses(self, batch: dict, rowmask: torch.Tensor, gumbel_uniform_draw=None):
@@ -570,21 +640,28 @@ class RefinementTrainer:
         batch with the collate padding masked out: the padded rows' weights
         and normals are zeroed (out of the weighted L1 and the normals'
         valid mask), their patches leave the contrastive occupancy gate, and
-        the L1 mean is over the real rows. `rowmask` (B,) bool marks them."""
+        the L1 mean is over the real rows. `rowmask` (B,) bool marks them;
+        under a mesh it is the global batch's (W·B,) mask (_global_rowmask),
+        whose count divides, and the losses returned are the global
+        batch's."""
         with torch.no_grad():
             batch = self.augment_batch_data(batch)
             b = batch["target"].shape[0]
+            n_valid = rowmask.sum()
+            if self.mesh is not None:
+                rowmask = rowmask[self.mesh.rows(rowmask.shape[0])]
             rm = rowmask.to(batch["target"].dtype).reshape(b, 1, 1, 1, 1)
             batch["weights"] = batch["weights"] * rm
             batch["normals"] = batch["normals"] * rm
             pred_shape, _, pred_retr, fpred, ftgt, occ = self.forward_full(
                 batch, gumbel_uniform_draw)
-            total, l1, normal = self.loss_shape(pred_shape, batch, n_valid=rowmask.sum())
+            total, l1, normal = self.loss_shape(pred_shape, batch, n_valid=n_valid)
             occ = occ & rowmask.repeat_interleave(occ.shape[0] // b)
             contrastive = self.compute_sliced_attn_nt_xent_loss(
                 pred_retr.shape[0] * 8, fpred, ftgt, occ)
-        return pred_shape, {"shape": total, "l1": l1, "normal": normal,
-                            "attn_contrastive": contrastive}
+            total, losses = self._global_losses(
+                total, {"l1": l1, "normal": normal, "attn_contrastive": contrastive})
+        return pred_shape, {"shape": total, **losses}
 
     def validate(self, logger=None, max_batches: int | None = None) -> dict:
         """The rough metrics (IoU, chamfer, precision, recall, F1) of the
@@ -602,13 +679,13 @@ class RefinementTrainer:
             metrics_nn1 = [IoU(self.device), Chamfer3D(device=self.device),
                            Precision(self.device), Recall(self.device)]
             loss_sums, n_loss = {}, 0
-            for bi, batch in enumerate(batch_iterator(ds, self.batch_size, shuffle=False)):
+            for bi, batch in enumerate(self._batches(ds, shuffle=False)):
                 if limit and bi >= limit:
                     break
                 db = self._device_batch(batch)
-                rowmask = torch.arange(self.batch_size, device=self.device) < batch["valid"]
                 pred_shape, losses = self.val_losses(
-                    db, rowmask, self.gumbel_draw(self.batch_size, gen))
+                    db, self._global_rowmask(batch["valid"]),
+                    self.gumbel_draw(self.local_batch, gen))
                 for lk, lv in losses.items():
                     loss_sums[lk] = loss_sums.get(lk, 0.0) + float(lv)
                 n_loss += 1
@@ -620,6 +697,8 @@ class RefinementTrainer:
                     m.update(pred_df <= thr, target_occ, n_valid=batch["valid"])
                 for m in metrics_nn1:
                     m.update(nn1_occ, target_occ, n_valid=batch["valid"])
+            for m in metrics_fuse + metrics_nn1:
+                m.all_reduce(self.mesh)
             metric_sets[f"{split_key}_fuse"] = metrics_fuse
             metric_sets[f"{split_key}_nn1"] = metrics_nn1
             if logger and n_loss:
@@ -639,6 +718,8 @@ class RefinementTrainer:
             if logger:
                 logger.log({f"{key}/{m}": v for m, v in results[key].items()},
                            step=self.global_step)
+        if not is_writer(self.mesh):
+            return results
         print(format_table(table))
         if self.enable_vis:
             self.run_visualization("val")
@@ -743,18 +824,20 @@ def format_table(rows: list) -> str:
 
 
 def train_refinement_phases(config: dict, max_steps_per_epoch: int | None = None,
-                            enable_vis: bool = False, device=None) -> RefinementTrainer:
+                            enable_vis: bool = False, device=None,
+                            mesh=None) -> RefinementTrainer:
     """The phase-chained curriculum: cumulative epochs from phase_change_epochs
     and max_epoch, a fresh optimizer at each phase boundary, `sanity_steps`
-    validation batches first, and a checkpoint at each phase's end."""
+    validation batches first, and a checkpoint at each phase's end (rank 0
+    writes under a `mesh`)."""
     phase_epochs = list(config.get("phase_change_epochs", [30, 25, 5]))
     max_epochs = phase_epochs + [config.get("max_epoch", 100)]
     for i in range(len(max_epochs) - 1):
         max_epochs[i + 1] = max_epochs[i] + max_epochs[i + 1]
     start_phase = config.get("current_phase", 0)
 
-    trainer = RefinementTrainer(config, device=device, enable_vis=enable_vis)
-    logger = MetricsLogger(config["experiment"])
+    trainer = RefinementTrainer(config, device=device, enable_vis=enable_vis, mesh=mesh)
+    logger = MetricsLogger(config["experiment"]) if is_writer(mesh) else None
     if config.get("sanity_steps", 0) and config["sanity_steps"] > 0:
         trainer.validate(logger, max_batches=int(config["sanity_steps"]))
     val_every = max(1, int(config.get("val_check_interval", 1)))
@@ -765,8 +848,10 @@ def train_refinement_phases(config: dict, max_steps_per_epoch: int | None = None
                     val_check_interval=val_every, max_steps_per_epoch=max_steps_per_epoch,
                     logger=logger)
         prev_epochs = max_epochs[phase]
-        trainer.save(prev_epochs - 1)
-    logger.close()
+        if logger:
+            trainer.save(prev_epochs - 1)
+    if logger:
+        logger.close()
     return trainer
 
 
@@ -783,17 +868,24 @@ def main(argv=None):
     dummies instead (the flag, absent, overrides the YAML's value). With
     `--resume` it trains on from the checkpoint with the visualisations on
     (`--sanity_steps -1`: validates once, meshes included, and stops), as
-    the JAX CLI does. One card."""
+    the JAX CLI does. Started by torchrun with several processes, it trains
+    data-parallel (one card a process) over the global batch `batch_size`."""
     from retrieval_fuse_tpu_torch.config.arguments import parse_arguments
+    from retrieval_fuse_tpu_torch.parallel.mesh import (
+        broadcast_object, initialize_from_environment, mesh_for_batch)
     from retrieval_fuse_tpu_torch.utils.logger import FilesystemLogger
 
     config = parse_arguments(argv)
-    device = resolve_device(config.get("device"))  # before anything is written
+    initialize_from_environment(config.get("device"))
+    mesh = mesh_for_batch(config["batch_size"], config.get("device"))
+    device = mesh.device if mesh else resolve_device(config.get("device"))  # before any write
+    config["experiment"] = broadcast_object(config["experiment"], mesh)
     np.random.seed(config["seed"])
-    FilesystemLogger(config)
+    if is_writer(mesh):
+        FilesystemLogger(config)
     if not config.get("resume"):
-        return train_refinement_phases(config, device=device)
-    trainer = RefinementTrainer(config, device=device, enable_vis=True)
+        return train_refinement_phases(config, device=device, mesh=mesh)
+    trainer = RefinementTrainer(config, device=device, enable_vis=True, mesh=mesh)
     trainer.load(config["resume"])
     if config.get("sanity_steps") == -1:
         trainer.validate()

@@ -15,8 +15,17 @@ One eager step: both encoders, the loss, `loss.backward()`,
 asked for). The retrieval validation runs the port's dictionary, kNN (the
 kNN or topk kernel on the card) and chamfer kernel on that device.
 
-Not ported yet: data-parallel training over several cards (ROADMAP Queue 1
-item 10).
+With a `mesh` (parallel/mesh.py: one process per card), `batch_size` is
+the global batch and each rank loads and encodes its contiguous 1/W of it
+(the loader's process sharding). The NT-Xent loss is the global batch's:
+each rank gathers every rank's embeddings (and, with IoU scaling, the
+occupancies) and computes the same (2B, 2B) loss, differentiating into its
+own rows only; the BatchNorm encoders take the global batch's statistics;
+the ranks' gradients are summed, so each step equals the one-process step
+on the global batch. Noise is drawn for the global batch and each rank
+keeps its rows. Rank 0 alone writes logs, checkpoints, the dictionary and
+the visualisations; the retrieval validation searches the dictionary
+sharded over the ranks (ops/knn.sharded_exact_knn).
 """
 
 from __future__ import annotations
@@ -30,7 +39,10 @@ from retrieval_fuse_tpu_torch.data import SceneHandler, PatchedSceneDataset, bat
 from retrieval_fuse_tpu_torch.device import resolve_device
 from retrieval_fuse_tpu_torch.evaluation.metrics import Chamfer3D, IoU, Precision, Recall
 from retrieval_fuse_tpu_torch.models import get_retrieval_networks, init_module_params
+from retrieval_fuse_tpu_torch.models.encoders import set_batchnorm_mesh
 from retrieval_fuse_tpu_torch.models.losses import nt_xent_loss
+from retrieval_fuse_tpu_torch.parallel.mesh import (
+    barrier, data_parallel_jit, gather_rows, is_writer, replicate)
 from retrieval_fuse_tpu_torch.retrieval.dictionary import create_dictionary, make_encoder_apply
 from retrieval_fuse_tpu_torch.retrieval.engine import RetrievalInterface
 from retrieval_fuse_tpu_torch.train import schedule as sched
@@ -43,18 +55,22 @@ ENCODERS = ("fenc_input", "fenc_target")
 
 class RetrievalTrainer:
 
-    def __init__(self, config: dict, device=None, enable_vis: bool = False):
+    def __init__(self, config: dict, device=None, enable_vis: bool = False, mesh=None):
         """`enable_vis`: the retrieval validation also writes the val_vis
         scenes' meshes and previews (main turns it on, as the JAX CLI
-        does)."""
+        does). `mesh`: train data-parallel over its ranks, on its device."""
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.enable_vis = enable_vis
         rt = config["retrieval_training"]
         self.temperature = rt["temprature"]
         self.base_lr = rt["lr"]
         self.milestones = rt["scheduler"]
-        self.batch_size = rt["batch_size"]
+        self.batch_size = rt["batch_size"]  # the global batch
+        self.world = mesh.size if mesh is not None else 1
+        self.rank = mesh.rank if mesh is not None else 0
+        self.local_batch = self.batch_size // self.world
         self.iou_scaling = rt["iou_scaling"]
         self.w_contrastive = rt["loss"]["contrastive"]
         self.latent_dim = config["retrieval_model"]["latent_dim"]
@@ -70,7 +86,7 @@ class RetrievalTrainer:
                                "val": SceneHandler("val", config)}
         self.train_dataset = self.dataset("train")
         self.retrieval_handler = RetrievalInterface(config["query"], self.latent_dim,
-                                                    device=self.device)
+                                                    device=self.device, mesh=mesh)
 
         seed = config.get("seed", 0) or 0
         rng = np.random.default_rng(seed)
@@ -78,9 +94,15 @@ class RetrievalTrainer:
         for net in self.encoders.values():
             net.load_state_dict(init_module_params(net, rng))
             net.to(self.device)
+            if mesh is not None:
+                replicate(net, mesh)
+                set_batchnorm_mesh(net, mesh)
         self.fenc_input = self.encoders["fenc_input"]
         self.fenc_target = self.encoders["fenc_target"]
         self.optimizer = self._new_optimizer()
+        # the loss's backward, its gradients summed over the mesh's ranks
+        self._backward = data_parallel_jit(
+            torch.Tensor.backward, mesh, lambda: self.optimizer.param_groups[0]["params"])
         # the input and code noise (0 in every shipped config)
         self.noise = torch.Generator(device=self.device)
         self.noise.manual_seed(seed)
@@ -110,13 +132,20 @@ class RetrievalTrainer:
 
     # ------------------------------------------------------------------ steps
 
+    def _randn(self, shape) -> torch.Tensor:
+        """Standard normal noise for this rank's rows: drawn for the global
+        batch (W times the rows) and this rank's block kept, so that the
+        global batch's rows get the one-process step's noise."""
+        noise = torch.randn((shape[0] * self.world,) + tuple(shape[1:]), generator=self.noise,
+                            device=self.device)
+        return noise[self.rank * shape[0]: (self.rank + 1) * shape[0]]
+
     def _embed(self, batch: dict, train: bool):
         """(f_in, f_tgt, the target the encoder saw): both embeddings
         (B, latent) L2-normalised, noised in training where configured."""
         target = batch["target"]
         if train and self.input_noise_std > 0:
-            target = target + torch.randn(target.shape, generator=self.noise,
-                                          device=self.device) * self.input_noise_std
+            target = target + self._randn(target.shape) * self.input_noise_std
         f_in = self.fenc_input(batch["input"])
         f_tgt = self.fenc_target(target)
         f_in = f_in.reshape(f_in.shape[0], -1)
@@ -125,34 +154,36 @@ class RetrievalTrainer:
         f_tgt = f_tgt / torch.clamp(torch.linalg.vector_norm(f_tgt, dim=1, keepdim=True),
                                     min=1e-12)
         if train and self.code_noise_std > 0:
-            f_in = f_in + torch.randn(f_in.shape, generator=self.noise,
-                                      device=self.device) * self.code_noise_std
-            f_tgt = f_tgt + torch.randn(f_tgt.shape, generator=self.noise,
-                                        device=self.device) * self.code_noise_std
+            f_in = f_in + self._randn(f_in.shape) * self.code_noise_std
+            f_tgt = f_tgt + self._randn(f_tgt.shape) * self.code_noise_std
         return f_in, f_tgt, target
 
     def _loss_fn(self, batch: dict, train: bool):
         """(total loss, contrastive loss). The IoU temperatures come from the
         target the encoder saw (noised in training, as the reference noises
-        the batch in place before it computes them)."""
+        the batch in place before it computes them). Under a mesh, the
+        embeddings and occupancies are the global batch's, gathered in rank
+        order."""
         f_in, f_tgt, target = self._embed(batch, train)
+        f_in, f_tgt = gather_rows(f_in, self.mesh), gather_rows(f_tgt, self.mesh)
         iou_matrix = None
         if self.iou_scaling:
             occ = target * self.target_std + self.target_mean <= self.occ_threshold
+            occ = gather_rows(occ.to(torch.uint8), self.mesh).bool()
             iou_matrix = get_iou_matrix(occ[..., 0]).repeat(2, 2)
         contrastive = nt_xent_loss(f_in, f_tgt, self.temperature, iou_matrix)
         return contrastive * self.w_contrastive, contrastive
 
     def _train_step(self, batch: dict, lr: float):
-        """One optimizer step at learning rate `lr`; the gradients stay in
-        the parameters' .grad. Returns the (total, contrastive) loss before
-        the step."""
+        """One optimizer step at learning rate `lr`; the gradients (summed
+        over the ranks under a mesh) stay in the parameters' .grad. Returns
+        the (total, contrastive) loss before the step."""
         sched.set_lr(self.optimizer, lr)
         for net in self.encoders.values():
             net.train()
         self.optimizer.zero_grad(set_to_none=True)
         total, contrastive = self._loss_fn(batch, train=True)
-        total.backward()
+        self._backward(total)
         self.optimizer.step()
         return total.detach(), contrastive.detach()
 
@@ -167,16 +198,23 @@ class RetrievalTrainer:
 
     # ------------------------------------------------------------------ loops
 
+    def _batches(self, dataset, **kwargs):
+        """batch_iterator over this rank's shard of `dataset`, in batches of
+        its rows of the global batch."""
+        return batch_iterator(dataset, self.local_batch, process_index=self.rank,
+                              process_count=self.world, **kwargs)
+
     def fit(self, max_epochs: int, val_check_interval: int = 1, save_epoch: int = 1,
             run_retrieval_validation: bool = True, max_steps_per_epoch: int | None = None):
-        logger = MetricsLogger(self.config["experiment"])
+        writer = is_writer(self.mesh)
+        logger = MetricsLogger(self.config["experiment"]) if writer else None
         run_dir = Path("runs") / self.config["experiment"]
         for epoch in range(max_epochs):
             n = 0
             total = contrastive = None
             lr = self.current_learning_rate
-            for batch in batch_iterator(self.train_dataset, self.batch_size, shuffle=True,
-                                        drop_last=True, seed=epoch):
+            for batch in self._batches(self.train_dataset, shuffle=True, drop_last=True,
+                                       seed=epoch):
                 lr = sched.current_lr(self.base_lr, self.milestones, self.global_step, epoch)
                 self.current_learning_rate = lr
                 total, contrastive = self._train_step(self._device_batch(batch), lr)
@@ -184,15 +222,16 @@ class RetrievalTrainer:
                 n += 1
                 if max_steps_per_epoch and n >= max_steps_per_epoch:
                     break
-            if total is not None:
+            if total is not None and logger:
                 logger.log({"train/total_loss": float(total),
                             "train/contrastive_loss": float(contrastive),
                             "learning_rate": lr, "epoch": epoch}, step=self.global_step)
             if (epoch + 1) % max(1, int(val_check_interval)) == 0:
                 self.validate(epoch, logger, run_retrieval_validation)
-            if (epoch + 1) % save_epoch == 0:
+            if (epoch + 1) % save_epoch == 0 and writer:
                 self.save(run_dir, epoch)
-        logger.close()
+        if logger:
+            logger.close()
         return self
 
     def validate(self, epoch: int, logger=None, run_retrieval_validation: bool = True,
@@ -203,8 +242,7 @@ class RetrievalTrainer:
         totals = []
         if max_batches is None:
             max_batches = self._val_batch_limit(len(ds_val))
-        for bi, batch in enumerate(batch_iterator(ds_val, self.batch_size, shuffle=False,
-                                                  drop_last=False)):
+        for bi, batch in enumerate(self._batches(ds_val, shuffle=False, drop_last=False)):
             if max_batches is not None and bi >= max_batches:
                 break
             totals.append(float(self._eval_step(self._device_batch(batch))[0]))
@@ -216,11 +254,12 @@ class RetrievalTrainer:
         return float(np.mean(totals)) if totals else float("nan")
 
     def _val_batch_limit(self, n_items: int) -> int | None:
-        """`val_check_percent` -> the most validation batches to run."""
+        """`val_check_percent` -> the most validation batches to run (of
+        this rank's shard)."""
         pct = float(self.config.get("val_check_percent", 1.0) or 1.0)
         if pct >= 1.0:
             return None
-        n_batches = -(-n_items // self.batch_size)
+        n_batches = -(-(-(-n_items // self.world)) // self.local_batch)
         return max(1, int(n_batches * pct))
 
     # ------------------------------------------------ full retrieval pipeline
@@ -235,14 +274,18 @@ class RetrievalTrainer:
         """Dictionary -> kNN -> compose -> metrics for train_eval (without
         and with the query's own scene) and val, then, with enable_vis, the
         val_vis meshes and previews (their count logged by log_images);
-        returns {split: [iou, cd, precision, recall]}."""
+        returns {split: [iou, cd, precision, recall]}. Under a mesh, rank 0
+        builds the dictionary and writes the visualisations, and the kNN is
+        sharded over the ranks; every rank returns the metrics."""
         output_dir = (Path("runs") / self.config["experiment"] / "visualization"
                       / f"epoch_{epoch:04d}")
         output_dir.mkdir(exist_ok=True, parents=True)
         ds_train, ds_val, ds_train_eval = (self.dataset(s) for s in ("train", "val", "train_eval"))
         encode_in, encode_tgt = self.encoder_apply_fns()
-        create_dictionary(encode_tgt, self.config["dictionary"], self.latent_dim, ds_train,
-                          output_dir)
+        if is_writer(self.mesh):
+            create_dictionary(encode_tgt, self.config["dictionary"], self.latent_dim, ds_train,
+                              output_dir)
+        barrier(self.mesh)
         results = {}
         for key, ds, ignore_source in [("train", ds_train_eval, True),
                                        ("traingt", ds_train_eval, False),
@@ -257,10 +300,11 @@ class RetrievalTrainer:
                            step=self.global_step)
             print(f"[{key}] rough IoU: {metrics[0]:.3f} | CD: {metrics[1]:.3f} | "
                   f"P: {metrics[2]:.3f} | R: {metrics[3]:.3f}")
-        if self.enable_vis:
+        if self.enable_vis and is_writer(self.mesh):
             self._visualize(output_dir, ds_val, results["val"][0])
             if logger:
                 log_images(logger, output_dir / "render_val_vis", step=self.global_step)
+        barrier(self.mesh)
         return {key: metrics for key, (_, metrics) in results.items()}
 
     def _visualize(self, output_dir: Path, ds_val, val_retrievals) -> None:
@@ -320,17 +364,25 @@ def main(argv=None):
         python -m retrieval_fuse_tpu_torch.train.retrieval_trainer --config C.yaml \\
             [--max_epoch N] [--sanity_steps S] [--val_check_interval I] [--device cpu]
 
-    One card. The retrieval validation writes the val_vis meshes and
-    previews (enable_vis), as the JAX CLI's does."""
+    Started by torchrun with several processes, it trains data-parallel
+    (one card a process) over the global batch
+    `retrieval_training.batch_size`. The retrieval validation writes the
+    val_vis meshes and previews (enable_vis), as the JAX CLI's does."""
     from retrieval_fuse_tpu_torch.config.arguments import parse_arguments
+    from retrieval_fuse_tpu_torch.parallel.mesh import (
+        broadcast_object, initialize_from_environment, mesh_for_batch)
     from retrieval_fuse_tpu_torch.utils.logger import FilesystemLogger
 
     config = parse_arguments(argv)
-    device = resolve_device(config.get("device"))  # before anything is written
+    initialize_from_environment(config.get("device"))
+    mesh = mesh_for_batch(config["retrieval_training"]["batch_size"], config.get("device"))
+    device = mesh.device if mesh else resolve_device(config.get("device"))  # before any write
+    config["experiment"] = broadcast_object(config["experiment"], mesh)
     config["no_retrievals"] = True
     np.random.seed(config["seed"])
-    FilesystemLogger(config)
-    trainer = RetrievalTrainer(config, device=device, enable_vis=True)
+    if is_writer(mesh):
+        FilesystemLogger(config)
+    trainer = RetrievalTrainer(config, device=device, enable_vis=True, mesh=mesh)
     if config.get("resume"):
         trainer.load(config["resume"])
     if config.get("sanity_steps"):

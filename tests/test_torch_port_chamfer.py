@@ -28,6 +28,7 @@ from retrieval_fuse_tpu_torch.evaluation import metrics as tmet
 from retrieval_fuse_tpu_torch.ops import chamfer as tc
 from retrieval_fuse_tpu_torch.ops.streaming_chamfer import (
     BIG, chamfer_minima, chamfer_minima_plain)
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 # (n_a, n_b) per pair; caps 300 and 517 are no multiple of any tile
 COUNTS = [(300, 517), (1, 2), (77, 400), (250, 0), (0, 13)]

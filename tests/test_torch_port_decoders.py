@@ -26,6 +26,7 @@ from retrieval_fuse_tpu_torch.ops import fused_decoder as tfd
 from retrieval_fuse_tpu_torch.ops.fused_backbone import FusedSuperres08Backbone
 from retrieval_fuse_tpu_torch.utils.flax_import import flax_to_state_dict
 from test_torch_port_models import flax_params
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 NF = 4
 

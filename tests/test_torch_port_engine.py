@@ -25,6 +25,7 @@ from retrieval_fuse_tpu_torch.inference import (
 from retrieval_fuse_tpu_torch.serve import serve_directory
 from retrieval_fuse_tpu_torch.utils.flax_import import flax_engine_params
 from test_torch_port_models import CFG, flax_params
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 
 def make_setup():

@@ -27,6 +27,7 @@ from retrieval_fuse_tpu_torch.ops.streaming_knn import knn_rows, streaming_knn
 from retrieval_fuse_tpu_torch.ops.topk import topk
 from retrieval_fuse_tpu_torch.utils.flax_import import flax_to_state_dict
 from test_torch_port_cuda import attention_inputs, tied_scores
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 
 def test_topk_plain_matches_pallas_topk():

@@ -28,6 +28,7 @@ from retrieval_fuse_tpu_torch.ops import init as tinit
 from retrieval_fuse_tpu_torch.ops import sobel as tsobel
 from retrieval_fuse_tpu_torch.train import schedule as tsched
 from retrieval_fuse_tpu_torch.utils.misc import get_iou_matrix
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 RTOL = 1e-5
 

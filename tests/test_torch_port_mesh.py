@@ -43,6 +43,7 @@ from retrieval_fuse_tpu_torch.utils import logger as tlogger
 from retrieval_fuse_tpu_torch.utils import misc
 from retrieval_fuse_tpu_torch.utils import visualization as vis
 from test_torch_port_retrieval import copy_dataset, working_dir
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 F64_TOL = 1e-12

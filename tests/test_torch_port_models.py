@@ -27,6 +27,24 @@ from retrieval_fuse_tpu_torch import models as tm
 from retrieval_fuse_tpu_torch.ops.fold3d import unfold3d, fold3d
 from retrieval_fuse_tpu_torch.utils.flax_import import flax_to_state_dict
 
+#: torch's threads in each port test module. Tier-1 runs six xdist workers
+#: on the box's cores; torch's default of one thread a core in each of them
+#: oversubscribes the cores, and every parallel region then waits for
+#: threads that are not running
+TORCH_THREADS = 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """TORCH_THREADS torch threads for the module's tests (the other port
+    test modules import this fixture); the worker's setting is restored
+    after them."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(TORCH_THREADS)
+    yield
+    torch.set_num_threads(saved)
+
+
 CFG = {
     "task": "superresolution", "K": 2, "nf": 4, "unet_num_level": 4, "layer_order": "gcr",
     "retrieval_fmaps": 4, "retrieval_num_level": 4, "attn_normalize": True,

@@ -32,6 +32,7 @@ from retrieval_fuse_tpu_torch.utils.flax_import import flax_to_state_dict
 from test_torch_port_engine import CFG as SR08_CFG
 from test_torch_port_models import flax_params
 from test_torch_port_tasks import GN_F32_TOL, batch_stats
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 REL_TOL = 1e-5
 NF = 4

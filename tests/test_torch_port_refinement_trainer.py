@@ -62,6 +62,7 @@ from retrieval_fuse_tpu_torch.train.checkpoint import OPTIM_FILE, load_checkpoin
 from retrieval_fuse_tpu_torch.utils.flax_import import flax_engine_params
 from test_torch_port_retrieval import copy_dataset, working_dir
 from test_torch_port_train_parts import _gumbel_with
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 MODEL = dict(nf=4, K=2, batch_size=1, unet_num_level=4, retrieval_fmaps=4,
              retrieval_num_level=4)
@@ -203,7 +204,7 @@ def trainers(synth_superres_root, tmp_path_factory):
     Gumbel uniform draw, which the JAX attention then uses."""
     tmp = tmp_path_factory.mktemp("refine_parity")
     mp = pytest.MonkeyPatch()
-    out = {"jax_results": {}}
+    out = {"jax_results": {}, "port_results": {}, "stepped": {}}
     try:
         data = perturbed_dataset(synth_superres_root, tmp / "data", np.random.default_rng(21))
         cfg = refinement_config(data, no_retrievals=False, retrieval_ckpt=RETRIEVAL_CKPT)
@@ -281,6 +282,16 @@ def port_phase(tr, phase: int, batch: dict, u: np.ndarray, dtype=torch.float32):
     return total, aux, tr.gradients()
 
 
+def port_f32(trainers, phase: int):
+    """port_phase in float32 on the fixture's weights, batch and draw: once
+    a phase for the module (the fixture's trainer holds the weights that
+    `fresh` loads)."""
+    cache = trainers["port_results"]
+    if phase not in cache:
+        cache[phase] = port_phase(trainers["port"], phase, trainers["batch"], trainers["u"])
+    return cache[phase]
+
+
 def largest_share(got, want, scale: float) -> float:
     """max |got - want| as a share of `scale`."""
     diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
@@ -324,9 +335,11 @@ def check_phase(trainers, phase: int, x64: bool) -> None:
     largest)."""
     tr, u = trainers["port"], trainers["u"]
     jtotal, jaux, jgrads, _ = jax_phase(trainers, phase)
-    with float64(tr) if x64 else contextlib.nullcontext():
-        total, aux, grads = port_phase(tr, phase, trainers["batch"], u,
-                                       torch.float64 if x64 else torch.float32)
+    if x64:
+        with float64(tr):
+            total, aux, grads = port_phase(tr, phase, trainers["batch"], u, torch.float64)
+    else:
+        total, aux, grads = port_f32(trainers, phase)
     rtol = 1e-8 if x64 else RTOL
     np.testing.assert_allclose(float(total), float(jtotal), rtol=rtol)
     assert sorted(aux) == sorted(jaux)
@@ -495,13 +508,26 @@ def changed_subnets(before: dict, after: dict) -> set:
             if any(not torch.equal(v, before[name][k]) for k, v in sd.items())}
 
 
+def stepped(trainers, phase: int):
+    """(a fresh trainer after one train_step of `phase` on the fixture's
+    batch and draw, its parameters before the step, the step's loss and
+    parts): the step runs once a phase for the module, and each caller gets
+    its own copy of the trainer."""
+    cache = trainers["stepped"]
+    if phase not in cache:
+        tr = fresh(trainers)
+        tr.set_phase(phase)
+        before = copy.deepcopy(tr.params())
+        total, aux = tr.train_step(port_batch(tr, trainers["batch"]), tr.base_lr,
+                                   torch.from_numpy(trainers["u"]))
+        cache[phase] = (tr, before, total, aux)
+    tr, before, total, aux = cache[phase]
+    return copy.deepcopy(tr), before, total, aux
+
+
 @pytest.mark.parametrize("phase", range(4))
 def test_step_changes_exactly_the_phase_subnets(trainers, phase):
-    tr = fresh(trainers)
-    tr.set_phase(phase)
-    before = copy.deepcopy(tr.params())
-    total, aux = tr.train_step(port_batch(tr, trainers["batch"]), tr.base_lr,
-                               torch.from_numpy(trainers["u"]))
+    tr, before, total, aux = stepped(trainers, phase)
     assert torch.isfinite(total) and all(torch.isfinite(v) for v in aux.values())
     assert changed_subnets(before, tr.params()) == set(rt.PHASE_TRAINABLE[phase])
     trainable = {id(p) for p in tr.trainable_parameters()}
@@ -512,9 +538,7 @@ def test_step_changes_exactly_the_phase_subnets(trainers, phase):
 
 
 def test_set_phase_starts_a_fresh_adam(trainers):
-    tr = fresh(trainers)
-    tr.set_phase(3)
-    tr.train_step(port_batch(tr, trainers["batch"]), tr.base_lr, torch.from_numpy(trainers["u"]))
+    tr = stepped(trainers, 3)[0]
     assert len(tr.optimizer.state) > 0
     for phase in (3, 1):
         tr.set_phase(phase)
@@ -533,7 +557,7 @@ def test_lr_milestones_apply_in_phase_3_only(trainers):
 
 def test_remat_gives_the_same_loss_and_gradients(trainers):
     u, batch = trainers["u"], trainers["batch"]
-    plain = port_phase(fresh(trainers), 3, batch, u)
+    plain = port_f32(trainers, 3)
     remat = port_phase(fresh(trainers, remat=True), 3, batch, u)
     assert float(remat[0]) == pytest.approx(float(plain[0]), rel=1e-6)
     for name, sd in plain[2].items():
@@ -548,7 +572,7 @@ def test_mixed_precision_stays_near_float32(trainers):
     float32's, every gradient finite and float32; the parameters stay
     float32 after the step."""
     u, batch = trainers["u"], trainers["batch"]
-    f32 = port_phase(fresh(trainers), 3, batch, u)
+    f32 = port_f32(trainers, 3)
     tr = fresh(trainers, mixed_precision=True)
     mixed = port_phase(tr, 3, batch, u)
     assert mixed[0].dtype == torch.float32
@@ -593,9 +617,7 @@ def test_frozen_phase2_cache_step_equals_the_direct_step(trainers):
 
 
 def test_checkpoint_round_trip_with_optimizer_state(trainers, tmp_path):
-    tr = fresh(trainers)
-    tr.set_phase(3)
-    tr.train_step(port_batch(tr, trainers["batch"]), tr.base_lr, torch.from_numpy(trainers["u"]))
+    tr = stepped(trainers, 3)[0]
     tr.global_step = 7
     with working_dir(tmp_path):
         path = tr.save(5)

@@ -56,6 +56,7 @@ from retrieval_fuse_tpu_torch.train import checkpoint as tckpt
 from retrieval_fuse_tpu_torch.utils import misc as tmisc
 from retrieval_fuse_tpu_torch.utils.flax_import import flax_to_state_dict
 from test_torch_port_models import flax_apply, flax_params
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 YAMLS = sorted(str(p.relative_to(jconfig.CONFIG_ROOT))

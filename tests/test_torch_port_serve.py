@@ -42,6 +42,7 @@ from retrieval_fuse_tpu_torch.train.checkpoint import load_checkpoint
 from test_torch_port_engine import make_setup
 from test_torch_port_models import flax_params
 from test_torch_port_retrieval import copy_dataset, load_converter, working_dir
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 K = 2
 

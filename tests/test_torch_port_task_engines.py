@@ -37,6 +37,7 @@ from retrieval_fuse_tpu_torch.inference import (
     FAST_VARIANT, RetrieveRefineEngine, variant_engine_kwargs)
 from retrieval_fuse_tpu_torch.utils.flax_import import flax_engine_params
 from test_torch_port_models import flax_params
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 ATTENTION = {"attn_normalize": True, "attn_use_switching": True, "attn_retrieval_mode": False,
              "attn_no_output_mapping": True, "attn_blend": True, "attn_patch_extent": 4}

@@ -53,6 +53,7 @@ from retrieval_fuse_tpu_torch.utils.flax_import import flax_to_state_dict
 from test_torch_port_cuda import attention_inputs
 from test_torch_port_kernels import _flax_mlp
 from test_torch_port_models import flax_params
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 #: max |port - JAX| as a share of the output's largest magnitude (float32)
 REL_TOL = 1e-5

@@ -14,6 +14,7 @@ from retrieval_fuse_tpu_torch.ops import _build
 from retrieval_fuse_tpu_torch.ops import decoder_tail as dt
 from retrieval_fuse_tpu_torch.ops import patch_attention as pa
 from retrieval_fuse_tpu_torch.ops import streaming_knn as sk
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 
 @pytest.mark.parametrize("dtype, nf, want", [

@@ -32,6 +32,7 @@ from retrieval_fuse_tpu_torch.ops.fused_decoder import fuse_upsample_conv_kernel
 from retrieval_fuse_tpu_torch.utils.flax_import import flax_to_state_dict
 from test_torch_port_models import flax_params
 from test_torch_port_trainer import MODEL, RTOL, assert_close_trees
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 
 # ------------------------------------------------------------ BatchNorm
@@ -45,9 +46,12 @@ def test_batchnorm_encoder_matches_flax(name, side):
     rng = np.random.default_rng(8)
     xs = [rng.standard_normal((4, side, side, side, 1)).astype(np.float32) * (1 + i)
           for i in range(4)]
-    variables = jnet.init(jax.random.PRNGKey(0), jnp.asarray(xs[0]))
     params = flax_params(jnet, jnp.asarray(xs[0]), seed=9)
-    stats = variables["batch_stats"]
+    # flax's initial statistics (mean 0, variance 1), without an eager init
+    shapes = jax.eval_shape(jnet.init, jax.random.PRNGKey(0), jnp.asarray(xs[0]))
+    stats = jax.tree_util.tree_map_with_path(
+        lambda path, leaf: (jnp.ones if path[-1].key == "var" else jnp.zeros)(
+            leaf.shape, leaf.dtype), shapes["batch_stats"])
     net.load_state_dict(flax_to_state_dict(params, stats))
     apply = jax.jit(jnet.apply, static_argnames=("train", "mutable"))
     net.train()
@@ -88,7 +92,7 @@ def test_gumbel_softmax_matches_jax():
         def jloss(lg):
             return jnp.sum(jattn.gumbel_softmax(lg, key, tau=0.7, hard=hard) * w)
 
-        jv, jg = jax.value_and_grad(jloss)(jnp.asarray(logits))
+        jv, jg = jax.jit(jax.value_and_grad(jloss))(jnp.asarray(logits))
         lt = torch.tensor(logits, requires_grad=True)
         y = tattn.gumbel_softmax(lt, torch.from_numpy(u), tau=0.7, hard=hard)
         (y * torch.from_numpy(w)).sum().backward()
@@ -131,9 +135,10 @@ def test_attention_block_training_paths_match_flax(monkeypatch, no_output_mappin
         out = jblk.apply({"params": prm}, xx, pp, rngs={"gumbel": jax.random.PRNGKey(0)})
         return jnp.sum(out * w)
 
-    want_out = jblk.apply({"params": params}, jnp.asarray(x), jnp.asarray(p),
-                          rngs={"gumbel": jax.random.PRNGKey(0)})
-    _, (jgp, jgx, jgpp) = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+    want_out = jax.jit(lambda prm, xx, pp: jblk.apply(
+        {"params": prm}, xx, pp, rngs={"gumbel": jax.random.PRNGKey(0)}))(
+        params, jnp.asarray(x), jnp.asarray(p))
+    _, (jgp, jgx, jgpp) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2)))(
         params, jnp.asarray(x), jnp.asarray(p))
     xt, pt = (torch.tensor(a, requires_grad=True) for a in (x, p))
     out = blk(xt, pt, gumbel_uniform_draw=torch.from_numpy(u))
@@ -170,8 +175,9 @@ def test_patched_attention_get_features_matches_flax():
     params = flax_params(jblk, jnp.asarray(xp), jnp.asarray(np.tile(xt, (2, 1, 1, 1, 1))),
                          seed=12)
     blk.load_state_dict(flax_to_state_dict(params))
-    want = jblk.apply({"params": params}, jnp.asarray(xp), jnp.asarray(xt), jnp.asarray(occ),
-                      method=jblk.get_features)
+    want = jax.jit(lambda prm, a, b, c: jblk.apply({"params": prm}, a, b, c,
+                                                   method=jblk.get_features))(
+        params, jnp.asarray(xp), jnp.asarray(xt), jnp.asarray(occ))
     with torch.no_grad():
         got = blk.get_features(*(torch.from_numpy(a) for a in (xp, xt, occ)))
     for g, w_ in zip(got, want):
@@ -185,8 +191,8 @@ def test_fuse_upsample_conv_kernel_gradient_matches_jax():
     rng = np.random.default_rng(13)
     w = rng.standard_normal((3, 3, 3, 3, 5)).astype(np.float32)
     c = rng.standard_normal((3, 3, 3, 3, 40)).astype(np.float32)
-    jv, jg = jax.value_and_grad(lambda a: jnp.sum(fuse_upsample_conv_kernel_jnp(a) * c))(
-        jnp.asarray(w))
+    jv, jg = jax.jit(jax.value_and_grad(
+        lambda a: jnp.sum(fuse_upsample_conv_kernel_jnp(a) * c)))(jnp.asarray(w))
     wt = torch.tensor(w, requires_grad=True)
     v = (fuse_upsample_conv_kernel_torch(wt) * torch.from_numpy(c)).sum()
     v.backward()
@@ -211,8 +217,8 @@ def test_fused_upsample_modules_match_flax(double):
     def jloss(prm, xx):
         return jnp.sum(jmod.apply({"params": prm}, xx) * w)
 
-    want_out = jmod.apply({"params": params}, jnp.asarray(x))
-    _, (jgp, jgx) = jax.value_and_grad(jloss, argnums=(0, 1))(params, jnp.asarray(x))
+    want_out = jax.jit(jmod.apply)({"params": params}, jnp.asarray(x))
+    _, (jgp, jgx) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1)))(params, jnp.asarray(x))
     xt = torch.tensor(x, requires_grad=True)
     out = mod(xt.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
     (out * torch.from_numpy(w)).sum().backward()

@@ -35,6 +35,7 @@ import torch
 import yaml
 
 import retrieval_fuse_tpu.config.arguments as jargs
+import retrieval_fuse_tpu.train.retrieval_trainer as jrt
 from retrieval_fuse_tpu.data.synthetic import make_synthetic_config
 from retrieval_fuse_tpu.train.retrieval_trainer import RetrievalTrainer as JaxTrainer
 import retrieval_fuse_tpu_torch.config.arguments as targs
@@ -43,6 +44,7 @@ from retrieval_fuse_tpu_torch.retrieval import cli as tcli
 from retrieval_fuse_tpu_torch.train import retrieval_trainer as trt
 from retrieval_fuse_tpu_torch.utils.flax_import import flax_to_state_dict
 from test_torch_port_retrieval import copy_dataset, working_dir
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 MODEL = {"nf_input": 4, "nf_target": 4, "latent_dim": 16}
 RTOL = 1e-5
@@ -77,6 +79,17 @@ def assert_close_trees(got: dict, want: dict, rtol=RTOL, atol=0.0, rel_to_max=0.
 # ------------------------------------------------------------- trainers
 
 
+class _JitInit:
+    """A flax module whose `init` is one jit (the trainer's eager init
+    compiles every operation on its own); everything else is the module's."""
+
+    def __init__(self, module):
+        self._module, self.init = module, jax.jit(module.init)
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
 @pytest.fixture(scope="module")
 def trainers(synth_superres_root, tmp_path_factory):
     """The JAX trainer and the port's, on two copies of the dataset, the
@@ -84,13 +97,19 @@ def trainers(synth_superres_root, tmp_path_factory):
     working directory (runs/, data caches)."""
     tmp = tmp_path_factory.mktemp("trainer_parity")
     out = {}
-    for tag in ("jax", "port"):
-        work = tmp / tag
-        cfg = synthetic_config(copy_dataset(synth_superres_root, work / "data"))
-        with working_dir(work):
-            out[tag] = (JaxTrainer(cfg, enable_vis=False) if tag == "jax"
-                        else trt.RetrievalTrainer(cfg, device="cpu"))
-        out[f"{tag}_dir"] = work
+    mp = pytest.MonkeyPatch()
+    networks = jrt.get_retrieval_networks
+    mp.setattr(jrt, "get_retrieval_networks", lambda cfg: tuple(map(_JitInit, networks(cfg))))
+    try:
+        for tag in ("jax", "port"):
+            work = tmp / tag
+            cfg = synthetic_config(copy_dataset(synth_superres_root, work / "data"))
+            with working_dir(work):
+                out[tag] = (JaxTrainer(cfg, enable_vis=False) if tag == "jax"
+                            else trt.RetrievalTrainer(cfg, device="cpu"))
+            out[f"{tag}_dir"] = work
+    finally:
+        mp.undo()
     jtr, tr = out["jax"], out["port"]
     tr.load_params({name: flax_to_state_dict(jtr.state.params[name]) for name in trt.ENCODERS})
     out["batch"] = next(batch_iterator(tr.train_dataset, 8, shuffle=True, drop_last=True,
@@ -104,7 +123,8 @@ def test_trainer_loss_and_gradients_match_jax(trainers, iou_scaling):
     jtr._loss_cfg["iou_scaling"] = tr.iou_scaling = iou_scaling
     try:
         jb = {k: jnp.asarray(batch[k]) for k in ("input", "target")}
-        (jtotal, (jcontrastive, _)), jgrads = jax.value_and_grad(jtr._loss_fn, has_aux=True)(
+        loss = jax.jit(jax.value_and_grad(jtr._loss_fn, has_aux=True), static_argnums=(2,))
+        (jtotal, (jcontrastive, _)), jgrads = loss(
             jtr.state.params, jb, True, jax.random.PRNGKey(0), jtr.state.batch_stats)
         for net in tr.encoders.values():
             net.train().zero_grad(set_to_none=True)

@@ -21,6 +21,7 @@ from retrieval_fuse_tpu_torch.utils.flax_import import flax_engine_params
 from retrieval_fuse_tpu_torch.ops.patch_attention import embed
 from test_torch_port_engine import jax_ref, setup  # noqa: F401 (fixtures)
 from test_torch_port_models import CFG
+from test_torch_port_models import torch_threads  # noqa: F401 (autouse fixture)
 
 VARIANTS = [
     "pallas",

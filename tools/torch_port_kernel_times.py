@@ -23,7 +23,10 @@ features, K = 4, a 27,132-tile bank; decoder tail B = batch, S = 32), on
 seeded random rows and weights:
   - holds each kernel against its plain PyTorch version in bf16 (selection
     agreement and max |diff| for the attentions, max |diff| for the tail)
-    and in float32, with chip_smoke.py's tolerances;
+    and in float32, with chip_smoke.py's tolerances (the float32 softmax
+    attentions by chip_smoke.softmax_f64_hold: against the plain version
+    in float64, with its negative control; `--nf 4 8 12 16` for every
+    width the kernels take);
   - times the bf16 and float32 launches with CUDA events.
 Then the chamfer kernel on random voxel coordinates at the sizes of the
 pipeline's `evaluate` calls (B = 1 in buffers of 49,152: 5,400 against
@@ -195,7 +198,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from chip_smoke import SEED_BANK_ROWS, chamfer_bound, cuda_ms
+    from chip_smoke import SEED_BANK_ROWS, chamfer_bound, cuda_ms, softmax_f64_hold
     from retrieval_fuse_tpu_torch.device import resolve_device
     from retrieval_fuse_tpu_torch.models.attention import AttentionFeatureEncoder
     from retrieval_fuse_tpu_torch.ops import _build
@@ -252,6 +255,14 @@ def main(argv=None) -> int:
             xt = (0.5 * xt.float() + 0.5 * bank[idx[:, 0].long()].float()).bfloat16()
             p = bank[idx.long()].transpose(1, 2).reshape(q * t, k, f).contiguous()
             x = xt.reshape(q * t, f)
+            # a shut switch (out = x) would compare x with x: where the seeded
+            # weights shut it, negate phi's output layer, as chip_smoke does
+            sample = slice(0, 4096)
+            if (pa.patch_attention_plain(x[sample].float(), p[sample].float(), theta, phi, k)[0]
+                    == x[sample].float()).all(dim=-1).float().mean() > 0.5:
+                for m in (phi, mlps[torch.bfloat16][1]):
+                    m.out.weight.neg_()
+                    m.out.bias.neg_()
 
             cases = (("gathered_patch_attention", pa.gathered_patch_attention,
                       pa.gathered_patch_attention_plain, lambda d: (xt.to(d), bank.to(d), idx)),
@@ -270,9 +281,20 @@ def main(argv=None) -> int:
                         agree = sel.long() == want_sel
                         share = float(agree.float().mean())
                         diff = (out.float() - want.float()).abs()[agree]
+                        label = (f"{name} F={f} {dtype} {'hard' if mode else 'softmax'} "
+                                 f"[{kernel.math}]")
+                        if dtype == torch.float32 and not mode:
+                            # chip_smoke's float64-anchored bound and its negative control
+                            h = softmax_f64_hold(out, plain, (*ops, *mlps[dtype], k))
+                            hold(label, share >= share_min and h["err"] <= h["bound"]
+                                 and h["control"] > h["bound"],
+                                 f"selections agree on {share:.5%}; max |diff| from float64 "
+                                 f"{h['err']:.3e}, the plain float32's {h['plain_f32']:.3e}, "
+                                 f"bound {h['bound']:.3e}, bf16 control {h['control']:.3e}")
+                            del out, want
+                            continue
                         ok = share >= share_min and (tol is None or float(diff.max()) <= tol)
-                        hold(f"{name} F={f} {dtype} {'hard' if mode else 'softmax'} "
-                             f"[{kernel.math}]", ok,
+                        hold(label, ok,
                              f"selections agree on {share:.5%}, max |diff| "
                              f"{float(diff.max()):.3e}, mean {float(diff.mean()):.3e}")
                         del out, want

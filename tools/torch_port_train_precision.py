@@ -4,6 +4,7 @@ float64 gradients, beside the CPU's float32 ones.
 
     python tools/torch_port_train_precision.py [--out chiprun_out/train_precision.json]
     python tools/torch_port_train_precision.py --refine
+    python tools/torch_port_train_precision.py --refine --seed 0 1 2 3 4 5 6 7
 
 With --refine: the refinement trainer's step of each phase at batch 1 and
 chip_smoke.py's config (ShapeNetV2's refinement width, nf 16, K 4) on a
@@ -18,6 +19,17 @@ a tensor as a share of its sub-network's largest float64 gradient), and the
 loss; on the first train item perturbed as chip_smoke.perturb_batch does
 (what chip_smoke.hold_refine_steps holds) and unperturbed (constant 16³
 patches).
+
+With --refine --seed S...: chip_smoke.hold_refine_steps's phase-3 hold once
+for each seed S, on data that S moves: the synthetic dataset
+(generate_synthetic_dataset(seed=S)), its composed retrievals, the held
+item's perturbation and the Gumbel draw. For each seed: how far the card's
+float32 gradients lie from the CPU's float64 ones (grad_share) and their
+worst tensor, beside the CPU's float32, the card with cuDNN's deterministic
+algorithms, with cuDNN off and with TF32 on; the bound
+REFINE_F64_FACTOR x CPU + REFINE_F64_FLOOR and whether the card's reading
+passes it; the five worst tensors of the card's float32. A table, and
+chiprun_out/train_precision_seeds.json.
 
 One batch of the trainer's epoch-0 order, from the same seeded weights, in
 these cases: the CPU tests' geometry (nf 4 / 4, latent 16, batch 16, the
@@ -107,10 +119,14 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="chiprun_out/train_precision.json")
     ap.add_argument("--refine", action="store_true",
                     help="the refinement trainer's phases instead of the retrieval trainer")
+    ap.add_argument("--seed", type=int, nargs="+", default=None,
+                    help="with --refine: the phase-3 hold on the data of each seed")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_port_train_precision: no CUDA device", file=sys.stderr)
         return 1
+    if args.refine and args.seed is not None:
+        return phase3_seeds(args.seed, args.out.replace(".json", "_seeds.json"))
     if args.refine:
         return refine_precision(args.out.replace(".json", "_refine.json"))
     try:
@@ -278,6 +294,82 @@ def refine_precision(out_path: str) -> int:
                         + f" [{card}]", flush=True)
         finally:
             os.chdir(cwd)
+    out = Path(out_path)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(results, indent=1))
+    return 0
+
+
+#: the card's phase-3 steps beside the port's own: one setting changed each
+SEED_WAYS = {"card float32": contextlib.nullcontext,
+             "card float32, deterministic": lambda: cudnn_setting("deterministic"),
+             "card float32, cuDNN off": lambda: cudnn_setting("cuDNN off"),
+             "card float32, TF32": chip_smoke.tf32}
+
+
+def worst_tensors(got: dict, want: dict, n: int = 5) -> list:
+    """The n largest max |got - want| over a tensor, as grad_share reads them."""
+    rows = []
+    for name, sd in want.items():
+        scale = max(float(g.abs().max()) for g in sd.values()) or float("inf")
+        for key, w in sd.items():
+            rows.append((float((got[name][key].cpu().double() - w.double()).abs().max()) / scale,
+                         f"{name}.{key}"))
+    return sorted(rows, reverse=True)[:n]
+
+
+def phase3_seeds(seeds: list, out_path: str) -> int:
+    """The --refine --seed readings (see the module docstring)."""
+    from retrieval_fuse_tpu_torch.device import resolve_device
+    from retrieval_fuse_tpu_torch.train.refinement_trainer import RefinementTrainer
+    card = card_name()
+    print(card)
+    dev = resolve_device("cuda")
+    results = {"card": card, "factor": chip_smoke.REFINE_F64_FACTOR,
+               "floor": chip_smoke.REFINE_F64_FLOOR, "seeds": {}}
+    cwd = os.getcwd()
+    for seed in seeds:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            generate_synthetic_dataset(root / "data", n_train=4, n_val=1, seed=seed)
+            cfg = dict(chip_smoke.refinement_config(root / "data", "runs/tools/ckpt_epoch=0"),
+                       seed=5, experiment="precision", batch_size=1)
+            rng = np.random.default_rng(seed)
+            chip_smoke.write_composed_retrievals(cfg, rng)
+            os.chdir(root)
+            try:
+                gpu = RefinementTrainer(dict(cfg), device=dev)
+                cpu = RefinementTrainer(dict(cfg), device="cpu")
+                for tr in (gpu, cpu):
+                    chip_smoke.open_occupancy_gate(tr)
+                raw = chip_smoke.first_batches(cpu.train_dataset, 1, 1)[0]
+                held = chip_smoke.perturb_batch(raw, rng, chip_smoke.REFINE_HOLD_NOISE)
+                rows = cpu.patched_attention_block.num_patch_x ** 3
+                u = torch.from_numpy(rng.uniform(1e-20, 1.0, (rows, cpu.K)).astype(np.float32))
+                ref = chip_smoke.step_gradients(cpu, 3, cpu._device_batch(held), u,
+                                                float64=True)[2]
+                got = {"CPU float32": chip_smoke.step_gradients(
+                    cpu, 3, cpu._device_batch(held), u)[2]}
+                for way, setting in SEED_WAYS.items():
+                    with setting():
+                        got[way] = chip_smoke.step_gradients(
+                            gpu, 3, gpu._device_batch(held), u.to(dev))[2]
+            finally:
+                os.chdir(cwd)
+        rec = {way: dict(zip(("grad_share", "worst"), chip_smoke.grad_share(g, ref)))
+               for way, g in got.items()}
+        bound = (chip_smoke.REFINE_F64_FACTOR * rec["CPU float32"]["grad_share"]
+                 + chip_smoke.REFINE_F64_FLOOR)
+        rec["bound"] = bound
+        rec["passes"] = {way: r["grad_share"] <= bound for way, r in rec.items()
+                         if isinstance(r, dict)}
+        rec["card worst tensors"] = worst_tensors(got["card float32"], ref)
+        rec["CPU worst tensors"] = worst_tensors(got["CPU float32"], ref)
+        results["seeds"][seed] = rec
+        print(f"seed {seed}: bound {bound:.2e}; " + "; ".join(
+            f"{way} {r['grad_share']:.2e} ({r['worst']}){'' if rec['passes'][way] else ' OUT'}"
+            for way, r in rec.items() if isinstance(r, dict) and "grad_share" in r)
+            + f"; card worst {rec['card worst tensors'][:3]} [{card}]", flush=True)
     out = Path(out_path)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(results, indent=1))
