@@ -52,10 +52,12 @@ scaling, Adam with weight decay 5e-5, K = 4; weights from --seed):
     built in code) on the same chunks and the composed retrievals of that
     pipeline: one step of each of the four phases at batch 1 held against
     the CPU (float32, TF32 off; the same Gumbel draw and one-hot
-    selections; losses 1e-5 relative, gradients no further from the CPU's
-    float64 than REFINE_F64_FACTOR times the CPU's float32; on an item
-    perturbed so that no 16³ patch is constant; no kernel launched; the
-    card's step with TF32 on outside the bound), the 4-phase curriculum
+    selections; losses 1e-5 relative; on REFINE_HOLD_DRAWS perturbations of
+    an item, so that no 16³ patch is constant, the gradients on every draw
+    no further from float64 than REFINE_F64_FACTOR times the CPU float32's
+    largest distance over the draws, the card's float64 anchor held against
+    the CPU's on draw 0; no kernel launched; the card's step
+    with TF32 on outside the bound on every draw), the 4-phase curriculum
     through train_refinement_phases (two epochs of REFINE_STEPS / 2 steps a
     phase, phase 2 on the frozen feature cache; steps/s of each phase's second
     epoch and its losses from the run's metrics.jsonl; phase 2's losses
@@ -117,6 +119,26 @@ global batch (losses 1e-5 relative, summed gradients within 7d's bound)
 and a short fit of each; then (run_phase11d, after phase 9) 11d entry()'s
 forward and dryrun_multichip over two gloo ranks and one NCCL rank. The
 ranks' launch counts join the kernels' counts.
+
+Phase 12 (run_phase12; `chip_smoke.py --phase12` builds the kernels and
+runs it alone: the whole run leaves it out until its gradient holds pass
+on the card) trains, maps and serves the other
+tasks at their YAMLs' widths and batches: the 3DFront surface-reconstruction
+configs (PCPatch48 on 128³ occupancy grids of 500 points, the five-level
+nf 12 refinement network, batch 4) and the Matterport3D 16³ ones (nf 16,
+batch 8), each on a synthetic dataset made on the card whose dictionary
+reaches the streaming kNN's 16,384-row crossover: 12a the retrieval trainer
+(step 1 held against float64 as 7d's refinement steps are, steps through
+fit at the config's batch, a
+resident step's ms and idle share, peak memory), 12b map, compose and
+evaluate (the mapping against a dense search, the metrics against the
+plain chamfer), 12c the refinement holds and the curriculum (phase 2 must
+move the attention), 12d the validation against the plain chamfer, 12e
+base and four kernel paths served from the artifacts in bf16 and float32
+against `base` and serve.main. Phase 13 (run_phase13, in phase 7's
+working directory) runs the real-data parity harness's CLI on phase 7's
+artifacts with a stand-in reference (every gate passes), then on a mapping
+with one neighbour changed (its top-k gate refuses it).
 
 Prints the card (nvidia-smi name and power limit), one line per check,
 a `{"kernels": [...]}` JSON line and, last, `{"ok": true, "device": ...}`.
@@ -305,6 +327,114 @@ def superres16_config() -> dict:
     }
 
 
+def _task_dataset(root, **keys) -> dict:
+    """The dataset keys that phase 12's four configs share, pointed at `root`
+    (as data/synthetic.make_synthetic_config points them), with `keys`."""
+    root = str(root).rstrip("/") + "/"
+    return dict({"train_multiplier": 1, "input_ext": ".npz", "target_ext": ".npz",
+                 "data_dir": root, "scene_dir": root, "retrieval_dir": root,
+                 "splits_dir": "main", "target_chunk_size": 64, "target_dir": "sdf_064",
+                 "preload_retrievals": False, "rotation_augment": False}, **keys)
+
+
+#: the dataset keys of phase 12's tasks that their retrieval and refinement
+#: YAMLs share
+TASK_DATA = {
+    "surface": dict(num_points=500, dataset_name="3DFront", input_chunk_size=128,
+                    input_dir="pc_20K", voxel_size_input=0, voxel_size_target=0.054167,
+                    input_mean=0, input_std=1, target_mean=0.15015658121788053,
+                    target_std=0.03573221820637578),
+    "superres16": dict(num_points=0, dataset_name="Matterport3D16", input_chunk_size=16,
+                       input_dir="sdf_016", voxel_size_input=15.0, voxel_size_target=3.75,
+                       input_mean=35.62394659115317, input_std=14.58642912987053,
+                       target_mean=10.502049923464249, target_std=2.3319665041587627),
+}
+
+
+def task_retrieval_config(task: str, root, retrieval_ckpt, k: int = 4) -> dict:
+    """The resolved retrieval config of phase 12's `task`, built in code and
+    pinned to its YAML by a test: "surface", config/surface_reconstruction/
+    3DFront/retrieval_128_064.yaml (PCPatch48 `pc_32+8` nf 10 on 48³
+    windows of 128³ occupancy grids from 500 points, Patch24 `16+4` nf 12,
+    latent 64, batch 256); "superres16", config/super_resolution/
+    Matterport3D/retrieval_016_064.yaml (Patch08 `4+2` nf 32, Patch32
+    `16+8` nf 8, IoU scaling, batch 192). K = k, as the retrieval CLI sets
+    it. The dataset points at `root`."""
+    if task == "surface":
+        dataset = _task_dataset(
+            root, **TASK_DATA[task], patch_size_input=32, patch_context_input=8,
+            patch_size_target=16, patch_context_target=4, patch_stride=16,
+            skip_occupancy=False, preload_scenes=True, occupancy_threshold=0)
+        model = {"network_input": "pc_32+8", "network_target": "16+4", "nf_input": 10,
+                 "nf_target": 12, "latent_dim": 64}
+        training = {"batch_size": 256, "scheduler": [70, 80], "iou_scaling": False}
+        dictionary, query = {"batch_size": 256, "num_workers": 8}, \
+            {"batch_size": 128, "num_workers": 8, "flann_num_workers": 4}
+    else:
+        dataset = _task_dataset(
+            root, **TASK_DATA[task], patch_size_input=4, patch_context_input=2,
+            patch_size_target=16, patch_context_target=8, patch_stride=16,
+            skip_occupancy=True, preload_scenes=True)
+        model = {"network_input": "4+2", "network_target": "16+8", "nf_input": 32,
+                 "nf_target": 8, "latent_dim": 64}
+        training = {"batch_size": 192, "scheduler": [75, 80], "iou_scaling": True}
+        dictionary, query = {"batch_size": 512, "num_workers": 8}, \
+            {"batch_size": 512, "num_workers": 8, "flann_num_workers": 0}
+    return {
+        "task": "surface_reconstruction" if task == "surface" else "superresolution",
+        "fast_visualization": True, "no_retrievals": True,
+        "retrieval_ckpt": str(retrieval_ckpt), "K": k,
+        "dataset_train": dict(dataset, occupancy_threshold=0),
+        "dataset_val": dict(dataset, occupancy_threshold=-1),
+        "retrieval_model": model,
+        "retrieval_training": dict({"lr": 0.0001, "num_workers": 8, "code_noise": 0,
+                                    "input_noise": 0, "temprature": 0.2,
+                                    "loss": {"contrastive": 1}}, **training),
+        "dictionary": dictionary, "query": dict(query, K=k),
+    }
+
+
+def task_refinement_config(task: str, root, retrieval_ckpt) -> dict:
+    """The resolved refinement config of phase 12's `task`, built in code
+    and pinned to its YAML by a test: "surface", config/
+    surface_reconstruction/3DFront/refinement_128_064.yaml (nf 12, five
+    U-Net levels on 128³ occupancy grids, retrieval f_maps 12, K 4, soft
+    selection, batch 4); "superres16", config/super_resolution/
+    Matterport3D/refinement_016_064.yaml (nf 16, 16³ inputs, K 4, soft
+    selection, batch 8). The dataset points at `root` and trains on the
+    composed retrievals of `retrieval_ckpt` (retrievals on, as the CLI runs
+    without --no_retrievals)."""
+    surface = task == "surface"
+    dataset = _task_dataset(
+        root, **TASK_DATA[task], patch_size_input=128 if surface else 16,
+        patch_context_input=0, patch_size_target=64, patch_context_target=0,
+        patch_stride=64, preload_scenes=False, skip_occupancy=False)
+    cfg = {
+        "task": "surface_reconstruction" if surface else "superresolution", "K": 4,
+        "loss_reconstruction": 1, "loss_normal": 0.5, "loss_attn_contrastive": 0.01,
+        "loss_side_task_retr": 1, "loss_side_task_unet": 1, "lr": 0.0001,
+        "batch_size": 4 if surface else 8, "num_workers": 8,
+        "scheduler": [75, 85] if surface else [105, 115], "attn_temprature": 0.05,
+        "weight_occupied": 8, "unet_backbone_decoder_ckpt": None,
+        "retrieval_backbone_ckpt": None, "attention_block_ckpt": None,
+        "disable_train_vis": True, "disable_attn_vis": True, "fast_visualization": True,
+        "nf": 12 if surface else 16, "unet_num_level": 5 if surface else 4,
+        "layer_order": "gcr", "retrieval_fmaps": 12 if surface else 16,
+        "retrieval_num_level": 4, "attn_patch_extent": 4, "attn_normalize": True,
+        "attn_use_switching": True, "attn_retrieval_mode": False,
+        "attn_no_output_mapping": True, "attn_blend": True, "attn_num_patch": 16,
+        "dataset_train": dict(dataset, occupancy_threshold=0),
+        "dataset_val": dict(dataset, occupancy_threshold=-1),
+        "no_retrievals": False, "retrieval_ckpt": str(retrieval_ckpt),
+    }
+    if not surface:  # base/refinement_superresolution.yaml's retrieval keys
+        cfg.update(retrieval_model={"network_input": "2+1", "network_target": "16+8",
+                                    "nf_input": 32, "nf_target": 8, "latent_dim": 64},
+                   dictionary={"batch_size": 512, "num_workers": 4},
+                   query={"batch_size": 2048, "num_workers": 4, "flann_num_workers": 4})
+    return cfg
+
+
 def surface_inputs(root, n: int, seed: int, size: int = 128) -> np.ndarray:
     """n size³ occupancy grids (float32 0/1): synthetic point-cloud scenes
     (data/synthetic.py, 20,000 near-surface points each, under `root`),
@@ -364,6 +494,20 @@ def draw_primitives(rng, n: int, device, n_prims: int = 3) -> list:
     return prims
 
 
+def primitives_distance(prims: list, points):
+    """(n, P) the unsigned distance of points (1 or n, P, 3) in the unit
+    chunk to the union of each chunk's primitives in `prims`."""
+    import torch
+    d = torch.full((prims[0][0].shape[0], points.shape[1]), float("inf"),
+                   device=points.device)
+    for center, radius, half, sphere in prims:
+        p = points - center
+        q = p.abs() - half
+        box = q.clamp(min=0).norm(dim=-1) + q.amax(dim=-1).clamp(max=0)
+        d = torch.minimum(d, torch.where(sphere, p.norm(dim=-1) - radius, box))
+    return d.abs()
+
+
 def primitives_df(prims: list, res: int, voxel_size: float):
     """The truncated unsigned distance fields (n, res, res, res) of the
     chunks of `prims` sampled at res³, in the units of `voxel_size`."""
@@ -371,14 +515,26 @@ def primitives_df(prims: list, res: int, voxel_size: float):
     device = prims[0][0].device
     c = (torch.arange(res, dtype=torch.float32, device=device) + 0.5) / res
     g = torch.stack(torch.meshgrid(c, c, c, indexing="ij"), -1).reshape(1, -1, 3)
-    d = torch.full((prims[0][0].shape[0], res ** 3), float("inf"), device=device)
-    for center, radius, half, sphere in prims:
-        p = g - center
-        q = p.abs() - half
-        box = q.clamp(min=0).norm(dim=-1) + q.amax(dim=-1).clamp(max=0)
-        d = torch.minimum(d, torch.where(sphere, p.norm(dim=-1) - radius, box))
     trunc = float(np.float16(voxel_size * 3))
-    return torch.clamp(d.abs() * (voxel_size * res), max=trunc).reshape(-1, res, res, res)
+    return torch.clamp(primitives_distance(prims, g) * (voxel_size * res), max=trunc) \
+        .reshape(-1, res, res, res)
+
+
+def primitives_points(prims: list, rng, n_points: int, res: int, oversample: int = 20):
+    """(n, n_points, 3) float32 near-surface points of each chunk of
+    `prims` in [0, res) coordinates: of n_points * oversample uniform draws
+    from `rng`, the n_points nearest the surface (data/synthetic.py's
+    rejection sampling)."""
+    import torch
+    n, device = prims[0][0].shape[0], prims[0][0].device
+    out = []
+    for i in range(n):
+        one = [tuple(t[i:i + 1] for t in prim) for prim in prims]
+        pts = torch.from_numpy(rng.uniform(0, 1, (1, n_points * oversample, 3))
+                               .astype(np.float32)).to(device)
+        near = primitives_distance(one, pts)[0].topk(n_points, largest=False).indices
+        out.append(pts[0, near] * res)
+    return torch.stack(out)
 
 
 def synthetic_df(rng, n: int, res: int, voxel_size: float, device, n_prims: int = 3):
@@ -491,16 +647,28 @@ def hold_train_steps(cfg: dict, dev, n_steps: int):
     float32 with TF32 off. The loss of each step within 1e-5 relative, the
     step-1 gradients within TRAIN_GRAD_TOL (by target encoder) of each
     tensor's largest magnitude (those of batchnorm_fed_biases below 1e-2 of
-    the encoder's largest gradient). Returns (the card's trainer after the steps, losses, worst
-    gradient error relative to its tensor's largest magnitude)."""
+    the encoder's largest gradient), and the card's step-1 gradients with
+    TF32 on outside that tolerance on some tensor (the hold can tell TF32).
+    Returns (the card's trainer after the steps, losses, worst gradient
+    error relative to its tensor's largest magnitude, TF32's)."""
     import torch
     from retrieval_fuse_tpu_torch.train import schedule as sched
     from retrieval_fuse_tpu_torch.train.retrieval_trainer import RetrievalTrainer
     card, cpu = RetrievalTrainer(cfg, device=dev), RetrievalTrainer(cfg, device="cpu")
     grad_tol = TRAIN_GRAD_TOL[cfg["retrieval_model"]["network_target"]]
-    losses, grad_err = [], 0.0
+    losses, grad_err, tf32_err = [], 0.0, 0.0
     for i, batch in enumerate(first_batches(card.train_dataset, card.batch_size, n_steps)):
         lr = sched.current_lr(card.base_lr, card.milestones, i, 0)
+        if i == 0:  # step 1 with TF32 on, from the same weights and statistics
+            saved = {name: copy.deepcopy(net.state_dict()) for name, net in card.encoders.items()}
+            with tf32():
+                for net in card.encoders.values():
+                    net.train().zero_grad(set_to_none=True)
+                card._loss_fn(card._device_batch(batch), train=True)[0].backward()
+            grads_tf32 = {name: {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+                          for name, net in card.encoders.items()}
+            for name, net in card.encoders.items():
+                net.load_state_dict(saved[name])
         got = float(card._train_step(card._device_batch(batch), lr)[0])
         want = float(cpu._train_step(cpu._device_batch(batch), lr)[0])
         check(np.isfinite(got) and abs(got - want) <= 1e-5 * abs(want),
@@ -525,8 +693,13 @@ def hold_train_steps(cfg: dict, dev, n_steps: int):
                           f"train step 1: gradient of {name}.{key} differs by {err:.2e} of "
                           f"its largest magnitude {scale:.2e}")
                     grad_err = max(grad_err, err)
+                    tf32_err = max(tf32_err, float((grads_tf32[name][key] - w).abs().max())
+                                   / max(scale, 1e-30))
+            check(tf32_err > grad_tol,
+                  f"train step 1: with TF32 on the card's gradients lie within {tf32_err:.2e} "
+                  f"of the CPU's, inside the tolerance {grad_tol:g}: the hold cannot tell TF32")
         card.global_step = cpu.global_step = i + 1
-    return card, losses, grad_err
+    return card, losses, grad_err, tf32_err
 
 
 #: phase 7d, the refinement trainer: steps of each curriculum phase (two
@@ -538,18 +711,31 @@ REFINE_HOLD_NOISE = 0.05
 #: occupied voxel (tanh ~ 0 is 1.5 voxels), so phase 2's occupancy gate
 #: would close; at -0.5 it opens on part of the patches
 REFINE_HOLD_DECODER_BIAS = -0.5
-#: one step of each phase at batch 1 (float32, TF32 off): the card's
-#: gradients may lie no further from the CPU's float64 gradients of the same
-#: step than REFINE_F64_FACTOR times the CPU's float32 ones do, plus
-#: REFINE_F64_FLOOR (both as grad_share reads them). From
-#: tools/torch_port_train_precision.py --refine on the H100 (PERF.md section
-#: 6): card / CPU float32 lie 1.06e-2 / 9.95e-3 (phase 0), 2.68e-3 / 3.45e-3
-#: (1), 6.2e-5 / 6.2e-5 (2) and 1.34e-2 / 1.37e-2 (3) from float64, a ratio
-#: of 0.78-1.07, and the card with TF32 on 2.1e-1, 1.05e-1, 7.0e-4, 1.6e-1:
-#: 3.7-10x the bound this gives, 5.8-32x on this phase's data (the hold
-#: checks that TF32 stays outside it). A fixed bound from the tool's data did
-#: not carry over to this phase's (the float32 error depends on the data)
+#: one step of each phase at batch 1 (float32, TF32 off), on each of
+#: REFINE_HOLD_DRAWS perturbations of the held item: on every draw the
+#: card's gradients may lie no further from the float64 gradients of the
+#: same step than REFINE_F64_FACTOR times the largest distance of the CPU's
+#: float32 ones over the draws, plus REFINE_F64_FLOOR (grad_share). The
+#: factor is PR 8's, from tools/torch_port_train_precision.py --refine on the
+#: H100 (PERF.md section 6): card / CPU float32 lie 1.06e-2 / 9.95e-3 (phase
+#: 0), 2.68e-3 / 3.45e-3 (1), 6.2e-5 / 6.2e-5 (2) and 1.34e-2 / 1.37e-2 (3)
+#: from float64, and the card with TF32 on 3.7-10x the bound (the hold
+#: checks on every draw that TF32 stays outside it). Over ten seeds of data
+#: one CPU float32 sample lay 1.86e-3 to 7.16e-3 from float64 on phase 3
+#: and the card 0.98-3.8x that sample (seed 4 failed), so the bound takes
+#: the largest of several samples. The float64 step of every draw runs on
+#: the card (a CPU float64 step takes 2-20 s a phase at these widths); on
+#: draw 0 of each phase it is held against the CPU's float64 step
 REFINE_F64_FACTOR, REFINE_F64_FLOOR = 3.0, 1e-5
+#: the card's float64 gradients against the CPU's (grad_share): an anchor
+#: off by this moves a distance from float64 by at most this, a tenth of
+#: REFINE_F64_FLOOR, the least bound a phase can have
+REFINE_F64_ANCHOR_TOL = 1e-6
+#: the perturbations held, draw 0 the one held before there were several.
+#: Three, the fewest that the largest of several takes: each further draw
+#: adds to each refinement hold (7d, 12c) four CPU float32 steps of 0.2-4 s
+#: (a CPU reading at 16³ and 128³ inputs), and 7d's hold may grow by 60 s
+REFINE_HOLD_DRAWS = 3
 
 
 def refinement_config(root, retrieval_ckpt) -> dict:
@@ -705,20 +891,26 @@ def tf32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def hold_refine_steps(cfg: dict, dev, seed: int) -> dict:
+def hold_refine_steps(cfg: dict, dev, seed: int, draws: int = REFINE_HOLD_DRAWS) -> dict:
     """One step of each phase of the refinement trainer on the card
     against the same step on the CPU, at batch 1, float32, TF32 off: the
     same seeded weights (the decoder's output bias at
-    REFINE_HOLD_DECODER_BIAS), the first train item perturbed
-    (perturb_batch), the same Gumbel uniform draw. The one-hot selections
-    of phase 3 agree; each loss within 1e-5 relative; the gradients of the
-    phase's trainable sub-networks no further from the CPU's float64
-    gradients of the step than REFINE_F64_FACTOR times the CPU's float32
-    ones, plus REFINE_F64_FLOOR (grad_share), and the card's step with TF32
-    on lies outside that bound (the hold can tell TF32). Also reads the
-    card-vs-CPU phase-3 loss on the unperturbed item (not held). Returns the readings
-    and, under "init", the seeded weights before the gate was opened (those
-    a trainer of `cfg` starts from)."""
+    REFINE_HOLD_DECODER_BIAS), the same Gumbel uniform draw, on `draws`
+    perturbations of the first train item (perturb_batch, from a generator
+    seeded with `seed`; draw 0 first, then the Gumbel draw, then the
+    others). On every draw the one-hot selections of phase 3 agree (where
+    the attention selects by Gumbel noise) and each loss lies within 1e-5
+    relative of the CPU's. The bound of a phase is
+    REFINE_F64_FACTOR times the largest distance of the CPU's float32
+    gradients from the float64 ones over the draws, plus REFINE_F64_FLOOR
+    (grad_share over the phase's trainable sub-networks; float64 on the
+    card, held on draw 0 within REFINE_F64_ANCHOR_TOL of the CPU's float64);
+    on every draw the card's float32 gradients lie inside it and the card's
+    with TF32 on outside it. Also reads the card-vs-CPU phase-3 loss
+    on the unperturbed item (not held). Returns the readings (each phase's
+    largest distances over the draws, TF32's smallest, and the draws') and,
+    under "init", the seeded weights before the gate was opened (those a
+    trainer of `cfg` starts from)."""
     import torch
     from retrieval_fuse_tpu_torch.train.refinement_trainer import RefinementTrainer
     cfg1 = dict(cfg, batch_size=1)
@@ -729,43 +921,158 @@ def hold_refine_steps(cfg: dict, dev, seed: int) -> dict:
         open_occupancy_gate(tr)
     rng = np.random.default_rng(seed)
     raw = first_batches(card.train_dataset, 1, 1)[0]
-    held = perturb_batch(raw, rng, REFINE_HOLD_NOISE)
+    held = [perturb_batch(raw, rng, REFINE_HOLD_NOISE)]
     rows = card.patched_attention_block.num_patch_x ** 3
     u = torch.from_numpy(rng.uniform(1e-20, 1.0, (rows, card.K)).astype(np.float32))
-    out = {"phases": {}, "init": init}
-    sel_card, gap = gumbel_selection(card, card._device_batch(held), u)
-    sel_cpu, gap_cpu = gumbel_selection(cpu, cpu._device_batch(held), u)
-    agree = float((sel_card == sel_cpu).float().mean())
-    check(agree == 1.0, f"refine hold: the phase-3 selections agree on {agree:.5f} of patches")
-    out.update(selection_min_gap=min(gap, gap_cpu), patches=rows)
+    held += [perturb_batch(raw, rng, REFINE_HOLD_NOISE) for _ in range(draws - 1)]
+    out = {"phases": {}, "init": init, "draws": draws, "patches": rows,
+           "selection_min_gap": None}
+    if card.patched_attention_block.attention_blocks_layer.retrieval_mode:
+        gaps = []  # the Gumbel hard selection; soft selection draws none
+        for r, batch in enumerate(held):
+            sel_card, gap = gumbel_selection(card, card._device_batch(batch), u)
+            sel_cpu, gap_cpu = gumbel_selection(cpu, cpu._device_batch(batch), u)
+            agree = float((sel_card == sel_cpu).float().mean())
+            check(agree == 1.0, f"refine hold draw {r}: the phase-3 selections agree on "
+                                f"{agree:.5f} of patches")
+            gaps.append(min(gap, gap_cpu))
+        out["selection_min_gap"] = min(gaps)
     for phase in (3, 0, 1, 2):
-        got = step_gradients(card, phase, card._device_batch(held), u.to(dev))
-        with tf32():
-            got_tf32 = step_gradients(card, phase, card._device_batch(held), u.to(dev))
-        want = step_gradients(cpu, phase, cpu._device_batch(held), u)
-        ref = step_gradients(cpu, phase, cpu._device_batch(held), u, float64=True)[2]
-        loss, loss_cpu = float(got[0]), float(want[0])
-        check(np.isfinite(loss) and loss_cpu > 0 and abs(loss - loss_cpu) <= 1e-5 * loss_cpu,
-              f"refine hold phase {phase}: loss {loss} on the card, {loss_cpu} on the CPU")
-        card64, where = grad_share(got[2], ref)
-        cpu64, _ = grad_share(want[2], ref)
-        tf32_64, tf32_where = grad_share(got_tf32[2], ref)
-        cross, _ = grad_share(got[2], want[2])
-        bound_ = REFINE_F64_FACTOR * cpu64 + REFINE_F64_FLOOR
-        check(card64 <= bound_,
-              f"refine hold phase {phase}: the card's gradients lie {card64:.2e} from float64 "
-              f"(worst {where}), the CPU's {cpu64:.2e} (bound {bound_:.2e})")
-        check(tf32_64 > bound_,
-              f"refine hold phase {phase}: the card's gradients with TF32 on lie {tf32_64:.2e} "
-              f"from float64, inside the bound {bound_:.2e}: the hold cannot tell TF32")
-        out["phases"][phase] = dict(loss=loss, loss_cpu=loss_cpu, card_f64=card64,
-                                    cpu_f64=cpu64, card_cpu=cross, bound=bound_, worst=where,
-                                    tf32_f64=tf32_64, tf32_worst=tf32_where)
+        reads = []
+        for r, batch in enumerate(held):
+            on_card = card._device_batch(batch)
+            got = step_gradients(card, phase, on_card, u.to(dev))
+            with tf32():
+                got_tf32 = step_gradients(card, phase, on_card, u.to(dev))
+            ref = step_gradients(card, phase, on_card, u.to(dev), float64=True)[2]
+            want = step_gradients(cpu, phase, cpu._device_batch(batch), u)
+            loss, loss_cpu = float(got[0]), float(want[0])
+            check(np.isfinite(loss) and loss_cpu > 0 and abs(loss - loss_cpu) <= 1e-5 * loss_cpu,
+                  f"refine hold phase {phase} draw {r}: loss {loss} on the card, {loss_cpu} "
+                  f"on the CPU")
+            (card64, where), (cpu64, _) = grad_share(got[2], ref), grad_share(want[2], ref)
+            tf32_64, tf32_where = grad_share(got_tf32[2], ref)
+            reads.append(dict(loss=loss, loss_cpu=loss_cpu, card_f64=card64, cpu_f64=cpu64,
+                              card_cpu=grad_share(got[2], want[2])[0], worst=where,
+                              tf32_f64=tf32_64, tf32_worst=tf32_where))
+            if r == 0:  # the card's float64 anchor against the CPU's
+                ref_cpu = step_gradients(cpu, phase, cpu._device_batch(batch), u,
+                                         float64=True)[2]
+                anchor, anchor_where = grad_share(ref, ref_cpu)
+                check(anchor <= REFINE_F64_ANCHOR_TOL,
+                      f"refine hold phase {phase}: the card's float64 gradients lie "
+                      f"{anchor:.2e} from the CPU's (worst {anchor_where}), beyond "
+                      f"{REFINE_F64_ANCHOR_TOL:g}")
+                reads[-1]["f64_card_cpu"] = anchor
+        bound_ = REFINE_F64_FACTOR * max(d["cpu_f64"] for d in reads) + REFINE_F64_FLOOR
+        for r, d in enumerate(reads):
+            check(d["card_f64"] <= bound_,
+                  f"refine hold phase {phase} draw {r}: the card's gradients lie "
+                  f"{d['card_f64']:.2e} from float64 (worst {d['worst']}), the CPU's "
+                  f"{d['cpu_f64']:.2e} (bound {bound_:.2e})")
+            check(d["tf32_f64"] > bound_,
+                  f"refine hold phase {phase} draw {r}: the card's gradients with TF32 on lie "
+                  f"{d['tf32_f64']:.2e} from float64, inside the bound {bound_:.2e}: the hold "
+                  "cannot tell TF32")
+        worst = max(reads, key=lambda d: d["card_f64"])
+        tf32_near = min(reads, key=lambda d: d["tf32_f64"])
+        out["phases"][phase] = dict(
+            loss=reads[0]["loss"], loss_cpu=reads[0]["loss_cpu"], bound=bound_,
+            card_f64=worst["card_f64"], worst=worst["worst"],
+            cpu_f64=max(d["cpu_f64"] for d in reads),
+            card_cpu=max(d["card_cpu"] for d in reads), tf32_f64=tf32_near["tf32_f64"],
+            tf32_worst=tf32_near["tf32_worst"], f64_card_cpu=reads[0]["f64_card_cpu"],
+            draws=reads)
     with torch.no_grad():
         plain = [float(tr._phase_loss(3, tr.augment_batch_data(tr._device_batch(raw)),
                                       u.to(tr.device))[0]) for tr in (card, cpu)]
     out["unperturbed_phase3_loss"] = plain
     return out
+
+
+def retrieval_step_gradients(trainer, batch: dict, dtype) -> tuple[float, dict]:
+    """(loss, {encoder: {key: gradient}}) of the retrieval trainer's
+    train-mode loss on a device batch, the gradients its train step takes
+    before the Adam update, on copies of the encoders in `dtype` (the
+    trainer's weights and BatchNorm statistics stay as they were)."""
+    nets = {name: copy.deepcopy(net).to(dtype).train()
+            for name, net in trainer.encoders.items()}
+    saved = trainer.fenc_input, trainer.fenc_target
+    trainer.fenc_input, trainer.fenc_target = nets["fenc_input"], nets["fenc_target"]
+    try:
+        total, _ = trainer._loss_fn({k: v.to(dtype) if v.is_floating_point() else v
+                                     for k, v in batch.items()}, train=True)
+        total.backward()
+    finally:
+        trainer.fenc_input, trainer.fenc_target = saved
+    grads = {name: {key: p.grad.detach() for key, p in net.named_parameters()}
+             for name, net in nets.items()}
+    return float(total.detach()), grads
+
+
+def hold_task_train_step(cfg: dict, dev, draws: int = REFINE_HOLD_DRAWS) -> dict:
+    """The retrieval trainer's step-1 gradients on the card under the rule
+    of hold_refine_steps, on each of the first `draws` batches of cfg's
+    epoch-0 order (the same seeded weights, float32, TF32 off): each loss
+    within 1e-5 relative of the CPU's; the bound REFINE_F64_FACTOR times the
+    largest distance of the CPU's float32 gradients from the CPU's float64
+    ones over the draws, plus REFINE_F64_FLOOR (grad_share over both
+    encoders); on every draw the card's float32 gradients inside it and the
+    card's with TF32 on outside it. Returns the readings (largest distances
+    over the draws, TF32's smallest, and the draws')."""
+    import torch
+    from retrieval_fuse_tpu_torch.train.retrieval_trainer import RetrievalTrainer
+    card, cpu = RetrievalTrainer(cfg, device=dev), RetrievalTrainer(cfg, device="cpu")
+    reads = []
+    for r, batch in enumerate(first_batches(cpu.train_dataset, cpu.batch_size, draws)):
+        on_card, on_cpu = card._device_batch(batch), cpu._device_batch(batch)
+        loss, got = retrieval_step_gradients(card, on_card, torch.float32)
+        with tf32():
+            got_tf32 = retrieval_step_gradients(card, on_card, torch.float32)[1]
+        loss_cpu, want = retrieval_step_gradients(cpu, on_cpu, torch.float32)
+        ref = retrieval_step_gradients(cpu, on_cpu, torch.float64)[1]
+        check(np.isfinite(loss) and abs(loss - loss_cpu) <= 1e-5 * abs(loss_cpu),
+              f"retrieval hold draw {r}: loss {loss} on the card, {loss_cpu} on the CPU")
+        (card64, where), (cpu64, _) = grad_share(got, ref), grad_share(want, ref)
+        reads.append(dict(loss=loss, loss_cpu=loss_cpu, card_f64=card64, cpu_f64=cpu64,
+                          worst=where, tf32_f64=grad_share(got_tf32, ref)[0]))
+    bound_ = REFINE_F64_FACTOR * max(d["cpu_f64"] for d in reads) + REFINE_F64_FLOOR
+    for r, d in enumerate(reads):
+        check(d["card_f64"] <= bound_,
+              f"retrieval hold draw {r}: the card's gradients lie {d['card_f64']:.2e} from "
+              f"float64 (worst {d['worst']}), the CPU's {d['cpu_f64']:.2e} (bound {bound_:.2e})")
+        check(d["tf32_f64"] > bound_,
+              f"retrieval hold draw {r}: the card's gradients with TF32 on lie "
+              f"{d['tf32_f64']:.2e} from float64, inside the bound {bound_:.2e}: the hold "
+              "cannot tell TF32")
+    return dict(bound=bound_, card_f64=max(d["card_f64"] for d in reads),
+                cpu_f64=max(d["cpu_f64"] for d in reads),
+                tf32_f64=min(d["tf32_f64"] for d in reads), draws=reads)
+
+
+def log_refine_hold(hold: dict, label: str, card: str) -> None:
+    """Print a refinement hold's readings (hold_refine_steps)."""
+    gap = hold["selection_min_gap"]
+    log(f"{label} card vs CPU (batch 1, float32, TF32 off, {hold['draws']} perturbations of "
+        f"the first train item by N(0, {REFINE_HOLD_NOISE})): " + (
+            "soft selection" if gap is None else
+            f"phase-3 Gumbel selections agree on all {hold['patches']} patches of every draw, "
+            f"smallest top-two gap of the perturbed scores {gap:.3e}") + "; float64 on the "
+        f"card, within {max(r['f64_card_cpu'] for r in hold['phases'].values()):.1e} of the "
+        f"CPU's on draw 0 (<= {REFINE_F64_ANCHOR_TOL:g})")
+    for phase, rec in sorted(hold["phases"].items()):
+        log(f"  phase {phase}: loss {rec['loss']:.6f} (CPU {rec['loss_cpu']:.6f}, within 1e-5 "
+            f"relative on every draw); gradients from float64, as a share of their "
+            f"sub-network's largest, by draw: card "
+            f"{[float(f'{d['card_f64']:.2e}') for d in rec['draws']]} (bound "
+            f"{rec['bound']:.2e}; worst {rec['worst']}), CPU float32 "
+            f"{[float(f'{d['cpu_f64']:.2e}') for d in rec['draws']]}; card vs CPU "
+            f"{rec['card_cpu']:.2e}; card with TF32 on "
+            f"{[float(f'{d['tf32_f64']:.2e}') for d in rec['draws']]} (nearest "
+            f"{rec['tf32_f64'] / rec['bound']:.1f}x the bound) [{card}]")
+    a, b = hold["unperturbed_phase3_loss"]
+    log(f"  unperturbed item (constant 16³ patches), not held: phase-3 loss {a:.6f} on the "
+        f"card, {b:.6f} on the CPU ({abs(a - b) / abs(b):.1e} relative)")
 
 
 def device_busy(fn) -> tuple[float, float]:
@@ -785,16 +1092,17 @@ def device_busy(fn) -> tuple[float, float]:
     return busy / 1e3, wall
 
 
-def patch_occupancy(df64, voxel_size: float):
+def patch_occupancy(df64, voxel_size: float, context: int = 8):
     """(n,) the number of dictionary rows each 64³ target chunk gives: its
-    16+8 patches (32³ windows at stride 16 on the chunk padded by 8) that
-    hold a voxel at or below 1.5 voxel sizes, the occupancy rule of
-    SceneHandler on the float16 scene. The padding is above the threshold."""
+    16+`context` patches (windows of 16 + 2 context at stride 16 on the
+    chunk padded by `context`) that hold a voxel at or below 1.5 voxel
+    sizes, the occupancy rule of SceneHandler on the float16 scene. The
+    padding is above the threshold."""
     import torch
     thr = float(np.float32(1.5) * np.float32(np.float16(voxel_size)))
     occ = df64.half().float() <= thr
     counts = torch.zeros(df64.shape[0], dtype=torch.int64, device=df64.device)
-    spans = [(max(s - 8, 0), s + 24) for s in (0, 16, 32, 48)]
+    spans = [(max(s - context, 0), s + 16 + context) for s in (0, 16, 32, 48)]
     for x0, x1 in spans:
         for y0, y1 in spans:
             for z0, z1 in spans:
@@ -830,6 +1138,64 @@ def write_retrieval_dataset(root, rng, min_rows: int, n_val: int, device) -> dic
         if n_train is None and rows >= min_rows:
             n_train = len(names)
     write_splits(root, "SynthSet", "main", names[:n_train], names[n_train:])
+    return {"train": names[:n_train], "val": names[n_train:], "rows": rows}
+
+
+#: phase 12: the point-cloud inputs' points a chunk (the pc_20K layout:
+#: SceneHandler doubles a cloud of fewer), and the size of the pool of point
+#: subsets its voxeliser draws from (random_indices/<num_points>.npz)
+TASK_CLOUD_POINTS = 20000
+TASK_INDEX_POOL = 1024
+
+
+def write_task_dataset(task: str, root, rng, min_rows: int, n_val: int, device,
+                       per_draw: int = 64) -> dict:
+    """A synthetic dataset of phase 12's `task` under `root`, in the layout
+    of the task's config (task_retrieval_config): 64³ targets (sdf_064) of
+    random spheres and boxes and, of the same primitives, 16³ distance
+    fields (sdf_016, "superres16") or TASK_CLOUD_POINTS near-surface points
+    (pc_20K, "surface"), made on the device: train chunks, per_draw at a time,
+    until their patches give at least `min_rows` dictionary rows (every
+    patch for "superres16", whose config skips the occupancy rule), then
+    n_val val chunks. Chunks are named `synth__<i>__0_0_0` (the 3DFront
+    and Matterport3D chunk naming). For "surface", also the voxeliser's
+    pool of point subsets, TASK_INDEX_POOL draws from `rng`."""
+    from retrieval_fuse_tpu_torch.data.synthetic import write_splits
+    root = Path(root)
+    data = TASK_DATA[task]
+    name, vs_in, vs_tgt = data["dataset_name"], data["voxel_size_input"], \
+        data["voxel_size_target"]
+    for sub in (data["input_dir"], "sdf_064"):
+        (root / sub / name).mkdir(parents=True, exist_ok=True)
+    names, rows, n_train = [], 0, None
+    while n_train is None or len(names) < n_train + n_val:
+        n = per_draw if n_train is None else n_train + n_val - len(names)
+        prims = draw_primitives(rng, n, device)
+        tgt = primitives_df(prims, 64, vs_tgt)
+        if n_train is None:
+            rows += int(patch_occupancy(tgt, vs_tgt, 4).sum()) if task == "surface" \
+                else 64 * n
+        if task == "surface":
+            inp = primitives_points(prims, rng, TASK_CLOUD_POINTS, 64).cpu().numpy()
+        else:
+            inp = primitives_df(prims, 16, vs_in).cpu().numpy()
+        tgt = tgt.cpu().numpy()
+        for i in range(n):
+            chunk = f"synth__{len(names):04d}__0_0_0"
+            np.savez(root / "sdf_064" / name / f"{chunk}.npz", arr=tgt[i])
+            if task == "surface":
+                np.savez(root / data["input_dir"] / name / f"{chunk}.npz", inp[i])
+            else:
+                np.savez(root / data["input_dir"] / name / f"{chunk}.npz", arr=inp[i])
+            names.append(chunk)
+        if n_train is None and rows >= min_rows:
+            n_train = len(names)
+    write_splits(root, name, "main", names[:n_train], names[n_train:])
+    if task == "surface":
+        pool = np.stack([rng.choice(TASK_CLOUD_POINTS, data["num_points"], replace=False)
+                         for _ in range(TASK_INDEX_POOL)]).astype(np.int32)
+        (root / "random_indices").mkdir(exist_ok=True)
+        np.savez_compressed(root / "random_indices" / f"{data['num_points']}.npz", arr=pool)
     return {"train": names[:n_train], "val": names[n_train:], "rows": rows}
 
 
@@ -1091,13 +1457,18 @@ class Subset:
         return self.dataset[int(self.idx[i])]
 
 
-def check_mapping(cfg: dict, tree, mapping: dict, dataset, rng, n_sample: int, device) -> int:
+def check_mapping(cfg: dict, tree, mapping: dict, dataset, rng, n_sample: int, device,
+                  replay_seed: int | None = None) -> int:
     """The retrieval mapping of `n_sample` random train queries against a
     dense float32 search over database.npy (matmul, top 2K, same-scene
     demotion): the K rows (scene and extent) equal and the distances within
     1e-5, on the queries whose top 2K+1 distances are more than 1e-5 apart.
     Returns the number of the others (near-ties, where float32 sums in
-    another order may rank otherwise)."""
+    another order may rank otherwise). With `replay_seed` (point-cloud
+    inputs, whose voxeliser draws a point subset from Python's `random` for
+    every item): the first n_sample train queries, drawn as `map` drew them
+    after random.seed(replay_seed), its dictionary's pass over the train
+    items first."""
     import torch
     from retrieval_fuse_tpu_torch.ops.knn import demote_same_scene
     from retrieval_fuse_tpu_torch.retrieval.cli import load_encoders_from_checkpoint
@@ -1106,7 +1477,15 @@ def check_mapping(cfg: dict, tree, mapping: dict, dataset, rng, n_sample: int, d
     database = np.load(Path(tree) / "database.npy")
     scene_id = {s: i for i, s in enumerate(json.loads((Path(tree) / "index.json").read_text()))}
     encode_in = load_encoders_from_checkpoint(cfg, device)[0]
-    sub = Subset(dataset, rng.choice(len(dataset), n_sample, replace=False))
+    if replay_seed is None:
+        sub = Subset(dataset, rng.choice(len(dataset), n_sample, replace=False))
+    else:
+        import random
+        random.seed(replay_seed)
+        pool = dataset.scene_handler.random_indices_list.shape[0]
+        for _ in range(len(dataset)):  # the dictionary's draws
+            random.randint(0, pool - 1)
+        sub = Subset(dataset, np.arange(n_sample))
     names, feats = extract_input_features(encode_in, cfg["query"], latent, sub)
     with torch.inference_mode():
         db = torch.from_numpy(np.ascontiguousarray(database[:, 7:])).to(device)
@@ -1394,8 +1773,11 @@ def run_phase9(dev, rng, seed: int, kernels: dict, counters: dict, drive, card: 
 def timed_attrs(module, names, into: dict):
     """Within the block, each function `names` of `module` adds its seconds
     to into[name] (the module attribute is swapped, so callers that look
-    it up at call time are timed)."""
+    it up at call time are timed; calls on several threads add up their
+    seconds)."""
+    import threading
     saved = {name: getattr(module, name) for name in names}
+    lock = threading.Lock()
 
     def timed(name, fn):
         def call(*a, **kw):
@@ -1403,7 +1785,8 @@ def timed_attrs(module, names, into: dict):
             try:
                 return fn(*a, **kw)
             finally:
-                into[name] = into.get(name, 0.0) + time.perf_counter() - t0
+                with lock:
+                    into[name] = into.get(name, 0.0) + time.perf_counter() - t0
         return call
 
     for name, fn in saved.items():
@@ -1960,6 +2343,478 @@ def run_phase11(root: Path, dev, seed: int, cfg: dict, params: dict, db: np.ndar
     return out
 
 
+#: phase 12, the other tasks' training and retrieval pipeline at full width:
+#: its tasks (task_retrieval_config), the dictionary rows their train chunks
+#: reach (the streaming kNN's row crossover, ops/knn's
+#: PALLAS_KNN_MIN_ROWS_BATCHED) and their val chunks
+TASKS12 = ("surface", "superres16")
+TASK_MIN_ROWS = 16384
+TASK_VAL_CHUNKS = 16
+#: 12a: the retrieval steps through fit at the config's batch, and the
+#: batch of the step held against the CPU (~1 s a CPU step of 32 at 48³
+#: windows, a CPU reading)
+TASK_FIT_STEPS = 3
+TASK_HOLD_BATCH = 32
+#: 12c: the curriculum's steps a phase (two epochs of half); 12d: the
+#: validation's batches a split
+TASK_REFINE_STEPS = 2
+TASK_VAL_BATCHES = 2
+#: 12e: the paths served from the artifacts, `base` first
+TASK_SERVE_VARIANTS = ("base", "fused+pallasg2+topk1p", "fused+pallasg2+topk1p+cdec",
+                       "fused+pallasp+topk1p", "fused+pallasg+topk1p")
+
+
+def run_phase12(dev, seed: int, counters: dict, drive, card: str) -> tuple[dict, dict]:
+    """Phase 12: run_task12 on each of TASKS12, in a working directory of
+    its own, on data drawn from a generator of its own. Returns (the
+    records by task, the launches of the phase)."""
+    results, launches12 = {}, {name: 0 for name in counters}
+    for i, task in enumerate(TASKS12):
+        t0, cwd = time.perf_counter(), os.getcwd()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                results[task] = run_task12(task, Path(tmp), dev, np.random.default_rng([seed, 12, i]),
+                                           seed + i, counters, drive, card, launches12)
+            finally:
+                os.chdir(cwd)
+        results[task]["phase_s"] = time.perf_counter() - t0
+        log(f"phase 12 {task}: {results[task]['phase_s']:.1f} s; sub-phases (s) "
+            f"{ {k: round(v, 1) for k, v in results[task]['seconds'].items()} } [{card}]")
+    return results, launches12
+
+
+def run_task12(task: str, root: Path, dev, rng, seed: int, counters: dict, drive, card: str,
+               launches: dict) -> dict:
+    """Phase 12 on one task's configs at their YAML widths and batches
+    (task_retrieval_config, task_refinement_config), in the working
+    directory `root`, on write_task_dataset's data (TASK_MIN_ROWS
+    dictionary rows, TASK_VAL_CHUNKS val chunks):
+    12a, the retrieval trainer: step 1 at TASK_HOLD_BATCH held against the
+    CPU's float64 (hold_task_train_step), TASK_FIT_STEPS steps through fit at the config's
+    batch (steps/s; its checkpoint), a step on a resident batch (ms, idle
+    share) and the peak memory; 12b, retrieval/cli.py's map, compose and
+    evaluate on that checkpoint (s a mode; map's launches of the kNN
+    kernels; the mapping against a dense search, check_mapping; the metrics
+    against the plain chamfer's, 1e-6 relative); 12c, the refinement
+    trainer on 12b's composed retrievals: each phase's step held against the
+    CPU (hold_refine_steps), the curriculum through train_refinement_phases
+    (two epochs of TASK_REFINE_STEPS / 2 steps a phase; steps/s of each
+    second epoch; phase 2's losses > 0; each phase changed exactly its
+    sub-networks), a phase-3 step on a resident batch (ms, idle share), the
+    peak memory; 12d, its validation through the chamfer kernel against the
+    plain chamfer (1e-6 relative); 12e, serving the val chunks from the
+    artifacts (serve.build_engine_from_artifacts) with TASK_SERVE_VARIANTS
+    in bf16 and float32, each against `base` in its dtype (MAE < 1e-3 and
+    1e-5, in df units at the flagship's truncation scaled to the task's
+    for the 16³ task, as phase 9 holds it), the share of rows whose
+    attention switch is open, and serve.main in bf16 against the engine.
+    Every path runs through `drive`, its launches into `launches`."""
+    import random
+
+    import torch
+    import yaml
+    from retrieval_fuse_tpu_torch import serve
+    from retrieval_fuse_tpu_torch.data import PatchedSceneDataset, SceneHandler, batch_iterator
+    from retrieval_fuse_tpu_torch.evaluation import metrics as metrics_mod
+    from retrieval_fuse_tpu_torch.inference import FAST_VARIANT
+    from retrieval_fuse_tpu_torch.ops import patch_attention as pa
+    from retrieval_fuse_tpu_torch.ops.chamfer import chamfer_batch_plain
+    from retrieval_fuse_tpu_torch.ops.knn import use_streaming_knn
+    from retrieval_fuse_tpu_torch.retrieval.cli import retrievals_to_disk
+    from retrieval_fuse_tpu_torch.retrieval.engine import query_batch_size
+    from retrieval_fuse_tpu_torch.train.checkpoint import load_checkpoint
+    from retrieval_fuse_tpu_torch.train.refinement_trainer import train_refinement_phases
+    from retrieval_fuse_tpu_torch.train.retrieval_trainer import (
+        RetrievalTrainer, get_metrics_for_retrieval)
+    from retrieval_fuse_tpu_torch.utils.misc import get_retrievals_dir, get_tree_path
+    rec = {"seconds": {}}
+    secs = rec["seconds"]
+    counts_now = lambda: {name: c.launches for name, c in counters.items()}  # noqa: E731
+    t0 = time.perf_counter()
+    made = write_task_dataset(task, root / "data", rng, TASK_MIN_ROWS, TASK_VAL_CHUNKS, dev)
+    secs["data"] = time.perf_counter() - t0
+    log(f"12 {task}: {len(made['train'])} train chunks ({made['rows']} dictionary rows) and "
+        f"{len(made['val'])} val chunks made and written in {secs['data']:.1f} s")
+
+    # 12a) the retrieval trainer at the config's batch
+    t0 = time.perf_counter()
+    tcfg = dict(task_retrieval_config(task, root / "data", ""), seed=seed,
+                experiment=f"p12_{task}")
+    hcfg = copy.deepcopy(tcfg)
+    hcfg["retrieval_training"]["batch_size"] = TASK_HOLD_BATCH
+    before = counts_now()
+    hold = hold_task_train_step(hcfg, dev)
+    check(counts_now() == before, f"12a {task}: the held train step launched a kernel")
+    secs["12a_hold"] = time.perf_counter() - t0
+    log(f"12a {task} train step 1 at batch {TASK_HOLD_BATCH} on the card against the CPU "
+        f"(float32, TF32 off, {len(hold['draws'])} batches): losses within 1e-5 relative; "
+        f"gradients from the CPU's float64, as a share of their encoder's largest, by batch: "
+        f"card {[float(f'{d['card_f64']:.2e}') for d in hold['draws']]} (bound "
+        f"{hold['bound']:.2e}), CPU float32 "
+        f"{[float(f'{d['cpu_f64']:.2e}') for d in hold['draws']]}, card with TF32 on "
+        f"{[float(f'{d['tf32_f64']:.2e}') for d in hold['draws']]} [{card}]")
+    t0 = time.perf_counter()
+    trainer = RetrievalTrainer(tcfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_fit = time.perf_counter()
+    _, counts = drive(f"12a {task} fit", (), lambda: trainer.fit(
+        1, val_check_interval=100, run_retrieval_validation=False,
+        max_steps_per_epoch=TASK_FIT_STEPS), launches)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    ckpt = (Path("runs") / tcfg["experiment"] / "ckpt_epoch=0").resolve()
+    check(trainer.global_step == TASK_FIT_STEPS and not counts and (ckpt / "params.pt").exists(),
+          f"12a {task} fit: {trainer.global_step} steps, launches {counts}, checkpoint {ckpt}")
+    resident = trainer._device_batch(first_batches(trainer.train_dataset, trainer.batch_size,
+                                                   1)[0])
+    step = lambda: trainer._train_step(resident, trainer.current_learning_rate)  # noqa: E731
+    busy, wall = device_busy(step)
+    rec["retrieval_training"] = dict(
+        batch=trainer.batch_size, hold_batch=TASK_HOLD_BATCH, hold=hold,
+        fit_steps=TASK_FIT_STEPS, fit_s=fit_s,
+        steps_per_s=TASK_FIT_STEPS / fit_s, step_ms=wall, step_kernel_ms=busy,
+        idle=1 - busy / wall,
+        peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30, train_patches=len(trainer.train_dataset))
+    r = rec["retrieval_training"]
+    log(f"12a {task} retrieval training: {TASK_FIT_STEPS} steps of batch {r['batch']} through fit "
+        f"in {fit_s:.2f} s = {r['steps_per_s']:.2f} steps/s (loader, first-step set-up and "
+        f"checkpoint included); a step on a resident batch {wall:.1f} ms (traced, "
+        f"synchronised), {busy:.1f} ms of it kernels, idle {r['idle']:.1%}; peak memory "
+        f"{r['peak_gb']:.2f} GiB [{card}]")
+    del trainer, resident
+    secs["12a"] = time.perf_counter() - t0
+
+    # 12b) map, compose and evaluate with the trained checkpoint
+    rcfg = task_retrieval_config(task, root / "data", ckpt)
+    outs, rec["pipeline"] = {}, {}
+    random.seed(seed)  # the surface inputs' point subsets, replayed by check_mapping
+    for mode, needed in (("map", ("knn", "topk")), ("compose", ()),
+                         ("evaluate", ("chamfer",))):
+        t0 = time.perf_counter()
+        outs[mode], counts = drive(f"12b {task} {mode}", needed,
+                                   lambda: retrievals_to_disk(mode, rcfg, device=dev), launches)
+        secs[f"12b_{mode}"] = time.perf_counter() - t0
+        rec["pipeline"][f"{mode}_s"] = secs[f"12b_{mode}"]
+        rec["pipeline"][f"{mode}_launches"] = counts
+        log(f"12b {task} {mode}: {secs[f'12b_{mode}']:.1f} s; launches {counts} [{card}]")
+    t0 = time.perf_counter()
+    tree, rdir = Path(get_tree_path(rcfg)), get_retrievals_dir(rcfg)
+    n_rows = np.load(tree / "database.npy", mmap_mode="r").shape[0]
+    maps = {split: np.load(rdir / f"map_{split}.npy", allow_pickle=True)[()]
+            for split in ("train", "val")}
+    q_batch = query_batch_size(n_rows)
+    streamed = sum(use_streaming_knn(n_rows, n_queries=min(q_batch, len(m) - s))
+                   for m in maps.values() for s in range(0, len(m), q_batch))
+    map_launches = rec["pipeline"]["map_launches"]
+    check(n_rows >= TASK_MIN_ROWS and streamed >= 1 and map_launches.get("knn") == streamed,
+          f"12b {task} map: {n_rows} rows, {map_launches} for {streamed} query batches at or "
+          "above the crossover")
+    ds_train = PatchedSceneDataset("train", rcfg["dataset_train"], SceneHandler("train", rcfg))
+    near = check_mapping(rcfg, tree, maps["train"], ds_train, rng, MAP_SAMPLE, dev,
+                         replay_seed=seed if task == "surface" else None)
+    rec["pipeline"].update(database_rows=n_rows, queries={k: len(m) for k, m in maps.items()},
+                           streamed_batches=streamed, map_near_ties=near,
+                           metrics=outs["evaluate"])
+    log(f"12b {task} map: {n_rows} database rows; {len(maps['train'])} train and "
+        f"{len(maps['val'])} val queries; the streaming kNN kernel (knn.cu, float32 rows) took "
+        f"{streamed} query batches of {q_batch} ({map_launches.get('knn', 0)} launches), the "
+        f"dense search + topk.cu the rest ({map_launches.get('topk', 0)} launches); "
+        f"{MAP_SAMPLE} {'first' if task == 'surface' else 'sampled'} train queries equal a "
+        f"dense float32 search ({near} near-ties excluded)")
+    ds_val = PatchedSceneDataset("val", rcfg["dataset_val"], SceneHandler("val", rcfg))
+    nn1 = np.stack([np.load(rdir / "compose" / f"{s}.npz")["arr_0"][:1] for s in ds_val.scenes])
+    chamfer_kernel = metrics_mod.chamfer_batch
+    try:
+        metrics_mod.chamfer_batch = chamfer_batch_plain
+        plain_metrics = get_metrics_for_retrieval(nn1, ds_val, device=dev)
+    finally:
+        metrics_mod.chamfer_batch = chamfer_kernel
+    for got, want in zip(outs["evaluate"], plain_metrics):
+        check(np.isfinite(got) and abs(got - want) <= 1e-6 * abs(want),
+              f"12b {task} evaluate: metrics {outs['evaluate']} against {plain_metrics} with "
+              "the plain chamfer")
+    log(f"12b {task} evaluate: [iou, chamfer, precision, recall] = {outs['evaluate']}, equal "
+        f"to the plain chamfer's within 1e-6 relative")
+    del ds_train, ds_val
+    secs["12b_checks"] = time.perf_counter() - t0
+
+    # 12c) the refinement trainer on 12b's composed retrievals
+    t0 = time.perf_counter()
+    fcfg = dict(task_refinement_config(task, root / "data", ckpt), seed=seed,
+                experiment=f"p12r_{task}")
+    before = counts_now()
+    hold = hold_refine_steps(fcfg, dev, seed + 12)
+    init = hold.pop("init")
+    check(counts_now() == before, f"12c {task}: the held refinement steps launched a kernel")
+    log_refine_hold(hold, f"12c {task} refine steps", card)
+    rec["refine_hold"] = hold
+    secs["12c_hold"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    half = TASK_REFINE_STEPS // 2
+    ccfg = dict(fcfg, phase_change_epochs=[2, 2, 2], max_epoch=2, save_epoch=2,
+                val_check_interval=100)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    refiner, counts = drive(f"12c {task} curriculum", (), lambda: train_refinement_phases(
+        ccfg, max_steps_per_epoch=half, device=dev), launches)
+    check(not counts, f"12c {task}: the curriculum launched kernels: {counts}")
+    run_dir = Path("runs") / ccfg["experiment"]
+    recs = [r_ for r_ in map(json.loads, (run_dir / "metrics.jsonl").read_text().splitlines())
+            if "train/total_loss" in r_]
+    check([(r_["phase"], r_["epoch"]) for r_ in recs]
+          == [(ph, e) for ph in range(4) for e in range(2)],
+          f"12c {task} curriculum: train records {[(r_['phase'], r_['epoch']) for r_ in recs]}")
+    rec["curriculum"] = {"batch": refiner.batch_size, "steps_per_epoch": half}
+    for ph in range(4):
+        r0, r1 = recs[2 * ph], recs[2 * ph + 1]
+        losses = [r0["train/total_loss"], r1["train/total_loss"]]
+        check(all(np.isfinite(losses)) and (ph != 2 or min(losses) > 0),
+              f"12c {task} phase {ph}: losses {losses}" + (
+                  " (a zero phase-2 loss: the contrastive gate is shut)" if ph == 2 else ""))
+        dt_ = r1["_time"] - r0["_time"]
+        rec["curriculum"][ph] = dict(epoch_s=dt_, steps_per_s=half / dt_, losses=losses)
+        log(f"12c {task} phase {ph} through fit: its second epoch, {half} steps of batch "
+            f"{refiner.batch_size}, {half / dt_:.2f} steps/s (loader included); loss "
+            f"{losses[0]:.4f} -> {losses[1]:.4f} [{card}]")
+    ends = {ph: load_checkpoint(run_dir / f"ckpt_epoch={2 * ph + 1}")["params"]
+            for ph in (1, 2, 3)}
+    for label, old, new_, want in (
+            ("phases 0-1", init, ends[1], {"unet_backbone", "decoder", "retrieval_backbone"}),
+            ("phase 2", ends[1], ends[2], {"patched_attention_block"}),
+            ("phase 3", ends[2], ends[3], set(init))):
+        moved = {n for n, sd in new_.items()
+                 if any(not torch.equal(v.cpu(), old[n][k].cpu()) for k, v in sd.items())}
+        check(moved == want, f"12c {task} curriculum: {label} changed {sorted(moved)}, not "
+                             f"{sorted(want)}")
+    fckpt = (run_dir / "ckpt_epoch=7").resolve()
+    batch = refiner._device_batch(next(iter(batch_iterator(
+        refiner.train_dataset, refiner.batch_size, shuffle=False, prefetch=0))))
+    refiner.set_phase(3)
+    step = lambda: refiner.train_step(batch, refiner.base_lr)  # noqa: E731
+    busy, wall = device_busy(step)
+    rec["curriculum"].update(step3_ms=wall, step3_kernel_ms=busy, idle3=1 - busy / wall,
+                             peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    c = rec["curriculum"]
+    log(f"12c {task} curriculum: phases 0-1 changed the backbone, the decoder and the "
+        f"retrieval backbone, phase 2 the attention alone, phase 3 all four; a phase-3 step of "
+        f"batch {refiner.batch_size} on a resident batch {wall:.1f} ms (traced, synchronised), "
+        f"{busy:.1f} ms of it kernels, idle {c['idle3']:.1%}; peak memory "
+        f"{c['peak_gb']:.2f} GiB [{card}]")
+    del batch
+    secs["12c_curriculum"] = time.perf_counter() - t0
+
+    # 12d) the refinement validation through the chamfer kernel, and through
+    # the plain chamfer
+    t0 = time.perf_counter()
+    random.seed(seed)  # the point subsets the surface inputs' voxeliser draws
+    got, counts = drive(f"12d {task} validation", ("chamfer",),
+                        lambda: refiner.validate(max_batches=TASK_VAL_BATCHES), launches)
+    check(set(counts) == {"chamfer"}, f"12d {task}: validation launched {counts}")
+    try:
+        metrics_mod.chamfer_batch = chamfer_batch_plain
+        random.seed(seed)
+        want = refiner.validate(max_batches=TASK_VAL_BATCHES)
+    finally:
+        metrics_mod.chamfer_batch = chamfer_kernel
+    for key, m in got.items():
+        for name in ("iou", "cd", "precision", "recall"):
+            a, b = m[name], want[key][name]
+            check(np.isfinite(a) and abs(a - b) <= 1e-6 * abs(b),
+                  f"12d {task} validation {key} {name}: {a} against {b} with the plain chamfer")
+    rec["validation"] = dict(metrics=got, launches=counts)
+    secs["12d"] = time.perf_counter() - t0
+    log(f"12d {task} validation (the first {TASK_VAL_BATCHES} batches of "
+        f"{len(refiner.val_dataset)} val and {len(refiner.dataset('train_eval'))} train_eval "
+        f"chunks): metrics equal the plain "
+        f"chamfer's within 1e-6 relative; val_fuse {got['val_fuse']}; launches {counts}; "
+        f"{secs['12d']:.1f} s [{card}]")
+    del refiner
+
+    # 12e) serving from the artifacts: the dictionary, 12a's and 12c's
+    # checkpoints; the val chunks' inputs as the engines take them
+    t0 = time.perf_counter()
+    scfg = dict(rcfg)
+    for key, value in fcfg.items():
+        if key not in ("seed", "experiment"):
+            scfg.setdefault(key, value)
+    vin = root / "serve_in"
+    vin.mkdir()
+    names = sorted(made["val"])
+    if task == "surface":
+        random.seed(seed)
+        handler = SceneHandler("val", fcfg)
+        xv = np.stack([handler.get_scene_input(n_) for n_ in names]).astype(np.float32)
+        for n_, grid in zip(names, xv):
+            np.savez_compressed(vin / f"{n_}.npz", arr=grid)
+    else:
+        src = root / "data" / TASK_DATA[task]["input_dir"] / TASK_DATA[task]["dataset_name"]
+        for n_ in names:
+            (vin / f"{n_}.npz").symlink_to(src / f"{n_}.npz")
+        xv = np.stack([np.load(vin / f"{n_}.npz")["arr"] for n_ in names]).astype(np.float32)
+    xv = xv[..., None]
+    engines = {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for v in TASK_SERVE_VARIANTS:
+            engines[v, tag] = serve.build_engine_from_artifacts(
+                scfg, ckpt, fckpt, compute_dtype=dtype, device=dev, variant=v,
+                verify_alignment=v == "base")
+    torch.cuda.synchronize()
+    secs["12e_build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trunc = engines["base", "f32"].target_trunc
+    flagship_trunc = float(np.float16(flagship_config()["dataset_train"]["voxel_size_target"] * 3))
+    scale = trunc / flagship_trunc if task == "superres16" else 1.0
+    base_out = {}
+    rec["serving"] = {}
+    for v in TASK_SERVE_VARIANTS:
+        got, counts = drive(f"12e {task} {v}", surface_kernels(v, len(xv)),
+                            lambda: {tag: engines[v, tag](xv) for tag in ("bf16", "f32")},
+                            launches)
+        base_out = base_out or got
+        r_ = {"launches": counts}
+        for tag, o in got.items():
+            check(o.shape == (len(xv), 64, 64, 64, 1) and torch.isfinite(o).all().item()
+                  and float(o.min()) >= -1e-3 * scale and float(o.max()) <= trunc + 1e-3 * scale,
+                  f"12e {task} {v} {tag}: TSDF out of shape or range")
+            r_[f"mae_vs_base_{tag}"] = float((o - base_out[tag]).abs().mean())
+            eng = engines[v, tag]
+            r_[f"engine_ms_{tag}"] = cuda_ms(lambda: eng(xv), 2)
+        check(r_["mae_vs_base_bf16"] < 1e-3 * scale,
+              f"12e {task} {v}: bf16 MAE vs bf16 base {r_['mae_vs_base_bf16']} >= {1e-3 * scale}")
+        check(r_["mae_vs_base_f32"] < 1e-5 * scale,
+              f"12e {task} {v}: f32 MAE vs f32 base {r_['mae_vs_base_f32']} >= {1e-5 * scale}")
+        rec["serving"][v] = r_
+        log(f"12e {task} {v} batch {len(xv)}: engine bf16 {r_['engine_ms_bf16']:.2f} ms, f32 "
+            f"{r_['engine_ms_f32']:.2f} ms; TSDF MAE vs base bf16 {r_['mae_vs_base_bf16']:.2e} "
+            f"(< {1e-3 * scale:.2e}), f32 {r_['mae_vs_base_f32']:.2e} (< {1e-5 * scale:.2e}); "
+            f"launches {counts} [{card}]")
+    eng = engines[FAST_VARIANT, "f32"]
+    with torch.inference_mode():
+        xb = torch.from_numpy(xv).to(dev)
+        xt = eng._tile_major_rows(eng.unet_backbone((xb - eng.in_mean) / eng.in_std))
+        att = eng.attention.attention_blocks_layer
+        out, _ = pa.gathered_patch_attention_plain(
+            xt, eng.feature_bank, eng.retrieve(xb), att.theta, att.phi, fcfg["K"],
+            retrieval_mode=eng.attn_retrieval_mode, sharpness=eng.sharpness)
+        rec["serving"]["switch_open"] = float((out != xt).any(dim=-1).float().mean())
+    check(rec["serving"]["switch_open"] >= 0.5,
+          f"12e {task}: the trained attention's switch is open on "
+          f"{rec['serving']['switch_open']:.1%} of the rows: the kernel paths compare x with x")
+    secs["12e_paths"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scfg_path = root / "serving.yaml"
+    scfg_path.write_text(yaml.safe_dump({k: v for k, v in scfg.items() if k != "retrieval_ckpt"}))
+    argv = ["--config", str(scfg_path), "--retrieval_ckpt", str(ckpt), "--refinement_ckpt",
+            str(fckpt), "--input", str(vin), "--output", str(root / "cli_bf16"), "--batch_size",
+            str(len(xv)), "--fast"]
+    done, counts = drive(f"12e {task} serve CLI", surface_kernels(FAST_VARIANT, len(xv)),
+                         lambda: serve.main(argv), launches)
+    files = np.stack([np.load(root / "cli_bf16" / f"{n_}_pred.npz")["arr"] for n_ in done])
+    with torch.inference_mode():
+        want = engines[FAST_VARIANT, "bf16"](xv)[..., 0].float().cpu().numpy()
+    err = float(np.abs(files.astype(np.float32) - want).max())
+    check(done == names and err <= 1e-3 * trunc,
+          f"12e {task} serve CLI: {len(done)} chunks, files differ by {err} from the engine")
+    del engines, base_out, got, xb, xt, out
+    secs["12e_cli"] = time.perf_counter() - t0
+    rec["serving"].update(cli_max_err=err, cli_s=secs["12e_cli"], chunks=len(xv))
+    log(f"12e {task}: the trained attention's switch open on "
+        f"{rec['serving']['switch_open']:.1%} of the val rows; serve.main --fast: "
+        f"{len(done)} chunks in {secs['12e_cli']:.1f} s (engine build included), files within "
+        f"{err:.1e} of the engine (float16 files); launches {counts} [{card}]")
+    return rec
+
+
+#: phase 13: the val chunks of the forward gate
+PARITY_CHUNKS = 2
+
+
+def run_phase13(root: Path, dev, rcfg: dict, fcfg: dict, ckpt, fckpt, card: str) -> dict:
+    """Phase 13, the real-data parity harness (retrieval_fuse_tpu_torch.
+    parity_real) run as its CLI on phase 7's artifacts, in phase 7's
+    working directory `root`: reference-layout checkpoints exported from 7a's
+    retrieval and 7d's refinement weights (utils/reference_import's
+    export_*), 7b's map_val.npy as the stand-in reference mapping (every
+    gate must pass: top-k identity 1.0, the forward within the 1e-3 MAE
+    budget) and a copy of it with one row's scene index changed (the top-k
+    gate must refuse it: a non-zero exit). The forward gate's reference is a
+    stand-in: the port's refinement forward on the CPU in float64 on the
+    imported weights (the reference implementation is not on this
+    machine)."""
+    import torch
+    import yaml
+    from retrieval_fuse_tpu_torch import parity_real
+    from retrieval_fuse_tpu_torch.train.checkpoint import load_checkpoint
+    from retrieval_fuse_tpu_torch.train.refinement_trainer import RefinementTrainer
+    from retrieval_fuse_tpu_torch.utils.misc import get_retrievals_dir
+    from retrieval_fuse_tpu_torch.utils import reference_import as ri
+    t13 = time.perf_counter()
+    work = root / "parity"
+    work.mkdir()
+    fsd = ri.export_refinement_state_dict(load_checkpoint(fckpt)["params"], fcfg["task"],
+                                          fcfg["attn_patch_extent"])
+    for name, sd in (("retrieval", ri.export_retrieval_state_dict(
+            load_checkpoint(ckpt)["params"])), ("refinement", fsd)):
+        torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in sd.items()}},
+                   work / f"{name}.ckpt")
+    for name, c in (("refinement", fcfg), ("retrieval", rcfg)):
+        (work / f"{name}.yaml").write_text(yaml.safe_dump(
+            {k: v for k, v in c.items() if k not in ("seed", "experiment")}))
+    stand_in = RefinementTrainer(dict(fcfg), device="cpu", deterministic_attention=True)
+    stand_in.load_params(ri.import_refinement_checkpoint(
+        fsd, fcfg["task"], fcfg["dataset_train"]["input_chunk_size"], fcfg["attn_patch_extent"]))
+    for net in stand_in.nets.values():
+        net.double()
+
+    def cpu_float64_forward(batch: dict) -> np.ndarray:
+        with torch.no_grad():
+            db = {k: torch.from_numpy(np.asarray(batch[k])).double()
+                  for k in ("input", "target", "retrieval")}
+            return stand_in.network_pred_to_df(stand_in.forward_full(db)[0]).numpy()
+
+    map_val = get_retrievals_dir(rcfg) / "map_val.npy"
+    common = ["--config", str(work / "refinement.yaml"), "--retrieval_config",
+              str(work / "retrieval.yaml"), "--retrieval_ckpt", str(work / "retrieval.ckpt"),
+              "--tree_path", str(work / "tree")]
+    log("13 parity_real: the forward gate's reference is a stand-in (the port's forward on "
+        "the CPU in float64); the reference implementation's module is not on this machine")
+    t0 = time.perf_counter()
+    rc = parity_real.main(common + [
+        "--refinement_ckpt", str(work / "refinement.ckpt"), "--reference_map", str(map_val),
+        "--n_chunks", str(PARITY_CHUNKS), "--out", str(work / "report.json")],
+        reference_forward=cpu_float64_forward)
+    report = json.loads((work / "report.json").read_text())
+    out = {"passing_s": time.perf_counter() - t0, "rc": rc, "report": report}
+    check(rc == 0 and report["ok"] and report["topk"]["topk_match_rate"] == 1.0
+          and report["forward"]["tsdf_mae"] <= 1e-3 and report["forward"]["chunks"]
+          == PARITY_CHUNKS, f"13 parity_real on the port's own artifacts: exit {rc}, {report}")
+    mapping = np.load(map_val, allow_pickle=True)[()]
+    first = sorted(mapping)[0]
+    altered = dict(mapping)
+    altered[first] = mapping[first].copy()
+    altered[first][0, 0] += 1  # the first neighbour's scene index
+    np.save(work / "map_altered.npy", altered)
+    t0 = time.perf_counter()
+    rc2 = parity_real.main(common + ["--reference_map", str(work / "map_altered.npy"),
+                                     "--out", str(work / "report_altered.json")])
+    report2 = json.loads((work / "report_altered.json").read_text())
+    out.update(refusing_s=time.perf_counter() - t0, rc_altered=rc2, report_altered=report2)
+    check(rc2 != 0 and not report2["ok"] and report2["topk"]["topk_match_rate"] < 1.0
+          and report2["topk"]["first_mismatch_patch"] == first,
+          f"13 parity_real on an altered map: exit {rc2}, {report2}")
+    out["phase_s"] = time.perf_counter() - t13
+    log(f"13 parity_real (the CLI's main): on the port's artifacts exit {rc}: top-k match "
+        f"rate {report['topk']['topk_match_rate']:.4f} over {report['topk']['patches_compared']} "
+        f"val patches, forward TSDF MAE {report['forward']['tsdf_mae']:.2e} over "
+        f"{PARITY_CHUNKS} chunks against the stand-in (budget 1e-3), metrics "
+        f"{report['forward']['metrics']}; on a map with one row's scene index changed exit "
+        f"{rc2}, match rate {report2['topk']['topk_match_rate']:.6f}; {out['phase_s']:.1f} s "
+        f"[{card}]")
+    return out
+
+
 def run_phase11d(launches: dict, card: str) -> dict:
     """Phase 11d: entry()'s fn on the card, dryrun_multichip over two gloo
     ranks sharing the card and over one NCCL rank (the mesh code under
@@ -1994,6 +2849,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="chiprun_out/chip_smoke.json")
+    ap.add_argument("--phase12", action="store_true",
+                    help="build the kernels and run phase 12 alone (the other tasks' training, "
+                         "pipeline and serving), which the whole run leaves out until its "
+                         "gradient holds pass on the card")
     args = ap.parse_args(argv)
 
     import torch
@@ -2038,6 +2897,13 @@ def main(argv=None) -> int:
     import torch.nn.functional as F
 
     results: dict = {"seed": args.seed}
+    t_start = time.perf_counter()
+
+    def stamp(label: str) -> None:
+        """The script's wall time so far, at the end of a phase."""
+        results.setdefault("elapsed_s", {})[label] = time.perf_counter() - t_start
+        log(f"[{time.perf_counter() - t_start:.1f} s since the start: {label}]")
+
     try:
         # 1) the card
         try:
@@ -2063,6 +2929,44 @@ def main(argv=None) -> int:
             for line in rep.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
+
+        stamp("build")
+        # the launch counters of every kernel wrapper, and `drive`, which runs
+        # a path with them at 0 and checks what it launched
+        counters = {"topk": topk, "knn": DtypeLaunches(streaming_knn_sims, torch.float32),
+                    "knn_bf16": DtypeLaunches(streaming_knn_sims, torch.bfloat16),
+                    "attention": pa.gathered_patch_attention,
+                    "attention_v1": pa.gathered_patch_attention_v1,
+                    "patch_attention": pa.patch_attention, "decoder_tail": dt.decoder_tail,
+                    "chamfer": chamfer_minima}
+        launches = {name: 0 for name in counters}
+
+        def drive(label: str, needed, fn, into=launches):
+            """Run one path with every launch count at 0 just before it; check
+            that it launched the kernels it needs; add its counts up (in
+            `into`)."""
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.launches = 0
+            out = fn()
+            torch.cuda.synchronize()
+            counts = {name: c.launches for name, c in counters.items()}
+            for name in needed:
+                check(counts[name] > 0, f"{label}: kernel {name} was not launched")
+            for name in counts:
+                into[name] += counts[name]
+            return out, {name: c for name, c in counts.items() if c}
+
+        if args.phase12:
+            t12 = time.perf_counter()
+            results["tasks"], results["launches12"] = run_phase12(
+                dev, args.seed, counters, drive, card)
+            log(f"phase 12: {time.perf_counter() - t12:.1f} s; launches "
+                f"{results['launches12']} [{card}]")
+            out = Path(args.out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(results, indent=1, default=str))
+            return 0
 
         # 3) the flagship engines: base, FAST_VARIANT and VARIANT_PATHS, in
         # bf16 and float32, all on base's feature bank
@@ -2305,32 +3209,9 @@ def main(argv=None) -> int:
                 f"library {lib_ms}, bound {kr['bound_ms']:.3f} ms ({kr['bound_by']}) "
                 f"[{kr['shape']}; {card}]")
 
+        stamp("kernels 4a-4f")
         # 5) serve through serve_directory: FAST_VARIANT bf16 at batch 64 and
         # 128, DENSE_VARIANT at batch 64, and the cdec variant at batch 128
-        counters = {"topk": topk, "knn": DtypeLaunches(streaming_knn_sims, torch.float32),
-                    "knn_bf16": DtypeLaunches(streaming_knn_sims, torch.bfloat16),
-                    "attention": pa.gathered_patch_attention,
-                    "attention_v1": pa.gathered_patch_attention_v1,
-                    "patch_attention": pa.patch_attention, "decoder_tail": dt.decoder_tail,
-                    "chamfer": chamfer_minima}
-        launches = {name: 0 for name in counters}
-
-        def drive(label: str, needed, fn, into=launches):
-            """Run one path with every launch count at 0 just before it; check
-            that it launched the kernels it needs; add its counts up (in
-            `into`)."""
-            torch.cuda.synchronize()
-            for c in counters.values():
-                c.launches = 0
-            out = fn()
-            torch.cuda.synchronize()
-            counts = {name: c.launches for name, c in counters.items()}
-            for name in needed:
-                check(counts[name] > 0, f"{label}: kernel {name} was not launched")
-            for name in counts:
-                into[name] += counts[name]
-            return out, {name: c for name, c in counts.items() if c}
-
         serving = {}
         with tempfile.TemporaryDirectory() as tmp:
             indir = Path(tmp) / "in"
@@ -2398,6 +3279,7 @@ def main(argv=None) -> int:
                 f"bf16 = {rec['engine_chunks_per_s']:.1f} chunks/s; launches {counts} [{card}]")
         results["paths"] = paths
 
+        stamp("serving 5-6")
         # 4g) the attention kernels at F = 32 and 64: the flagship geometry at
         # nf 4 and 8, served (through `drive`) and held against the plain
         # versions; its draws come from a generator of its own, so that the
@@ -2409,6 +3291,7 @@ def main(argv=None) -> int:
         results["phase4g_s"] = time.perf_counter() - t4g
         log(f"phase 4g (nf 4 and 8): {results['phase4g_s']:.1f} s")
 
+        stamp("4g")
         # 7) the retrieval trainer, then the retrieval pipeline (map ->
         # compose -> evaluate) with its checkpoint, then serving from those
         # artifacts, at the full width of ShapeNetV2's configs, on a synthetic
@@ -2431,18 +3314,20 @@ def main(argv=None) -> int:
                             experiment="chip_smoke_steps")
                 before = {name: c.launches for name, c in counters.items()}
                 t0 = t_train = time.perf_counter()
-                trainer, step_losses, grad_err = hold_train_steps(tcfg, dev, TRAIN_HOLD_STEPS)
+                trainer, step_losses, grad_err, tf32_err = hold_train_steps(
+                    tcfg, dev, TRAIN_HOLD_STEPS)
                 check({name: c.launches for name, c in counters.items()} == before,
                       "the train steps launched a kNN, topk or chamfer kernel")
                 training.update(hold_s=time.perf_counter() - t0, hold_losses=step_losses,
-                                hold_grad_err=grad_err, batch=trainer.batch_size,
+                                hold_grad_err=grad_err, hold_tf32_err=tf32_err,
+                                batch=trainer.batch_size,
                                 train_patches=len(trainer.train_dataset))
                 log(f"train steps 1-{TRAIN_HOLD_STEPS} on the card against the CPU (float32, "
                     f"TF32 off): losses {[round(a, 6) for a, _ in step_losses]} within 1e-5 "
                     f"relative, step-1 gradients within {grad_err:.1e} of each tensor's "
                     f"largest magnitude (<= "
-                    f"{TRAIN_GRAD_TOL[tcfg['retrieval_model']['network_target']]:g}); no kernel "
-                    f"launched")
+                    f"{TRAIN_GRAD_TOL[tcfg['retrieval_model']['network_target']]:g}; with TF32 "
+                    f"on {tf32_err:.1e}); no kernel launched")
                 # device time of a step on a resident batch (no loader)
                 resident = trainer._device_batch(first_batches(
                     trainer.train_dataset, trainer.batch_size, 1)[0])
@@ -2536,6 +3421,7 @@ def main(argv=None) -> int:
                 training["phase_s"] = time.perf_counter() - t_train
                 rcfg = retrieval_config(root / "data", ckpt)
 
+                stamp("7a")
                 # 7b) the retrieval pipeline with the trained checkpoint; the
                 # C++ paste's seconds in compose are timed for 10d
                 outs, paste_spent = {}, {}
@@ -2608,6 +3494,7 @@ def main(argv=None) -> int:
                 log("retrieval evaluate: metrics equal the trainer's retrieval validation's "
                     "val metrics within 1e-6 relative")
 
+                stamp("7b")
                 # 7d) the refinement trainer at the full width of ShapeNetV2's
                 # refinement config, on phase 7's chunks and 7b's composed
                 # retrievals: one step of each phase held against the CPU,
@@ -2623,24 +3510,8 @@ def main(argv=None) -> int:
                 check({name: c.launches for name, c in counters.items()} == before,
                       "the refinement steps launched a kernel")
                 refine["hold_s"] = time.perf_counter() - t0
-                hold = refine["hold"]
-                log(f"refine steps card vs CPU (batch 1, float32, TF32 off, the first train "
-                    f"item perturbed by N(0, {REFINE_HOLD_NOISE})): phase-3 selections agree on "
-                    f"all {hold['patches']} patches, smallest top-two gap of the perturbed "
-                    f"scores {hold['selection_min_gap']:.3e}; no kernel launched; "
-                    f"{refine['hold_s']:.1f} s")
-                for phase, rec in sorted(hold["phases"].items()):
-                    log(f"  phase {phase}: loss {rec['loss']:.6f} (CPU {rec['loss_cpu']:.6f}, "
-                        f"within 1e-5 relative); gradients from the CPU's float64, as a share "
-                        f"of their sub-network's largest: card {rec['card_f64']:.2e} (bound "
-                        f"{rec['bound']:.2e}; worst {rec['worst']}), CPU float32 "
-                        f"{rec['cpu_f64']:.2e}; card vs CPU {rec['card_cpu']:.2e}; card with "
-                        f"TF32 on {rec['tf32_f64']:.2e} (worst {rec['tf32_worst']}), "
-                        f"{rec['tf32_f64'] / rec['bound']:.1f}x the bound [{card}]")
-                a, b = hold["unperturbed_phase3_loss"]
-                log(f"  unperturbed item (constant 16³ patches), not held: phase-3 loss "
-                    f"{a:.6f} on the card, {b:.6f} on the CPU ({abs(a - b) / abs(b):.1e} "
-                    "relative)")
+                log_refine_hold(refine["hold"], "refine steps", card)
+                log(f"refine steps: no kernel launched; {refine['hold_s']:.1f} s [{card}]")
 
                 # the curriculum through train_refinement_phases: two epochs a
                 # phase of REFINE_STEPS / 2 steps, a checkpoint at each phase's
@@ -2817,6 +3688,7 @@ def main(argv=None) -> int:
                     f"cache {refine['cache']['s']:.1f} s, validation "
                     f"{refine['validation_s']:.1f} s [{card}]")
 
+                stamp("7d")
                 # 7c) serving from the artifacts: phase 7's dictionary and train
                 # scenes, the trained retrieval checkpoint and the refinement
                 # checkpoint that 7d trained
@@ -2914,6 +3786,7 @@ def main(argv=None) -> int:
                 del art, mem, eng
                 from_artifacts["phase_s"] = time.perf_counter() - t_serve
 
+                stamp("7c")
                 # 10) meshes: serving with meshes, mesh metrics, the C++ paste
                 results["meshes"] = run_phase10(
                     root, dev, scfg, scfg_path, ckpt, fckpt, sorted(made["val"]), rcfg, maps,
@@ -2922,6 +3795,7 @@ def main(argv=None) -> int:
                          paste_s=paste_spent.get("compose_paste", 0.0),
                          scenes=len(ds_train.scenes) + len(ds_val.scenes)),
                     drive, card)
+                stamp("10")
                 # 11a-c) the data-parallel paths over two ranks on the card
                 mesh_argv = ["--config", str(scfg_path), "--retrieval_ckpt", str(ckpt),
                              "--refinement_ckpt", str(fckpt), "--input", str(vin), "--output",
@@ -2931,6 +3805,9 @@ def main(argv=None) -> int:
                 results["data_parallel"] = run_phase11(
                     root, dev, args.seed, cfg, params, db, rcfg, fcfg, mesh_argv,
                     root / "cli_f32", refine["hold"]["phases"][3]["bound"], launches, card)
+                stamp("11a-c")
+                # 13) the real-data parity harness on phase 7's artifacts
+                results["parity_real"] = run_phase13(root, dev, rcfg, fcfg, ckpt, fckpt, card)
                 log(f"phase 7a (training) {training['phase_s']:.1f} s, phase 7d (refinement "
                     f"training) {refine['phase_s']:.1f} s, phase 7c (serving from artifacts) "
                     f"{from_artifacts['phase_s']:.1f} s wall [{card}]")
@@ -2939,6 +3816,7 @@ def main(argv=None) -> int:
         results.update(retrieval=retrieval, training=training, refinement=refine,
                        from_artifacts=from_artifacts)
 
+        stamp("13")
         # 8) the chamfer kernel against its plain version at the evaluate shape
         # (B = 1 per val scene) and at a batched shape
         cap = max(CHAMFER_CAPACITY, -(-max(int(x.sum()) for pair in occ for x in pair)
@@ -2997,6 +3875,7 @@ def main(argv=None) -> int:
             f"ms before), plain "
             f"{kr['batch_plain_ms']:.3f} ms, bound {kr['batch_bound_ms']:.3f} ms "
             f"({kr['batch_bound_by']}) [{card}]")
+        stamp("8")
         # 9) the other tasks' networks at full width (run_phase9)
         t9 = time.perf_counter()
         results["surface"], results["superres16"], launches9 = run_phase9(
@@ -3006,8 +3885,10 @@ def main(argv=None) -> int:
         results["phase9_s"] = time.perf_counter() - t9
         log(f"phase 9: {results['phase9_s']:.1f} s")
 
+        stamp("9")
         # 11d) the driver entries on the card
         results["entries"] = run_phase11d(launches, card)
+        stamp("11d")
 
         for key, n in launches.items():  # phase 9 set its widened records' own
             kernels[key]["launches"] = n

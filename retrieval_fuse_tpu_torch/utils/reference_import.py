@@ -21,10 +21,14 @@ flax-layout param trees:
 and `import_refinement_checkpoint` / `import_retrieval_checkpoint[_auto]`
 compose them with utils/flax_import.flax_to_state_dict, which gives the
 state_dict of the port's module of the same name (BatchNorm running
-statistics included).
+statistics included). `export_refinement_state_dict` /
+`export_retrieval_state_dict` are their inverses: the port's weights in the
+reference's layout (what its checkpoints hold).
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -317,3 +321,88 @@ def _numpy(state_dict: dict) -> dict:
     """Tensors (or arrays) -> numpy arrays."""
     return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
             for k, v in state_dict.items()}
+
+
+# ------------------------------------------------------------------- export
+
+def _reference_key(key: str) -> str:
+    """A port U-Net key -> the reference's: encoders_i / decoders_i ->
+    encoders.i / decoders.i, upconv -> upsampling.upsample (both
+    ConvTranspose3d weights in torch's layout)."""
+    parts = [re.sub(r"^(encoders|decoders)_(\d+)$", r"\1.\2", p) for p in key.split(".")]
+    return ".".join("upsampling.upsample" if p == "upconv" else p for p in parts)
+
+
+def _renamed(sd: dict, prefix: str, rename) -> dict:
+    """`sd` as numpy arrays under prefix + rename(key)."""
+    return {prefix + rename(k): np.ascontiguousarray(v) for k, v in _numpy(sd).items()}
+
+
+def _export_attention_encoder(sd: dict, patch_extent: int) -> dict:
+    """fc0.. and out -> encoder.{2i}; the first weight's input columns back
+    from the port's channels-last (s·C + c) to the reference's
+    channels-first (c·e³ + s) patch order."""
+    sd = _numpy(sd)
+    n = sum(k.startswith("fc") and k.endswith(".weight") for k in sd)
+    out = {}
+    for i in range(n + 1):
+        name = f"fc{i}" if i < n else "out"
+        w = sd[f"{name}.weight"]
+        if i == 0:
+            width, n_in = w.shape
+            e3 = patch_extent ** 3
+            w = w.reshape(width, e3, n_in // e3).transpose(0, 2, 1).reshape(width, n_in)
+        out[f"encoder.{2 * i}.weight"] = np.ascontiguousarray(w)
+        out[f"encoder.{2 * i}.bias"] = sd[f"{name}.bias"]
+    return out
+
+
+def export_refinement_state_dict(params: dict, task: str = "superresolution",
+                                 attn_patch_extent: int = 4) -> dict[str, np.ndarray]:
+    """The port's refinement sub-networks' state_dicts (unet_backbone,
+    decoder, retrieval_backbone, patched_attention_block) -> a reference
+    refinement state_dict (numpy): the inverse of import_refinement_checkpoint
+    for the task's backbone."""
+    def modules(names: dict):  # the port's first key part -> the reference's
+        return lambda k: _reference_key(names[k.partition(".")[0]] + "." + k.partition(".")[2])
+
+    out = {}
+    backbone = {"unet": "network"} if task != "superresolution" else \
+        {"unet": "network.0", "up0": "network.1", "up1": "network.2"}
+    out.update(_renamed(params["unet_backbone"], "unet_backbone.", modules(backbone)))
+    out.update(_renamed(params["decoder"], "decoder.",
+                        modules({"up0": "network.0", "final_conv": "network.1"})))
+    out.update(_renamed(params["retrieval_backbone"], "retrieval_backbone.",
+                        modules({"unet": "network"})))
+    pre = "patched_attention_block.attention_blocks_layer."
+    att = _strip(params["patched_attention_block"], "attention_blocks_layer")
+    for mlp in ("theta", "phi"):
+        out.update({f"{pre}{mlp}.{k}": v for k, v in _export_attention_encoder(
+            _strip(att, mlp), attn_patch_extent // 2).items()})
+    rest = {k: v for k, v in att.items() if not k.startswith(("theta.", "phi."))}
+    out.update(_renamed(rest, pre, lambda k: k))
+    return out
+
+
+def export_retrieval_state_dict(params: dict) -> dict[str, np.ndarray]:
+    """The port's retrieval encoders' state_dicts {fenc_input, fenc_target}
+    -> a reference retrieval state_dict (numpy): conv{i} at layers.{2i}, or
+    at layers.{3i} with its BatchNorm (and running statistics) at 3i + 1,
+    final_layer as is; an MLP's fc{i} at layers.{2i} and final_layer at the
+    next. The inverse of import_retrieval_checkpoint."""
+    out = {}
+    for name in ("fenc_input", "fenc_target"):
+        sd = params[name]
+        bn = any(k.startswith("bn") for k in sd)
+        n_fc = sum(k.startswith("fc") and k.endswith(".weight") for k in sd)
+
+        def rename(k: str) -> str:
+            head, _, rest = k.partition(".")
+            if head == "final_layer":
+                return k if n_fc == 0 else f"layers.{2 * n_fc}.{rest}"
+            i = int(head[2:] if head.startswith(("fc", "bn")) else head[4:])
+            if head.startswith("fc"):
+                return f"layers.{2 * i}.{rest}"
+            return f"layers.{(3 if bn else 2) * i + head.startswith('bn')}.{rest}"
+        out.update(_renamed(sd, f"{name}.", rename))
+    return out

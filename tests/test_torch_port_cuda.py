@@ -662,7 +662,7 @@ def test_retrieval_trainer_steps_on_the_card_match_the_cpu(cuda, tmp_path, monke
     float32's rounding and TF32's, as tools/torch_port_train_precision.py
     measured them on this data: plain 2.6e-4 (TF32 1.1e-2) -> 1e-3;
     BatchNorm 4.2e-3, the CPU's own float32 as far from float64 (TF32
-    4.0e-2) -> 1e-2."""
+    4.0e-2) -> 1e-2; the step-1 gradients with TF32 on lie outside."""
     from chip_smoke import TRAIN_GRAD_TOL, hold_train_steps, retrieval_config
     from retrieval_fuse_tpu_torch.data.synthetic import generate_synthetic_dataset
     assert not torch.backends.cudnn.allow_tf32
@@ -672,8 +672,8 @@ def test_retrieval_trainer_steps_on_the_card_match_the_cpu(cuda, tmp_path, monke
     for target_code in ("16+8", "16+8N"):
         cfg = dict(retrieval_config(tmp_path / "data", ""), seed=5, experiment="card_steps")
         cfg["retrieval_model"]["network_target"] = target_code
-        trainer, losses, grad_err = hold_train_steps(cfg, cuda, 3)
-        assert len(losses) == 3 and grad_err <= TRAIN_GRAD_TOL[target_code]
+        trainer, losses, grad_err, tf32_err = hold_train_steps(cfg, cuda, 3)
+        assert len(losses) == 3 and grad_err <= TRAIN_GRAD_TOL[target_code] < tf32_err
         assert trainer.fenc_target.use_batchnorm == target_code.endswith("N")
 
 
