@@ -402,3 +402,200 @@ def test_surface_roundtrip_matches_jax(surface_roundtrip):
     assert len(p["metrics"]) == 4 and all(np.isfinite(p["metrics"]))
     np.testing.assert_allclose(p["metrics"], j["metrics"], rtol=1e-6)
 
+
+
+# ------------------------------------------------------------ phase 2's hold
+
+
+@contextlib.contextmanager
+def opened_gate(tr):
+    """The trainer's decoder output bias at chip_smoke's gate-opening value
+    in the block (hold_refine_steps' weights), restored after."""
+    bias = tr.decoder.final_conv.bias.detach().clone()
+    chip_smoke.open_occupancy_gate(tr)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            tr.decoder.final_conv.bias.copy_(bias)
+
+
+@pytest.fixture(scope="module")
+def phase2(refine):
+    """The refine fixture's item through chip_smoke's phase-2 readings on
+    the CPU (the held weights): the frozen features and df in float64 and
+    float32 (frozen_phase2), and phase 2's float64 gradients of the
+    uncached train step and of the cached step on the float64 frozen
+    features and gate."""
+    tr = refine["port"]
+    with opened_gate(tr):
+        batch = tr._device_batch(refine["batch"])
+        f64, df64 = chip_smoke.frozen_phase2(tr, batch, float64=True)
+        f32, df32 = chip_smoke.frozen_phase2(tr, batch)
+        uncached = chip_smoke.step_gradients(tr, 2, batch, float64=True)
+        cached = chip_smoke.step_gradients(tr, 2, f64, cached=True, float64=True)
+    return dict(task=refine["task"], tr=tr, thr=tr.target_voxel_size * 0.75, df64=df64,
+                occ64=f64["occ"], df32=df32, occ32=f32["occ"], f64=f64, f32=f32,
+                uncached=uncached, cached=cached)
+
+
+def test_cached_phase2_step_matches_uncached_float64(phase2):
+    """The trainer's cached phase-2 step (compute_gradients(cached=True))
+    on its own frozen features and gate gives the loss and the attention
+    gradients of the uncached step, in float64, to 1e-12 of each tensor's
+    largest: the path on which hold_refine_steps compares phase 2."""
+    (total, _, want), (got_total, _, got) = phase2["uncached"], phase2["cached"]
+    assert float(total) > 0, "the contrastive gate is shut"
+    np.testing.assert_allclose(float(got_total), float(total), rtol=1e-12)
+    assert sorted(got) == sorted(want) == ["patched_attention_block"]
+    want, got = want["patched_attention_block"], got["patched_attention_block"]
+    assert sorted(got) == sorted(want)
+    for key, w in want.items():
+        scale = float(w.abs().max())
+        assert scale > 0 and float((got[key] - w).abs().max()) <= 1e-12 * scale, key
+
+
+def gate_read(p: dict, card_df, card_occ, df64=None, worse_df=None) -> dict:
+    """phase2_read's gate record of one draw (gate_summary by arithmetic):
+    the CPU's float32 as read, the card's given (card_df, card_occ, against
+    df64: float64's df, as read unless given, its gate recomputed), and a
+    known-worse arithmetic in TF32's place (float64's df rounded to bf16
+    unless given)."""
+    tr, thr = p["tr"], p["thr"]
+    df64 = p["df64"] if df64 is None else df64
+    occ64 = tr.occupancy_from_prediction(df64)
+    worse_df = df64.bfloat16().double() if worse_df is None else worse_df
+    return {"gate": {
+        "card": chip_smoke.gate_summary(card_occ, card_df, occ64, df64, thr),
+        "cpu": chip_smoke.gate_summary(p["occ32"], p["df32"], p["occ64"], p["df64"], thr),
+        "tf32": chip_smoke.gate_summary(tr.occupancy_from_prediction(worse_df), worse_df,
+                                        occ64, df64, thr)}}
+
+
+@pytest.mark.parametrize("case", ["as-read", "flip-within-bound", "far-flip", "df-past-bound",
+                                  "worse-inside"])
+def test_phase2_gate_hold(phase2, case):
+    """chip_smoke.hold_branch on the occupancy gate, from the CPU's float32
+    and float64 readings: the readings as they are pass with a known-worse
+    arithmetic outside the df bound; a float32 gate flip where float64's df
+    lies within the bound of the threshold passes; a flip forced at the gate
+    voxel farthest from the threshold fails (a mutation of the gate); a df
+    one voxel off by twice the bound fails; a known-worse arithmetic inside
+    the bound fails."""
+    p = phase2
+    tr, thr, df32 = p["tr"], p["thr"], p["df32"]
+    bound_ = chip_smoke.hold_branch([gate_read(p, df32, p["occ32"])], "gate", p["task"])
+    assert p["df64"].min() < thr < p["df64"].max() and bound_ < 1e-4 * thr
+    fails = {"far-flip": "other way", "df-past-bound": "the card's gate lie",
+             "worse-inside": "cannot tell TF32"}
+    card_df, card_occ, df64, worse = df32, p["occ32"], None, None
+    if case == "flip-within-bound":  # float64 just above the threshold, the card just below
+        shut = ~p["occ64"]  # at the nearest voxel of a gate voxel that float64 leaves shut
+        for dim in (1, 2, 3):
+            shut = shut.repeat_interleave(2, dim=dim)
+        v = int(torch.where(shut, (p["df64"] - thr).abs(), torch.inf).argmin())
+        df64, card_df = p["df64"].clone(), df32.clone()
+        df64.view(-1)[v], card_df.view(-1)[v] = thr + bound_ / 4, thr - bound_ / 4
+        card_occ = tr.occupancy_from_prediction(card_df)
+    elif case == "far-flip":
+        card_occ = p["occ32"].clone()
+        far = chip_smoke.gate_summary(~p["occ64"], p["df64"], p["occ64"], p["df64"], thr)
+        near = (p["df64"].double() - thr).abs().permute(0, 4, 1, 2, 3)
+        near = -torch.nn.functional.max_pool3d(-near, 2, 2).permute(0, 2, 3, 4, 1)
+        card_occ.view(-1)[int(near.argmax())] ^= True
+        assert far["far"] == float(near.max())
+    elif case == "df-past-bound":
+        card_df = df32.clone()
+        card_df.view(-1)[0] += 2 * bound_
+    elif case == "worse-inside":
+        worse = df32
+    read = gate_read(p, card_df, card_occ, df64, worse)
+    if case == "flip-within-bound":
+        assert read["gate"]["card"]["flips"] >= 1
+    if case in fails:
+        with pytest.raises(chip_smoke.Failed, match=fails[case]):
+            chip_smoke.hold_branch([read], "gate", p["task"])
+    else:
+        assert chip_smoke.hold_branch([read], "gate", p["task"]) == bound_
+
+
+def test_branch_replay_of_its_own_run_is_exact(phase2):
+    """Branches: a float64 phase-2 cached step replayed on its own recorded
+    LeakyReLU branches gives the recorded step's loss and gradients exactly,
+    reads no distance and no flip, and recorded one call a LeakyReLU of
+    theta and phi (three each)."""
+    tr, f64 = phase2["tr"], phase2["f64"]
+    branches = chip_smoke.Branches()
+    with opened_gate(tr):
+        with branches.record():
+            total, _, want = chip_smoke.step_gradients(tr, 2, f64, cached=True, float64=True)
+        with branches.replay() as reading:
+            got_total, _, got = chip_smoke.step_gradients(tr, 2, f64, cached=True, float64=True)
+    assert len(branches.calls) == 6 and float(got_total) == float(total)
+    assert reading["dist"] == 0.0 and reading["flips"] == 0
+    for key, w in want["patched_attention_block"].items():
+        assert torch.equal(got["patched_attention_block"][key], w), key
+
+
+@pytest.mark.parametrize("case", ["as-read", "far-flip", "worse-inside"])
+def test_phase2_activation_branch_hold(phase2, case):
+    """chip_smoke.hold_branch on the theta / phi LeakyReLU inputs of the
+    cached phase-2 step, each float32 run replayed on the float64 step's
+    branches: the CPU's float32 as read passes, with a known-worse arithmetic
+    (the frozen features rounded to bf16) outside the bound; the card's
+    replay with the recorded branch of the unit of phi's last LeakyReLU
+    farthest from its kink turned over fails (a mutation: a decision that does not follow its
+    value); a known-worse arithmetic inside the bound fails."""
+    tr, f64, f32 = phase2["tr"], phase2["f64"], phase2["f32"]
+    worse = {k: (v.bfloat16().float() if v.is_floating_point() else v) for k, v in f32.items()}
+    branches = chip_smoke.Branches()
+    with opened_gate(tr):
+        with branches.record():
+            chip_smoke.step_gradients(tr, 2, f64, cached=True, float64=True)
+        reads = {}
+        for key, fz in (("cpu", f32), ("tf32", worse), ("card", f32)):
+            if key == "card" and case == "far-flip":
+                call = len(branches.calls) - 1  # phi's last LeakyReLU: no unit above it
+                branch, x_rec, scale = branches.calls[call]
+                flipped = branch.clone()
+                flipped.view(-1)[int(x_rec.abs().argmax())] ^= True
+                branches.calls[call] = (flipped, x_rec, scale)
+            with branches.replay() as reads[key]:
+                chip_smoke.step_gradients(tr, 2, dict(fz, occ=f64["occ"]), cached=True)
+    if case == "worse-inside":
+        reads["tf32"] = reads["card"]
+    assert reads["cpu"]["dist"] < 1e-4 < reads["tf32"]["dist"] or case == "worse-inside"
+    fails = {"far-flip": "other way", "worse-inside": "cannot tell TF32"}
+    if case in fails:
+        with pytest.raises(chip_smoke.Failed, match=fails[case]):
+            chip_smoke.hold_branch([{"activations": reads}], "activations", phase2["task"])
+    else:
+        chip_smoke.hold_branch([{"activations": reads}], "activations", phase2["task"])
+
+
+@pytest.mark.parametrize("task", ["surface", "superres16"])
+def test_retrieval_step_branch_replay(datasets, tmp_path, task):
+    """Branches on the retrieval trainer's step as hold_task_train_step
+    runs it (chip_smoke.retrieval_step_gradients): the float64 step
+    replayed on its own (Leaky)ReLU branches gives its loss and gradients
+    exactly, with no distance and no flip; the float32 step replayed on
+    them reads its activations' inputs within 1e-5 of float64's (as a share
+    of each call's largest) and its gradients within 1e-5 of float64's
+    (grad_share)."""
+    cfg = retrieval_config(task, tmp_path / "data")
+    copy_task_dataset(datasets / task, tmp_path / "data", cfg)
+    with working_dir(tmp_path):
+        tr = trt.RetrievalTrainer(cfg, device="cpu")
+    random.seed(1)
+    batch = tr._device_batch(chip_smoke.first_batches(tr.train_dataset, 8, 1)[0])
+    branches = chip_smoke.Branches()
+    with branches.record():
+        loss, want = chip_smoke.retrieval_step_gradients(tr, batch, torch.float64)
+    with branches.replay() as own:
+        loss64, got64 = chip_smoke.retrieval_step_gradients(tr, batch, torch.float64)
+    with branches.replay() as f32:
+        _, got32 = chip_smoke.retrieval_step_gradients(tr, batch, torch.float32)
+    assert len(branches.calls) > 0 and loss64 == loss
+    assert own["dist"] == 0.0 and own["flips"] == 0
+    assert all(torch.equal(got64[n][k], w) for n, sd in want.items() for k, w in sd.items())
+    assert f32["dist"] < 1e-5 and chip_smoke.grad_share(got32, want)[0] < 1e-5

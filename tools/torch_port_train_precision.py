@@ -6,6 +6,7 @@ float64 gradients, beside the CPU's float32 ones.
     python tools/torch_port_train_precision.py --refine
     python tools/torch_port_train_precision.py --refine --seed 0 1 2 3 4 5 6 7
     python tools/torch_port_train_precision.py --task surface superres16
+    python tools/torch_port_train_precision.py --refine --task surface superres16 [--localize]
 
 With --refine: the refinement trainer's step of each phase at batch 1 and
 chip_smoke.py's config (ShapeNetV2's refinement width, nf 16, K 4) on a
@@ -40,6 +41,21 @@ With --task T...: the retrieval step that chip_smoke.py's phase 12 holds
 config (task_retrieval_config) and data (write_task_dataset, a few chunks),
 read as below with TF32 on for convolutions and matmuls (chip_smoke.tf32)
 beside the cuDNN settings.
+
+With --refine --task T...: chip_smoke.hold_refine_steps on each task's
+refinement config (task_refinement_config, batch 1) on a small dataset of
+the task, as the port runs it and with cuDNN off: every reading of every
+phase and draw, and the checks it fails. With --localize instead, where the
+card's float32 loses precision in the frozen features of phase 2, on the
+hold's trainers and draws (chip_smoke.refine_hold_items): each frozen
+feature's (x_back, x_target) largest error as a share of its largest, on
+the card, the card with cuDNN off and the CPU, and phase 2's float64
+gradients (the cached step on float64's gate) with that one feature in
+float32; and every leaf module (convolution, GroupNorm, BatchNorm, linear)
+of the frozen networks (the U-Net backbone on the input, the decoder on its
+features, the retrieval backbone on the target's 16³ patches): its own
+float32 error, max |m(x) - m64(x64)| / max |m64(x64)|, on the input that the
+float64 forward gives it, on the card, with cuDNN off and on the CPU.
 
 Otherwise one batch of the trainer's epoch-0 order, from the same seeded
 weights, in these cases: the CPU tests' geometry (nf 4 / 4, latent 16, batch 16, the
@@ -134,12 +150,16 @@ def main(argv=None) -> int:
     ap.add_argument("--task", nargs="+", default=None, choices=chip_smoke.TASKS12,
                     help="the retrieval step of chip_smoke.py's phase-12 hold instead (with "
                          "--refine: its refinement hold)")
+    ap.add_argument("--localize", action="store_true",
+                    help="with --refine --task: phase 2's frozen features by feature and by "
+                         "layer instead of the hold")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_port_train_precision: no CUDA device", file=sys.stderr)
         return 1
     if args.refine and args.task:
-        return task_refine_holds(args.task, args.out.replace(".json", "_task_refine.json"))
+        return task_refine_holds(args.task, args.out.replace(".json", "_task_refine.json"),
+                                 args.localize)
     if args.refine and args.seed is not None:
         return phase3_seeds(args.seed, args.out.replace(".json", "_seeds.json"))
     if args.refine:
@@ -336,12 +356,13 @@ SEED_WAYS = {"card float32": contextlib.nullcontext,
              "card float32, TF32": chip_smoke.tf32}
 
 
-def task_refine_holds(tasks: list, out_path: str) -> int:
+def task_refine_holds(tasks: list, out_path: str, localize: bool = False) -> int:
     """The --refine --task readings: chip_smoke.hold_refine_steps on each
     phase-12 task's refinement config (task_refinement_config, batch 1) on a
     small dataset of the task (write_task_dataset) with composed retrievals
     of other scenes' targets, as the port runs it and with cuDNN off; every
-    reading of every phase and draw, and the checks it fails."""
+    reading of every phase and draw, and the checks it fails. With
+    `localize`, localize_phase2 on the hold's items instead."""
     from retrieval_fuse_tpu_torch.device import resolve_device
     card = card_name()
     print(card)
@@ -363,6 +384,14 @@ def task_refine_holds(tasks: list, out_path: str) -> int:
                 chip_smoke.write_composed_retrievals(cfg, rng)
                 os.chdir(root)
                 try:
+                    if localize:
+                        card_tr, cpu_tr, _, _, held, _ = chip_smoke.refine_hold_items(
+                            cfg, dev, 24, chip_smoke.REFINE_HOLD_DRAWS)
+                        results[task] = localize_phase2(card_tr, cpu_tr, held, dev,
+                                                        f"{task} [{card}]")
+                        del card_tr, cpu_tr, held
+                        torch.cuda.empty_cache()
+                        continue
                     for setting in ("", "cuDNN off"):
                         failures.clear()
                         with cudnn_setting(setting):
@@ -385,6 +414,95 @@ def task_refine_holds(tasks: list, out_path: str) -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(results, indent=1, default=str))
     return 0
+
+
+#: the leaf modules that --localize prints a network
+TOP_LEAVES = 8
+
+
+def leaf_errors(net, x, label: str) -> list:
+    """[(name, type, card, card with cuDNN off, CPU)] of every leaf module
+    of `net` (float32, on the card): the module's own float32 error on the
+    input that the float64 forward of `net` on `x` gives it, as a share of
+    the float64 output's largest. Prints the TOP_LEAVES whose card error
+    exceeds the CPU's most."""
+    from retrieval_fuse_tpu_torch.models.encoders import BatchNorm3d
+    leaves = (torch.nn.Conv3d, torch.nn.ConvTranspose3d, torch.nn.GroupNorm, torch.nn.Linear,
+              BatchNorm3d)
+    net64, net_cpu = copy.deepcopy(net).double(), copy.deepcopy(net).cpu()
+    seen, hooks = {}, []
+
+    def keep(name):
+        def hook(module, inputs, output):  # returns None: the output stands
+            seen.setdefault(name, (inputs[0].detach(), output.detach()))
+        return hook
+
+    for name, m in net64.named_modules():
+        if isinstance(m, leaves):
+            hooks.append(m.register_forward_hook(keep(name)))
+    with torch.no_grad():
+        net64(x.double())
+    for h in hooks:
+        h.remove()
+    mods, mods_cpu = dict(net.named_modules()), dict(net_cpu.named_modules())
+    rows = []
+    for name, (x64, y64) in seen.items():
+        scale = float(y64.abs().max()) or 1.0
+
+        def err(m, dev, setting):
+            with cudnn_setting(setting), torch.no_grad():
+                y = m(x64.float().to(dev))
+            return float((y.double().to(y64.device) - y64).abs().max()) / scale
+
+        rows.append((name, type(mods[name]).__name__, err(mods[name], x64.device, ""),
+                     err(mods[name], x64.device, "cuDNN off"), err(mods_cpu[name], "cpu", "")))
+    seen.clear()
+    worst = sorted(rows, key=lambda r: r[2] / max(r[4], 1e-30), reverse=True)[:TOP_LEAVES]
+    print(f"  {label}: {len(rows)} leaf modules; the largest card / CPU (card, cuDNN off, "
+          f"CPU): " + "; ".join(f"{n} ({t}) {c:.2e}, {o:.2e}, {p:.2e}" for n, t, c, o, p in worst),
+          flush=True)
+    return rows
+
+
+def localize_phase2(card, cpu, held: list, dev, label: str) -> list:
+    """The --localize readings of each held draw (see the module
+    docstring), printed a line each and returned by draw."""
+    from retrieval_fuse_tpu_torch.ops.fold3d import unfold3d
+    out = []
+    for r, batch in enumerate(held):
+        on_card, on_cpu = card._device_batch(batch), cpu._device_batch(batch)
+        f64, _ = chip_smoke.frozen_phase2(card, on_card, float64=True)
+        feats = {"card": chip_smoke.frozen_phase2(card, on_card)[0],
+                 "cpu": chip_smoke.frozen_phase2(cpu, on_cpu)[0]}
+        with cudnn_setting("cuDNN off"):
+            feats["cuDNN off"] = chip_smoke.frozen_phase2(card, on_card)[0]
+        ref = chip_smoke.step_gradients(card, 2, f64, cached=True, float64=True)[2]
+        rec = {"features": {}, "leaves": {}}
+        for key, fz in feats.items():
+            for feat in ("x_back", "x_target"):
+                share = float((fz[feat].double().to(dev) - f64[feat]).abs().max()
+                              / f64[feat].abs().max())
+                one = dict(f64, **{feat: fz[feat].to(dev)})
+                grad = chip_smoke.grad_share(
+                    chip_smoke.step_gradients(card, 2, one, cached=True, float64=True)[2], ref)
+                rec["features"][f"{key} {feat}"] = dict(share=share, gradients=grad[0],
+                                                        worst=grad[1])
+        print(f"{label} phase 2 draw {r}: float32 feature error as a share of its largest, "
+              f"and phase 2's float64 gradients with that feature alone in float32 (from "
+              f"float64): " + "; ".join(f"{k} {v['share']:.2e} -> gradients {v['gradients']:.2e}"
+                                        for k, v in rec["features"].items()), flush=True)
+        if r == 0:
+            rec["leaves"]["unet_backbone"] = leaf_errors(card.unet_backbone, on_card["input"],
+                                                         "unet_backbone on the input")
+            rec["leaves"]["decoder"] = leaf_errors(card.decoder, f64["x_back"].float(),
+                                                   "decoder on x_back")
+        rec["leaves"]["retrieval_backbone"] = leaf_errors(
+            card.retrieval_backbone, unfold3d(on_card["target"], 16),
+            f"draw {r} retrieval_backbone on the target's 16³ patches")
+        out.append(rec)
+        del f64, feats
+        torch.cuda.empty_cache()
+    return out
 
 
 def worst_tensors(got: dict, want: dict, n: int = 5) -> list:
