@@ -7,8 +7,9 @@ Builds the port's CUDA kernels from retrieval_fuse_tpu_torch/csrc, builds
 the flagship engine (ShapeNetV2 super-resolution 8³ -> 64³, nf=16, K=4,
 latent 64, a 27,132-row database and feature bank; random weights and data
 from --seed; data are distance fields of random spheres and boxes, as the
-JAX package's synthetic scenes), holds each of six kernels against its
-plain PyTorch version at the serving shapes (float32, the algorithm check,
+JAX package's synthetic scenes), holds each of the seven kernels against
+its plain PyTorch version at the serving shapes (the chamfer kernel in
+phase 8, the other six here; float32, the algorithm check,
 and bf16; the attentions with hard and with softmax selection; the kNN
 kernel also at k = 10, D = 96 and a ragged N), times
 kernel, plain version, a library call where one exists and the bound,
@@ -90,7 +91,18 @@ engine (F = 128), FAST_VARIANT against `base`. Phase 4g (run_narrow_widths,
 after the serving paths) serves the flagship geometry at nf 4 and 8 (F = 32
 and 64) through the three attention kernels' paths, held against `base`,
 and holds each attention kernel at both widths against its plain version
-(float32 with hard and with softmax selection, bf16 with both).
+(float32 with hard and with softmax selection, bf16 with both). Phase 4h
+(run_wide_widths, after 4g) runs the kernels past their shipped shapes, on
+their general instances: the flagship geometry at nf 24 and K 12 (F = 192,
+retrieval f_maps 24) serves FAST_VARIANT, its +denseknn (the topk kernel at
+k 12), the cdec path (patch attention and the decoder tail at nf 24) and
+v1 at batch 64 and 128 (denseknn at 64) in bf16 and float32, each held
+against `base`, counted (every kernel of the path on its general instance,
+the plain iterative top-k on no CUDA tensor) and timed; then each widened
+kernel is held against its plain version and timed: the attention kernels
+on that engine's rows and at F = 432, K = 32, T = 27 and F = 12, K = 1,
+T = 8; the decoder tail at nf 24 and 6; topk at k 12 and 32 on 4,096 x
+27,132 scores.
 
 Phase 10 (run_phase10, on phase 7's artifacts) makes meshes: 10a serves the
 64 val chunks (as 2 x 2 x 2 chunks of 8 scenes) through serve_directory with
@@ -153,6 +165,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import gc
 import io
 import json
 import os
@@ -1509,6 +1522,28 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
+def attention_bound(q: int, t: int, k: int, f: int) -> tuple[float, str]:
+    """An attention kernel's bound over q tiles of t rows of F = f in bf16,
+    each row with k candidate rows: each row and candidate row read once,
+    each output row written once, the (q, k) indices read once, against the
+    MLP GEMMs of the row and its candidates (F -> 128 -> 128 -> 128 -> 32)
+    at the bf16 tensor-core rate."""
+    mlp_flops = 2 * (f * 128 + 2 * 128 * 128 + 128 * 32)
+    return bound(2 * (2 * q * t * f + q * k * t * f) + q * k * 4,
+                 q * t * (1 + k) * mlp_flops, BF16_FLOPS)
+
+
+def decoder_tail_bound(hn, nf: int) -> tuple[float, str]:
+    """The decoder tail's bound on input hn (B, S+2, S+2, S+2, 8·nf): hn read
+    once, the (2S)³ float32 outputs written once, the 27-tap conv and the
+    head of every 2x-grid voxel at the bf16 tensor-core rate (float32's for
+    a float32 input)."""
+    b, s2 = hn.shape[0], 2 * (hn.shape[1] - 2)
+    peak = BF16_FLOPS if hn.element_size() == 2 else F32_FLOPS
+    return bound(hn.numel() * hn.element_size() + b * s2 ** 3 * 4,
+                 b * s2 ** 3 * (27 * nf * nf * 2 + 2 * nf), peak)
+
+
 def softmax_f64_hold(out, plain, args32: tuple) -> dict:
     """The float32 softmax hold of an attention kernel's output `out` on
     `args32` (the plain version's arguments: rows, candidates or bank and
@@ -1905,9 +1940,7 @@ def run_phase9(dev, rng, seed: int, kernels: dict, counters: dict, drive, card: 
         check(f == 96, f"surface: attention rows of F = {f}")
         theta32, phi32 = [copy.deepcopy(m).float() for m in (att.theta, att.phi)]
         xt32, bank32, bank16 = xt16.float(), s_fast.feature_bank.float(), s_fast.feature_bank
-        mlp_flops = 2 * (f * 128 + 2 * 128 * 128 + 128 * 32)
-        bound96 = bound(2 * (2 * q * t_rows * f + q * k * t_rows * f) + q * k * 4,
-                        q * t_rows * (1 + k) * mlp_flops, BF16_FLOPS)
+        bound96 = attention_bound(q, t_rows, k, f)
         n_rows = q * t_rows
         p16 = bank16[top_idx.long()].transpose(1, 2).reshape(n_rows, k, f).contiguous()
         x16 = xt16.reshape(n_rows, f)
@@ -1966,8 +1999,7 @@ def run_phase9(dev, rng, seed: int, kernels: dict, counters: dict, drive, card: 
             h2x = depth_to_space_2x(h16[:, 1:-1, 1:-1, 1:-1], nf9).permute(0, 4, 1, 2, 3) \
                 .contiguous()
             dargs = (h16, d.w2_dhwio, d.w_final, d.bias_h)
-            tail96 = bound(h16.numel() * 2 + batch * s2 ** 3 * 4,
-                           batch * s2 ** 3 * (27 * nf9 * nf9 * 2 + 2 * nf9), BF16_FLOPS)
+            tail96 = decoder_tail_bound(h16, nf9)
             old = kernels["decoder_tail"]
             kernels["decoder_tail_nf12"] = dict(
                 name="decoder_tail@nf12", route="cuda", math="mma.bf16",
@@ -2338,9 +2370,7 @@ def run_narrow_widths(dev, rng, seed: int, kernels: dict, counters: dict, drive,
         check(f == 8 * nf, f"nf {nf}: attention rows of F = {f}")
         theta32, phi32 = [copy.deepcopy(m).float() for m in (att.theta, att.phi)]
         xt32, bank32, bank16 = xt16.float(), fast.feature_bank.float(), fast.feature_bank
-        mlp_flops = 2 * (f * 128 + 2 * 128 * 128 + 128 * 32)
-        width_bound = bound(2 * (2 * q * t_rows * f + q * k * t_rows * f) + q * k * 4,
-                            q * t_rows * (1 + k) * mlp_flops, BF16_FLOPS)
+        width_bound = attention_bound(q, t_rows, k, f)
         n_rows = q * t_rows
         p16 = bank16[top_idx.long()].transpose(1, 2).reshape(n_rows, k, f).contiguous()
         x16 = xt16.reshape(n_rows, f)
@@ -2384,6 +2414,323 @@ def run_narrow_widths(dev, rng, seed: int, kernels: dict, counters: dict, drive,
         del engines, fast, xt32, bank32, bank16, p16, x16, xt16, x_back, want
         out[nf] = rec
     return out
+
+
+#: phase 4h: the flagship geometry at nf 24 and K 12 (attention rows of
+#: F = 8·24 = 192, past what keeps theta and phi whole in a block's shared
+#: memory; K past the shipped 8): every attention, decoder-tail and topk
+#: launch of its paths runs a general kernel instance. Each path, the batches
+#: it is served at, and the kernels it must launch (bf16 and float32 rows
+#: together; the streaming kNN kernel is auto-selected at Q >= 1024 in bf16
+#: and Q >= 4096 in float32, so from batch 64 in both)
+WIDE_NF, WIDE_K = 24, 12
+WIDE_PATHS = (("fused+pallasg2+topk1p", (DENSE_BATCH, STREAM_BATCH),
+               ("knn_bf16", "knn", "attention")),
+              (DENSE_VARIANT, (DENSE_BATCH,), ("topk", "attention")),
+              (CDEC_VARIANT, (DENSE_BATCH, STREAM_BATCH),
+               ("knn_bf16", "knn", "patch_attention", "decoder_tail")),
+              ("fused+pallasg+topk1p", (DENSE_BATCH, STREAM_BATCH),
+               ("knn_bf16", "knn", "attention_v1")))
+#: the widened attention kernels off the engine, on seeded rows: (F, K, T,
+#: queries) of the outer corner (nf 16 at attn_patch_extent 6: F = 16·3³ =
+#: 432, K = 32, T = (12/4)³ = 27) and of a narrow unaligned case (rows of 24
+#: bytes in bf16, K = 1: candidate 0 is a noisy copy of the query's own tile,
+#: so that the switch opens); the decoder tail's other general width; the
+#: topk kernel's general k
+WIDE_SHAPES = ((432, 32, 27, 1024), (12, 1, 8, 4096))
+WIDE_TAIL_NF = 6
+WIDE_TOPK_K = (WIDE_K, 32)
+
+
+def seeded_mlp(f: int, seed: int):
+    """An attention MLP (F -> 128 -> 128 -> 128 -> 32) with seeded weights of
+    PyTorch's default law, in float32 on the CPU."""
+    import torch
+    from retrieval_fuse_tpu_torch.models.attention import AttentionFeatureEncoder
+    with torch.random.fork_rng(devices=[]):  # the later phases' draws stay as they were
+        torch.manual_seed(seed)
+        return AttentionFeatureEncoder(f, 32)
+
+
+def run_wide_widths(dev, rng, seed: int, kernels: dict, counters: dict, drive, card: str,
+                    chunks: np.ndarray) -> dict:
+    """Phase 4h, the kernels past their shipped shapes. The flagship
+    geometry at nf 24, K 12 (WIDE_NF, WIDE_K: a seeded bank of SEED_BANK_ROWS
+    rows, seeded weights with phi negated as the flagship's): `base` and
+    each of WIDE_PATHS at its batches, bf16 and float32, through `drive`
+    (every kernel of the path launched, on its general instance; the plain
+    iterative top-k run on no CUDA tensor) and held against `base` (TSDF MAE
+    < 1e-3 and < 1e-5). Then each widened kernel against its plain version
+    on the card: the three attention kernels on the FAST_VARIANT engine's
+    rows (F 192, K 12, T 64) and at WIDE_SHAPES, float32 with hard and with
+    softmax selection and bf16 with both (hold_attention; the switch must
+    be open on most of the engine's rows); the decoder tail on the cdec
+    engine's own input (nf 24) and at nf WIDE_TAIL_NF; the topk kernel at
+    WIDE_TOPK_K on the dense path's 4,096 x 27,132 scores (bit-equal, ties
+    included). Each is timed beside its plain version, its library call
+    where one exists and its bound. Adds the on-path records to `kernels`,
+    whose launches are this phase's; returns the paths' and the off-path
+    shapes' readings."""
+    import torch
+    import torch.nn.functional as F
+    from retrieval_fuse_tpu_torch import inference
+    from retrieval_fuse_tpu_torch.inference import RetrieveRefineEngine, variant_engine_kwargs
+    from retrieval_fuse_tpu_torch.ops import decoder_tail as dt
+    from retrieval_fuse_tpu_torch.ops import knn as knn_ops
+    from retrieval_fuse_tpu_torch.ops import patch_attention as pa
+    from retrieval_fuse_tpu_torch.ops.fused_decoder import depth_to_space_2x
+    from retrieval_fuse_tpu_torch.ops.topk import topk, topk_plain
+    # the retrieval backbone's f_maps follow nf, as in every YAML: its
+    # GroupNorms take nf / 2 groups, which must divide its channels
+    cfg = dict(flagship_config(), nf=WIDE_NF, K=WIDE_K, retrieval_fmaps=WIDE_NF)
+    k, nf, f = WIDE_K, WIDE_NF, 8 * WIDE_NF
+    params = flagship_params(cfg, seed + WIDE_NF)
+    db, bank = flagship_data(cfg, rng, SEED_BANK_ROWS, dev)
+    engines = {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        base_ = RetrieveRefineEngine(cfg, params, db, bank, compute_dtype=dtype, device=dev)
+        engines["base", tag] = base_
+        for variant, _, _ in WIDE_PATHS:
+            engines[variant, tag] = RetrieveRefineEngine(
+                cfg, params, db, compute_dtype=dtype, device=dev,
+                feature_bank=base_.feature_bank, **variant_engine_kwargs(variant))
+    del bank
+    tags = ("bf16", "f32")
+    batches = sorted({b for _, bs, _ in WIDE_PATHS for b in bs})
+    with torch.inference_mode():
+        want = {b: {tag: engines["base", tag](chunks[:b, ..., None]) for tag in tags}
+                for b in batches}
+
+    # the plain top-k on a CUDA tensor, counted while a path runs
+    plain_topk, plain_on_cuda = knn_ops.iterative_topk, [0]
+
+    def counted_topk(sims, k_):
+        plain_on_cuda[0] += int(sims.is_cuda)
+        return plain_topk(sims, k_)
+
+    instance_of = {"attention": pa.gathered_patch_attention,
+                   "attention_v1": pa.gathered_patch_attention_v1,
+                   "patch_attention": pa.patch_attention, "decoder_tail": dt.decoder_tail}
+    launches, paths = dict.fromkeys(counters, 0), {}
+    for variant, bs, needed in WIDE_PATHS:
+        for b in bs:
+            xb, label = chunks[:b, ..., None], f"nf {nf} K {k} {variant} batch {b}"
+            plain_on_cuda[0] = 0
+            knn_ops.iterative_topk = inference.iterative_topk = counted_topk
+            try:
+                got, counts = drive(label, needed, lambda: {
+                    tag: engines[variant, tag](xb) for tag in tags}, into=launches)
+            finally:
+                knn_ops.iterative_topk = inference.iterative_topk = plain_topk
+            check(plain_on_cuda[0] == 0,
+                  f"{label}: the plain iterative top-k ran {plain_on_cuda[0]} times on the card")
+            for name in needed:
+                if name in instance_of:
+                    check(instance_of[name].instance == "general",
+                          f"{label}: {name} ran its {instance_of[name].instance} instance")
+            for tag, o in got.items():
+                check(o.shape == (b, 64, 64, 64, 1) and torch.isfinite(o).all().item(),
+                      f"{label} {tag}: TSDF not finite or of shape {tuple(o.shape)}")
+            mae = {tag: float((got[tag] - want[b][tag]).abs().mean()) for tag in tags}
+            check(mae["bf16"] < 1e-3 and mae["f32"] < 1e-5,
+                  f"{label}: MAE vs base bf16 {mae['bf16']}, f32 {mae['f32']}")
+            eng = engines[variant, "bf16"]
+            rec = dict(mae_vs_base=mae, engine_ms=cuda_ms(lambda: eng(xb), 3), launches=counts)
+            paths[f"{variant}@{b}"] = rec
+            log(f"{label}: TSDF MAE vs base bf16 {mae['bf16']:.2e} (< 1e-3), f32 "
+                f"{mae['f32']:.2e} (< 1e-5); engine {rec['engine_ms']:.2f} ms/batch bf16; "
+                f"launches {counts}, general instances, no plain top-k on the card [{card}]")
+
+    # each attention kernel against its plain version on the FAST_VARIANT
+    # engine's rows at batch 128
+    fast = engines["fused+pallasg2+topk1p", "bf16"]
+    with torch.inference_mode():
+        x = torch.from_numpy(chunks[:STREAM_BATCH, ..., None]).to(dev)
+        top_idx = fast.retrieve(x)
+        x_back = fast.unet_backbone(((x - fast.in_mean) / fast.in_std).bfloat16())
+        xt16 = fast._tile_major_rows(x_back).contiguous()
+    att = fast.attention.attention_blocks_layer
+    q, t_rows, _ = xt16.shape
+    check(xt16.shape[-1] == f, f"nf {nf}: attention rows of F = {xt16.shape[-1]}")
+    theta32, phi32 = [copy.deepcopy(m).float() for m in (att.theta, att.phi)]
+    cases = [(f"F={f} K={k} T={t_rows} Q={q} (the engine's rows)", "engine",
+              xt16, fast.feature_bank, top_idx, att.theta, att.phi, theta32, phi32)]
+    for f_, k_, t_, q_ in WIDE_SHAPES:
+        g = np.random.default_rng([seed, f_, k_])
+        xt_ = torch.from_numpy(g.standard_normal((q_, t_, f_), dtype=np.float32)).to(dev)
+        if k_ == 1:  # candidate 0: a noisy copy of the query's own tile
+            bank_ = xt_ + 0.5 * torch.from_numpy(
+                g.standard_normal((q_, t_, f_), dtype=np.float32)).to(dev)
+            idx_ = torch.arange(q_, dtype=torch.int32, device=dev)[:, None]
+        else:
+            bank_ = torch.from_numpy(g.standard_normal((4 * q_, t_, f_), dtype=np.float32)).to(dev)
+            idx_ = torch.from_numpy(g.integers(0, 4 * q_, (q_, k_)).astype(np.int32)).to(dev)
+        th, ph = seeded_mlp(f_, seed + 1).to(dev), seeded_mlp(f_, seed + 2).to(dev)
+        if k_ == 1:
+            ph.load_state_dict(th.state_dict())
+        cases.append((f"F={f_} K={k_} T={t_} Q={q_}", f"F{f_}", xt_.bfloat16(), bank_.bfloat16(),
+                      idx_, copy.deepcopy(th).bfloat16(), copy.deepcopy(ph).bfloat16(), th, ph))
+    shapes = {}
+    for label, tag, xt_, bank_, idx_, th16, ph16, th32, ph32 in cases:
+        q_, t_, f_ = xt_.shape
+        k_ = idx_.shape[1]
+        n_ = q_ * t_
+        with torch.inference_mode():
+            p_ = bank_[idx_.long()].transpose(1, 2).reshape(n_, k_, f_).contiguous()
+            x_ = xt_.reshape(n_, f_)
+            xt32, bank32 = xt_.float(), bank_.float()
+            for key, name, fn, plain, a32, a16 in (
+                    ("attention", "gathered_patch_attention", pa.gathered_patch_attention,
+                     pa.gathered_patch_attention_plain,
+                     (xt32, bank32, idx_, th32, ph32, k_), (xt_, bank_, idx_, th16, ph16, k_)),
+                    ("attention_v1", "gathered_patch_attention_v1",
+                     pa.gathered_patch_attention_v1, pa.gathered_patch_attention_v1_plain,
+                     (xt32, bank32, idx_, th32, ph32, k_), (xt_, bank_, idx_, th16, ph16, k_)),
+                    ("patch_attention", "patch_attention", pa.patch_attention,
+                     pa.patch_attention_plain,
+                     (x_.float(), p_.float(), th32, ph32, k_), (x_, p_, th16, ph16, k_))):
+                err, share16, switch_open = hold_attention(
+                    f"{name} {label}", fn, plain, a32, a16, "mma.bf16", f32_modes=(True, False))
+                check(fn.instance == "general", f"{name} {label}: the {fn.instance} instance")
+                if tag == "engine":
+                    check(switch_open >= 0.5, f"{name} {label}: the switch is open on only "
+                                              f"{switch_open:.1%} of the rows")
+                ab = attention_bound(q_, t_, k_, f_)
+                old = kernels[key]
+                rec = dict(
+                    name=f"{name}@F{f_}K{k_}T{t_}", route="cuda", math="mma.bf16",
+                    instance="general", source=old["source"], replaces=old["replaces"],
+                    max_abs_err=err, ms=cuda_ms(lambda: fn(*a16), 5),
+                    plain_ms=cuda_ms(lambda: plain(*a16), 2), library_ms=None, bound_ms=ab[0],
+                    bound_by=ab[1], f32_ms=cuda_ms(lambda: fn(*a32), 2),
+                    bf16_agreement=share16, switch_open=switch_open,
+                    shape=f"{'N=' + str(n_) if key == 'patch_attention' else 'Q=' + str(q_)} "
+                          f"T={t_} F={f_} K={k_} bf16 hard")
+                if tag == "engine":
+                    rec["launches"] = launches[key]
+                    kernels[f"{key}_f{f_}"] = rec
+                else:
+                    shapes[f"{key}_{tag}"] = rec
+                log(f"{rec['name']} [mma.bf16, general]: kernel {rec['ms']:.3f} ms, plain "
+                    f"{rec['plain_ms']:.3f} ms, library none, bound {rec['bound_ms']:.3f} ms "
+                    f"({rec['bound_by']}), float32 {rec['f32_ms']:.3f} ms; switch open on "
+                    f"{switch_open:.1%}; launches in 4h "
+                    f"{rec.get('launches', 0) if tag == 'engine' else 'none (off the path)'} "
+                    f"[{rec['shape']}; {card}]")
+            del p_, x_, xt32, bank32
+    del cases, xt16, x_back
+
+    # the decoder tail: on the cdec engines' own input (nf 24, batch 128) and
+    # at nf WIDE_TAIL_NF on seeded rows
+    cdec = {tag: engines[CDEC_VARIANT, tag].fused_decoder for tag in tags}
+    with torch.inference_mode():
+        hn = {}
+        for tag in tags:
+            eng = engines["fused+pallasg2+topk1p", tag]
+            xb = ((x - eng.in_mean) / eng.in_std).to(eng.compute_dtype)
+            hn[tag] = cdec[tag].tail_input(
+                eng._attend(eng.unet_backbone(xb), eng.retrieve(x), STREAM_BATCH))
+        g = np.random.default_rng([seed, WIDE_TAIL_NF])
+        s_ = hn["bf16"].shape[1] - 2
+        h6 = torch.zeros((STREAM_BATCH, s_ + 2, s_ + 2, s_ + 2, 8 * WIDE_TAIL_NF), device=dev)
+        h6[:, 1:-1, 1:-1, 1:-1] = torch.from_numpy(g.standard_normal(
+            (STREAM_BATCH, s_, s_, s_, 8 * WIDE_TAIL_NF), dtype=np.float32)).to(dev)
+        w6 = torch.from_numpy(g.standard_normal((3, 3, 3, WIDE_TAIL_NF, WIDE_TAIL_NF),
+                                                dtype=np.float32) / np.sqrt(27 * WIDE_TAIL_NF))
+        wh6 = torch.from_numpy(g.standard_normal(WIDE_TAIL_NF, dtype=np.float32)
+                               / np.sqrt(WIDE_TAIL_NF))
+        tails = [("engine", nf, {tag: (hn[tag], cdec[tag].w2_dhwio, cdec[tag].w_final,
+                                       cdec[tag].bias_h) for tag in tags}),
+                 (f"nf{WIDE_TAIL_NF}", WIDE_TAIL_NF,
+                  {tag: (h6.to(dt_), w6.to(dev, dt_), wh6.to(dev, dt_), 0.2) for tag, dt_ in
+                   (("bf16", torch.bfloat16), ("f32", torch.float32))})]
+        del hn, h6
+        for tag, nf_, args in tails:
+            errs = {}
+            for dtag in ("f32", "bf16"):
+                got = dt.decoder_tail(*args[dtag])
+                math = dt.kernel_math(args[dtag][0].dtype, nf_, args[dtag][0].shape[1] - 2)
+                check(dt.decoder_tail.instance == "general" and dt.decoder_tail.math == math
+                      and (dtag == "f32" or math == "mma.bf16"),
+                      f"decoder tail nf {nf_} {dtag}: the {dt.decoder_tail.instance} instance, "
+                      f"{dt.decoder_tail.math}")
+                want_ = dt.decoder_tail_plain(*args[dtag])
+                torch.cuda.synchronize()
+                diff = (got - want_).abs()
+                errs[dtag] = float(diff.max())
+                check(errs[dtag] <= (1e-4 if dtag == "f32" else 1e-2),
+                      f"decoder tail nf {nf_} {dtag}: max |diff| {errs[dtag]}")
+                log(f"decoder tail nf {nf_} {dtag} [{math}, general] B={got.shape[0]} "
+                    f"S={got.shape[1]}: max |diff| {errs[dtag]:.2e}, mean {float(diff.mean()):.2e}")
+                del got, want_
+            h16, w2, wh, bias = args["bf16"]
+            s2 = 2 * (h16.shape[1] - 2)
+            h2x = depth_to_space_2x(h16[:, 1:-1, 1:-1, 1:-1], nf_).permute(0, 4, 1, 2, 3) \
+                .contiguous()
+            w_oi = w2.permute(4, 3, 0, 1, 2).contiguous()  # DHWIO -> (out, in, D, H, W)
+            tb = decoder_tail_bound(h16, nf_)
+            rec = dict(
+                name=f"decoder_tail@nf{nf_}", route="cuda", math="mma.bf16", instance="general",
+                source=kernels["decoder_tail"]["source"],
+                replaces=kernels["decoder_tail"]["replaces"], max_abs_err=errs["f32"],
+                bf16_max_abs_err=errs["bf16"],
+                ms=cuda_ms(lambda: dt.decoder_tail(*args["bf16"]), 3),
+                plain_ms=cuda_ms(lambda: dt.decoder_tail_plain(*args["bf16"]), 2),
+                library_ms=cuda_ms(lambda: F.conv3d(h2x, w_oi, padding=1), 5),
+                library_call="F.conv3d of conv2 alone on the unpacked tensor (cuDNN)",
+                bound_ms=tb[0], bound_by=tb[1],
+                f32_ms=cuda_ms(lambda: dt.decoder_tail(*args["f32"]), 2),
+                shape=f"B={h16.shape[0]} S={s2 // 2} nf={nf_} bf16")
+            if tag == "engine":
+                rec["launches"] = launches["decoder_tail"]
+                kernels[f"decoder_tail_nf{nf_}"] = rec
+            else:
+                shapes[f"decoder_tail_{tag}"] = rec
+            log(f"{rec['name']} [mma.bf16, general]: kernel {rec['ms']:.3f} ms, plain "
+                f"{rec['plain_ms']:.3f} ms, library {rec['library_ms']:.3f} ms (cuDNN conv2 "
+                f"alone), bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}), float32 "
+                f"{rec['f32_ms']:.3f} ms [{rec['shape']}; {card}]")
+            del h2x, args
+        del tails
+
+    # the topk kernel at WIDE_TOPK_K on the dense path's scores (batch 64)
+    with torch.inference_mode():
+        x64 = torch.from_numpy(chunks[:DENSE_BATCH, ..., None]).to(dev)
+        sims = fast.embed_queries(x64).float() @ fast._database_f32.T
+    qs, ns = sims.shape
+    for k_ in WIDE_TOPK_K:
+        worst = 0.0
+        for label, s_ in (("scores", sims), ("bf16-tied scores", sims.bfloat16().float())):
+            v, i = topk(s_, k_)
+            pv, pi = topk_plain(s_, k_)
+            torch.cuda.synchronize()
+            check(torch.equal(i, pi) and torch.equal(v, pv),
+                  f"topk k={k_} {label}: kernel differs from plain")
+            worst = max(worst, float((v - pv).abs().max()))
+            ties = int((s_.topk(k_ + 1).values.diff(dim=1) == 0).any(dim=1).sum())
+            log(f"topk k={k_} Q={qs} N={ns} {label}: values and indices bit-equal ({ties} rows "
+                f"with tied top-{k_ + 1} scores)")
+        tb = bound(qs * ns * 4 + qs * k_ * 8, qs * ns, F32_FLOPS)
+        rec = dict(name=f"topk@k{k_}", route="cuda", instance="general",
+                   source=kernels["topk"]["source"], replaces=kernels["topk"]["replaces"],
+                   max_abs_err=worst, ms=cuda_ms(lambda: topk(sims, k_), 20),
+                   plain_ms=cuda_ms(lambda: topk_plain(sims, k_), 3),
+                   library_ms=cuda_ms(lambda: torch.topk(sims, k_), 20),
+                   bound_ms=tb[0], bound_by=tb[1], shape=f"Q={qs} N={ns} k={k_} f32")
+        if k_ == WIDE_K:
+            rec["launches"] = launches["topk"]
+            kernels[f"topk_k{k_}"] = rec
+        else:
+            shapes[f"topk_k{k_}"] = rec
+        log(f"{rec['name']} [general]: kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, "
+            f"library {rec['library_ms']:.3f} ms (torch.topk), bound {rec['bound_ms']:.3f} ms "
+            f"({rec['bound_by']}) [{rec['shape']}; {card}]")
+    del sims, engines, fast, want
+    # the float64 holds' blocks stay reserved by the caching allocator; phase
+    # 11's ranks need that memory for their own contexts on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(paths=paths, shapes=shapes, launches=launches)
 
 
 #: phase 11: ranks of a process group sharing the one card (gloo), the
@@ -3415,9 +3762,7 @@ def main(argv=None) -> int:
         theta32, phi32 = [copy.deepcopy(m).float() for m in (att.theta, att.phi)]
         xt32, bank32 = xt16.float(), fast.feature_bank.float()
         bank16 = fast.feature_bank
-        mlp_flops = 2 * (f * 128 + 2 * 128 * 128 + 128 * 32)
-        attn_bound = bound(2 * (2 * q * t_rows * f + q * k * t_rows * f) + q * k * 4,
-                           q * t_rows * (1 + k) * mlp_flops, BF16_FLOPS)
+        attn_bound = attention_bound(q, t_rows, k, f)
         with torch.inference_mode():
             # gathered attention v2 (kernel 3)
             err, share16, _ = hold_attention(
@@ -3508,8 +3853,7 @@ def main(argv=None) -> int:
             h2x = depth_to_space_2x(h16[:, 1:-1, 1:-1, 1:-1], nf).permute(0, 4, 1, 2, 3) \
                 .contiguous()
             dargs = (h16, d.w2_dhwio, d.w_final, d.bias_h)
-            tail_bound = bound(h16.numel() * 2 + b_ * s2 ** 3 * 4,
-                               b_ * s2 ** 3 * (27 * nf * nf * 2 + 2 * nf), BF16_FLOPS)
+            tail_bound = decoder_tail_bound(h16, nf)
             kernels["decoder_tail"] = dict(
                 name="decoder_tail", route="cuda", math="mma.bf16",
                 source="retrieval_fuse_tpu_torch/csrc/decoder_tail.cu",
@@ -3615,6 +3959,17 @@ def main(argv=None) -> int:
         log(f"phase 4g (nf 4 and 8): {results['phase4g_s']:.1f} s")
 
         stamp("4g")
+        # 4h) the kernels past their shipped shapes: the flagship geometry at
+        # nf 24, K 12 through its paths, and each widened kernel held against
+        # its plain version at the new shapes; a generator of its own
+        t4h = time.perf_counter()
+        results["wide_widths"] = run_wide_widths(
+            dev, np.random.default_rng([args.seed, 16]), args.seed, kernels, counters, drive,
+            card, chunks)
+        results["phase4h_s"] = time.perf_counter() - t4h
+        log(f"phase 4h (nf {WIDE_NF}, K {WIDE_K} and the widened kernels' shapes): "
+            f"{results['phase4h_s']:.1f} s")
+        stamp("4h")
         # 7) the retrieval trainer, then the retrieval pipeline (map ->
         # compose -> evaluate) with its checkpoint, then serving from those
         # artifacts, at the full width of ShapeNetV2's configs, on a synthetic

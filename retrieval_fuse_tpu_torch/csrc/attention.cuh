@@ -573,7 +573,9 @@ __device__ __forceinline__ void normalise_mma(float (&e)[kC / 8][4]) {
 }
 
 // scores[row][k] = xf . l2norm(emb) for the warp's rows g and g + 8; xf is
-// the rows' normalised theta embedding, emb candidate k's MLP result
+// the rows' normalised theta embedding, emb candidate k's MLP result; a row's
+// scores are LD floats apart
+template <int LD = kScoreLd>
 __device__ __forceinline__ void score_mma(const float (&xf)[kC / 8][4],
                                           const float (&emb)[kC / 8][4], float* scores, int k,
                                           int lane) {
@@ -588,19 +590,20 @@ __device__ __forceinline__ void score_mma(const float (&xf)[kC / 8][4],
       s = fmaf(xf[j][2 * h + 1], emb[j][2 * h + 1] / d, s);
     }
     s = rf_mma::quad_sum(s);
-    if (t == 0) scores[(g + 8 * h) * kScoreLd + k] = s;
+    if (t == 0) scores[(g + 8 * h) * LD + k] = s;
   }
 }
 
 // Lane i selects for row row0 + i of a tile with n valid rows: its K scores
-// become its blend weights and scores[i][kMaxK] its switch; its argmax
-// candidate goes to sel_out[row0 + i] if sel_out is not null. The warp's
-// scores must be visible (__syncwarp) before, and its weights after.
-template <bool kHard>
+// (row i's LD floats: K < LD scores, the last its switch) become its blend
+// weights and scores[i][LD - 1] its switch; its argmax candidate goes to
+// sel_out[row0 + i] if sel_out is not null. The warp's scores must be
+// visible (__syncwarp) before, and its weights after.
+template <bool kHard, int LD = kScoreLd>
 __device__ __forceinline__ void select_mma(float* scores, int K, float sharpness, int lane,
                                            int row0, int n, int* __restrict__ sel_out) {
   if (lane < kSlice) {
-    float* s = scores + lane * kScoreLd;
+    float* s = scores + lane * LD;
     float mx = s[0];
     int best = 0;
     for (int k = 1; k < K; ++k) {
@@ -620,7 +623,7 @@ __device__ __forceinline__ void select_mma(float* scores, int K, float sharpness
       }
       for (int k = 0; k < K; ++k) s[k] /= sum;
     }
-    s[kMaxK] = fmaxf(mx, 0.f);
+    s[LD - 1] = fmaxf(mx, 0.f);
     if (sel_out != nullptr && row0 + lane < n) sel_out[row0 + lane] = best;
   }
 }

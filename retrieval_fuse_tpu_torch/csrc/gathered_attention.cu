@@ -30,7 +30,7 @@
 
 #include <type_traits>
 
-#include "attention.cuh"
+#include "attention_general.cuh"
 
 namespace {
 
@@ -91,22 +91,90 @@ int launch(const void* xt, const void* bank, const int* idx, int q, int k,
   }
 }
 
+// ---- the general instance (attention_general.cuh): any F, K, T ----
+
+template <bool kHard>
+__global__ void __launch_bounds__(kThreads, 2)
+gathered_attention_general(const float* __restrict__ xt, const float* __restrict__ bank,
+                           const int* __restrict__ idx, int Q, int T, int K, int F,
+                           const float* __restrict__ w_theta, const float* __restrict__ b_theta,
+                           const float* __restrict__ w_phi, const float* __restrict__ b_phi,
+                           float sharpness, float* __restrict__ out, int* __restrict__ sel_out) {
+  extern __shared__ __align__(16) float smem[];
+  const auto r = BankSlices<float, kT>{xt, bank, idx, Q, T, K, F}(blockIdx.x);
+  attend_tile_general<float, kHard, false>(r, F, smem, w_theta, b_theta, w_phi, b_phi,
+                                           sharpness, out + r.row0 * F,
+                                           sel_out == nullptr ? nullptr : sel_out + r.row0);
+}
+
+template <bool kHard>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+gathered_attention_general_mma(const __nv_bfloat16* __restrict__ xt,
+                               const __nv_bfloat16* __restrict__ bank,
+                               const int* __restrict__ idx, int Q, int T, int K, int F,
+                               const __nv_bfloat16* __restrict__ w_theta,
+                               const float* __restrict__ b_theta,
+                               const __nv_bfloat16* __restrict__ w_phi,
+                               const float* __restrict__ b_phi, float sharpness,
+                               __nv_bfloat16* __restrict__ out, int* __restrict__ sel_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  attend_slices_general<kHard, false>(BankSlices<__nv_bfloat16, kSlice>{xt, bank, idx, Q, T, K, F},
+                                      F, smem_raw, w_theta, b_theta, w_phi, b_phi, sharpness,
+                                      out, sel_out);
+}
+
+template <bool kHard>
+int launch_general(int dtype, const void* xt, const void* bank, const int* idx, int q, int k,
+                   int f, int t, const void* w_theta, const float* b_theta, const void* w_phi,
+                   const float* b_phi, float sharpness, void* out, int* sel, cudaStream_t s) {
+  if (dtype == 0) {
+    const long long tiles = BankSlices<float, kT>{nullptr, nullptr, nullptr, q, t, k, f}.count();
+    return launch_blocks(gathered_attention_general<kHard>, static_cast<int>(tiles), kThreads,
+                         kGSmemBytes, s, static_cast<const float*>(xt),
+                         static_cast<const float*>(bank), idx, q, t, k, f,
+                         static_cast<const float*>(w_theta), b_theta,
+                         static_cast<const float*>(w_phi), b_phi, sharpness,
+                         static_cast<float*>(out), sel);
+  }
+  using T = __nv_bfloat16;
+  cudaError_t err;
+  const int blocks = general_blocks(
+      BankSlices<T, kSlice>{nullptr, nullptr, nullptr, q, t, k, f}.count(), &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_blocks(gathered_attention_general_mma<kHard>, blocks, kMmaThreads,
+                       general_mma_smem<false>(), s, static_cast<const T*>(xt),
+                       static_cast<const T*>(bank), idx, q, t, k, f,
+                       static_cast<const T*>(w_theta), b_theta, static_cast<const T*>(w_phi),
+                       b_phi, sharpness, static_cast<T*>(out), sel);
+}
+
 }  // namespace
 
 // dtype 0: float32, 1: bfloat16 (xt, bank, out, packed weights).
-// xt (q, 64, f), bank (n, 64, f), idx (q, k) int32 in [0, n),
-// w_* packed (f*128 + 128*128*2 + 128*32) in (in, out) layout, b_*
-// (128*3 + 32) float32; sel (q, 64) int32 or null (argmax candidate of each
-// row). f in {96, 128}, 1 <= k <= 8, q >= 1; xt, bank and out 16-byte
-// aligned. bfloat16 runs the tensor-core body, float32 the FMA body. Returns
-// a cudaError_t value.
+// xt (q, t, f), bank (n, t, f), idx (q, k) int32 in [0, n), b_* (128*3 +
+// 32) float32; sel (q, t) int32 or null (argmax candidate of each row);
+// q >= 1; xt, bank and out 16-byte aligned. general 0, the shipped
+// instances: f in {32, 64, 96, 128}, t = 64, 1 <= k <= 8, w_* packed
+// (f*128 + 128*128*2 + 128*32) in (in, out) layout. general 1
+// (attention_general.cuh): 1 <= f <= 1024, 1 <= t <= 512, 1 <= k <= 32, w_*
+// packed as rf_patch_attention's general operands. bfloat16 runs the
+// tensor-core bodies, float32 the FMA bodies. Returns a cudaError_t value.
 extern "C" int rf_gathered_attention(int dtype, const void* xt, const void* bank,
-                                     const int* idx, int q, int k, int f, const void* w_theta,
-                                     const float* b_theta, const void* w_phi,
-                                     const float* b_phi, int hard, float sharpness,
-                                     void* out, int* sel, cudaStream_t stream) {
-  if (k < 1 || k > kMaxK || q < 1 || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+                                     const int* idx, int q, int k, int f, int t, int general,
+                                     const void* w_theta, const float* b_theta,
+                                     const void* w_phi, const float* b_phi, int hard,
+                                     float sharpness, void* out, int* sel,
+                                     cudaStream_t stream) {
+  if (q < 1 || (dtype != 0 && dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (general) {
+    if (k < 1 || k > kGMaxK || f < 1 || f > kGMaxF || t < 1 || t > kGMaxT)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return hard ? launch_general<true>(dtype, xt, bank, idx, q, k, f, t, w_theta, b_theta,
+                                       w_phi, b_phi, sharpness, out, sel, stream)
+                : launch_general<false>(dtype, xt, bank, idx, q, k, f, t, w_theta, b_theta,
+                                        w_phi, b_phi, sharpness, out, sel, stream);
+  }
+  if (k < 1 || k > kMaxK || t != kT) return static_cast<int>(cudaErrorInvalidValue);
   return with_width(f, [&](auto width) {
     constexpr int F = decltype(width)::value;
     if (dtype == 0)

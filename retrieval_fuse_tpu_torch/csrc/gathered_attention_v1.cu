@@ -16,6 +16,13 @@
 // attention.cuh's, the copy and barrier wrappers are mma.cuh's. Rows are
 // F = nf·e³ values, F one of attention.cuh's `with_width` (32, 64, 96 or
 // 128; the entry point takes f and dispatches); a slot is one (64, F) tile.
+// Those shapes at T = 64, K <= 8 (float32: K <= the staging budget below)
+// run the instances described here; every other F in 1..1024, K in 1..32
+// and T in 1..512 runs the general instance (attention_general.cuh), which
+// stages in chunks: bf16 copies each lane's runs of a 32-column chunk one
+// chunk ahead into a double buffer of the warp's by cp.async, float32 a
+// tile's rows 128 columns at a time into the activation buffer. The
+// wrapper chooses, by shape.
 //
 // Bound on the H100: as gathered_attention.cu, 0.282 ms at Q=8192, K=4,
 // bf16 (279 GFLOP of MLP GEMMs at 989 TFLOP/s).
@@ -49,11 +56,12 @@
 // float32, on FMAs (`gathered_attention_v1`; TF32 would cost ~3 decimal
 // digits): attention.cuh's `attend_tile`, one block a tile, whose K
 // candidate tiles (K·256·F bytes beside the body's 96,768 bytes: K <= 4 at
-// F = 128, K <= 5 at F = 96, K <= 8 at F = 64 and 32; the wrapper raises beyond) are copied up front
+// F = 128, K <= 5 at F = 96, K <= 8 at F = 64 and 32; the wrapper sends a
+// larger K to the general instance) are copied up front
 // by one thread, in flight under theta; phi and the blend read them from
 // shared memory.
 
-#include "attention.cuh"
+#include "attention_general.cuh"
 
 namespace {
 
@@ -286,22 +294,90 @@ int launch_bf16(const void* xt, const void* bank, const int* idx, int q, int k,
                        static_cast<T*>(out), sel);
 }
 
+// ---- the general instance (attention_general.cuh): any F, K, T, staged in chunks ----
+
+template <bool kHard>
+__global__ void __launch_bounds__(kThreads, 2)
+gathered_attention_v1_general(const float* __restrict__ xt, const float* __restrict__ bank,
+                              const int* __restrict__ idx, int Q, int T, int K, int F,
+                              const float* __restrict__ w_theta,
+                              const float* __restrict__ b_theta,
+                              const float* __restrict__ w_phi, const float* __restrict__ b_phi,
+                              float sharpness, float* __restrict__ out,
+                              int* __restrict__ sel_out) {
+  extern __shared__ __align__(16) float smem[];
+  const auto r = BankSlices<float, kT>{xt, bank, idx, Q, T, K, F}(blockIdx.x);
+  attend_tile_general<float, kHard, true>(r, F, smem, w_theta, b_theta, w_phi, b_phi,
+                                          sharpness, out + r.row0 * F,
+                                          sel_out == nullptr ? nullptr : sel_out + r.row0);
+}
+
+template <bool kHard>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+gathered_attention_v1_general_mma(const __nv_bfloat16* __restrict__ xt,
+                                  const __nv_bfloat16* __restrict__ bank,
+                                  const int* __restrict__ idx, int Q, int T, int K, int F,
+                                  const __nv_bfloat16* __restrict__ w_theta,
+                                  const float* __restrict__ b_theta,
+                                  const __nv_bfloat16* __restrict__ w_phi,
+                                  const float* __restrict__ b_phi, float sharpness,
+                                  __nv_bfloat16* __restrict__ out, int* __restrict__ sel_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  attend_slices_general<kHard, true>(BankSlices<__nv_bfloat16, kSlice>{xt, bank, idx, Q, T, K, F},
+                                     F, smem_raw, w_theta, b_theta, w_phi, b_phi, sharpness, out,
+                                     sel_out);
+}
+
+template <bool kHard>
+int launch_general(int dtype, const void* xt, const void* bank, const int* idx, int q, int k,
+                   int f, int t, const void* w_theta, const float* b_theta, const void* w_phi,
+                   const float* b_phi, float sharpness, void* out, int* sel, cudaStream_t s) {
+  if (dtype == 0) {
+    const long long tiles = BankSlices<float, kT>{nullptr, nullptr, nullptr, q, t, k, f}.count();
+    return launch_blocks(gathered_attention_v1_general<kHard>, static_cast<int>(tiles), kThreads,
+                         kGSmemBytes, s, static_cast<const float*>(xt),
+                         static_cast<const float*>(bank), idx, q, t, k, f,
+                         static_cast<const float*>(w_theta), b_theta,
+                         static_cast<const float*>(w_phi), b_phi, sharpness,
+                         static_cast<float*>(out), sel);
+  }
+  using E = __nv_bfloat16;
+  cudaError_t err;
+  const int blocks = general_blocks(
+      BankSlices<E, kSlice>{nullptr, nullptr, nullptr, q, t, k, f}.count(), &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_blocks(gathered_attention_v1_general_mma<kHard>, blocks, kMmaThreads,
+                       general_mma_smem<true>(), s, static_cast<const E*>(xt),
+                       static_cast<const E*>(bank), idx, q, t, k, f,
+                       static_cast<const E*>(w_theta), b_theta, static_cast<const E*>(w_phi),
+                       b_phi, sharpness, static_cast<E*>(out), sel);
+}
+
 }  // namespace
 
 // The operands of rf_gathered_attention (gathered_attention.cu), and
-// `scratch`: q * 64 * 32 float32 for bfloat16 (the theta embeddings between
-// the kernel's phases), unused for float32. bfloat16 runs on the tensor
-// cores with 1 <= k <= 8; float32 on FMAs with k * 64 * f * 4 bytes of
-// staging (k <= 4 at f = 128, k <= 5 at f = 96, k <= 8 at f = 64 and 32).
-// Returns a cudaError_t value.
+// `scratch`: q * 64 * 32 float32 for the shipped bfloat16 instance (the
+// theta embeddings between the kernel's phases), unused otherwise. general
+// 0: bfloat16 runs on the tensor cores with 1 <= k <= 8; float32 on FMAs
+// with k * 64 * f * 4 bytes of staging (k <= 4 at f = 128, k <= 5 at
+// f = 96, k <= 8 at f = 64 and 32); t = 64. general 1: 1 <= f <= 1024,
+// 1 <= t <= 512, 1 <= k <= 32, staged in chunks. Returns a cudaError_t value.
 extern "C" int rf_gathered_attention_v1(int dtype, const void* xt, const void* bank,
-                                        const int* idx, int q, int k, int f,
+                                        const int* idx, int q, int k, int f, int t, int general,
                                         const void* w_theta, const float* b_theta,
                                         const void* w_phi, const float* b_phi, int hard,
                                         float sharpness, void* out, int* sel, float* scratch,
                                         cudaStream_t stream) {
-  if (k < 1 || k > kMaxK || q < 1 || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (q < 1 || (dtype != 0 && dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (general) {
+    if (k < 1 || k > kGMaxK || f < 1 || f > kGMaxF || t < 1 || t > kGMaxT)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return hard ? launch_general<true>(dtype, xt, bank, idx, q, k, f, t, w_theta, b_theta,
+                                       w_phi, b_phi, sharpness, out, sel, stream)
+                : launch_general<false>(dtype, xt, bank, idx, q, k, f, t, w_theta, b_theta,
+                                        w_phi, b_phi, sharpness, out, sel, stream);
+  }
+  if (k < 1 || k > kMaxK || t != kT) return static_cast<int>(cudaErrorInvalidValue);
   return with_width(f, [&](auto width) {
     constexpr int F = decltype(width)::value;
     if (dtype == 0)

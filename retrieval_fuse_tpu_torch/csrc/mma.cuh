@@ -101,6 +101,32 @@ __device__ __forceinline__ void cp_async8(void* smem_dst, const void* gmem_src) 
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem_src));
 }
 
+// `src_bytes` (0 or `BYTES`) of the BYTES (4 or 16) at gmem_src to shared
+// memory, asynchronously, the rest of the BYTES zero-filled: a masked copy
+// (attention_general.cuh); with 0 nothing is read
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(void* smem_dst, const void* gmem_src,
+                                               unsigned src_bytes) {
+  static_assert(BYTES == 4 || BYTES == 16, "cp.async sizes");
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
+                 "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem_src),
+                 "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // this thread's cp.async copies have landed (a barrier publishes them)
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");

@@ -8,8 +8,11 @@
 // the candidate rows differs: candidate k of row i is p[i, k, :], so a
 // block's candidate-k rows lie K*F elements apart.
 //
-// Rows are F = nf·e³ values, F one of attention.cuh's `with_width` (32, 64,
-// 96 or 128; the entry point takes f and dispatches).
+// Rows are F = nf·e³ values. The shipped widths (32, 64, 96 or 128,
+// attention.cuh's `with_width`) at K <= 8 run attention.cuh's instances;
+// any other F in 1..1024 and K in 1..32 runs the general instance of
+// attention_general.cuh, in tiles of 64 rows (float32) or slices of 16
+// (bf16) of the row array. The wrapper chooses, by shape.
 //
 // A tile is 64 consecutive rows of x; N need not be a multiple of 64: the
 // last tile's missing rows are zero in the MLPs and never written. The TPU
@@ -28,7 +31,7 @@
 
 #include <type_traits>
 
-#include "attention.cuh"
+#include "attention_general.cuh"
 
 namespace {
 
@@ -91,21 +94,88 @@ int launch(const void* x, const void* p, int n, int k, const void* w_theta,
   }
 }
 
+// ---- the general instance (attention_general.cuh): any F, K ----
+
+template <bool kHard>
+__global__ void __launch_bounds__(kThreads, 2)
+patch_attention_general(const float* __restrict__ x, const float* __restrict__ p, int n, int K,
+                        int F, const float* __restrict__ w_theta,
+                        const float* __restrict__ b_theta, const float* __restrict__ w_phi,
+                        const float* __restrict__ b_phi, float sharpness,
+                        float* __restrict__ out, int* __restrict__ sel_out) {
+  extern __shared__ __align__(16) float smem[];
+  const auto r = PatchSlices<float, kT>{x, p, n, K, F}(blockIdx.x);
+  attend_tile_general<float, kHard, false>(r, F, smem, w_theta, b_theta, w_phi, b_phi,
+                                           sharpness, out + r.row0 * F,
+                                           sel_out == nullptr ? nullptr : sel_out + r.row0);
+}
+
+template <bool kHard>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+patch_attention_general_mma(const __nv_bfloat16* __restrict__ x,
+                            const __nv_bfloat16* __restrict__ p, int n, int K, int F,
+                            const __nv_bfloat16* __restrict__ w_theta,
+                            const float* __restrict__ b_theta,
+                            const __nv_bfloat16* __restrict__ w_phi,
+                            const float* __restrict__ b_phi, float sharpness,
+                            __nv_bfloat16* __restrict__ out, int* __restrict__ sel_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  attend_slices_general<kHard, false>(PatchSlices<__nv_bfloat16, kSlice>{x, p, n, K, F}, F,
+                                      smem_raw, w_theta, b_theta, w_phi, b_phi, sharpness, out,
+                                      sel_out);
+}
+
+template <bool kHard>
+int launch_general(int dtype, const void* x, const void* p, int n, int k, int f,
+                   const void* w_theta, const float* b_theta, const void* w_phi,
+                   const float* b_phi, float sharpness, void* out, int* sel, cudaStream_t s) {
+  if (dtype == 0) {
+    const long long tiles = PatchSlices<float, kT>{nullptr, nullptr, n, k, f}.count();
+    return launch_blocks(patch_attention_general<kHard>, static_cast<int>(tiles), kThreads,
+                         kGSmemBytes, s, static_cast<const float*>(x),
+                         static_cast<const float*>(p), n, k, f,
+                         static_cast<const float*>(w_theta), b_theta,
+                         static_cast<const float*>(w_phi), b_phi, sharpness,
+                         static_cast<float*>(out), sel);
+  }
+  using T = __nv_bfloat16;
+  cudaError_t err;
+  const int blocks =
+      general_blocks(PatchSlices<T, kSlice>{nullptr, nullptr, n, k, f}.count(), &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_blocks(patch_attention_general_mma<kHard>, blocks, kMmaThreads,
+                       general_mma_smem<false>(), s, static_cast<const T*>(x),
+                       static_cast<const T*>(p), n, k, f, static_cast<const T*>(w_theta),
+                       b_theta, static_cast<const T*>(w_phi), b_phi, sharpness,
+                       static_cast<T*>(out), sel);
+}
+
 }  // namespace
 
 // dtype 0: float32, 1: bfloat16 (x, p, out, packed weights).
-// x (n, f), p (n, k, f), w_* packed (f*128 + 128*128*2 + 128*32) in (in, out)
-// layout, b_* (128*3 + 32) float32; sel (n,) int32 or null (argmax
-// candidate of each row). f in {96, 128}, 1 <= k <= 8, n >= 1; x, p and out
-// 16-byte aligned. bfloat16 runs the tensor-core body, float32 the FMA body.
-// Returns a cudaError_t value.
+// x (n, f), p (n, k, f), b_* (128*3 + 32) float32; sel (n,) int32 or null
+// (argmax candidate of each row); n >= 1; x, p and out 16-byte aligned.
+// general 0, the shipped instances: f in {32, 64, 96, 128}, 1 <= k <= 8,
+// w_* packed (f*128 + 128*128*2 + 128*32) in (in, out) layout. general 1
+// (attention_general.cuh): 1 <= f <= 1024, 1 <= k <= 32, w_* packed at
+// fp = f rounded up to 32 (fc0's rows past f zero): fc0 in (in, out) layout
+// for float32, in B-fragment order for bfloat16, then fc1, fc2, out in
+// (in, out) layout. bfloat16 runs the tensor-core bodies, float32 the FMA
+// bodies. Returns a cudaError_t value.
 extern "C" int rf_patch_attention(int dtype, const void* x, const void* p, int n, int k, int f,
-                                  const void* w_theta, const float* b_theta,
+                                  int general, const void* w_theta, const float* b_theta,
                                   const void* w_phi, const float* b_phi, int hard,
                                   float sharpness, void* out, int* sel,
                                   cudaStream_t stream) {
-  if (k < 1 || k > kMaxK || n < 1 || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || (dtype != 0 && dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (general) {
+    if (k < 1 || k > kGMaxK || f < 1 || f > kGMaxF) return static_cast<int>(cudaErrorInvalidValue);
+    return hard ? launch_general<true>(dtype, x, p, n, k, f, w_theta, b_theta, w_phi, b_phi,
+                                       sharpness, out, sel, stream)
+                : launch_general<false>(dtype, x, p, n, k, f, w_theta, b_theta, w_phi, b_phi,
+                                        sharpness, out, sel, stream);
+  }
+  if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   return with_width(f, [&](auto width) {
     constexpr int F = decltype(width)::value;
     if (dtype == 0)

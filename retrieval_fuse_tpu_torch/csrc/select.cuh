@@ -84,6 +84,29 @@ __device__ __forceinline__ void warp_merge(TopK<K>& t, int width, float (&out_v)
   }
 }
 
+// The k-th best (k <= K) of the union of the lists of a warp's 32 lanes
+// into (kv, ki) in every lane, the lists left as they were: warp_merge's
+// rounds on a copy (topk.cu's warp-wide threshold). Every lane takes part.
+template <int K>
+__device__ __forceinline__ void warp_kth(const TopK<K>& t, int k, float& kv, int& ki) {
+  TopK<K> u = t;
+  for (int r = 0; r < k; ++r) {
+    float bv = u.v[0];
+    int bi = u.i[0];
+    for (int off = 16; off > 0; off >>= 1) {
+      float ov = __shfl_xor_sync(kFullMask, bv, off);
+      int oi = __shfl_xor_sync(kFullMask, bi, off);
+      if (better(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    kv = bv;
+    ki = bi;
+    if (u.i[0] == bi && u.v[0] == bv) u.pop_front();
+  }
+}
+
 }  // namespace rf
 
 extern "C" const char* rf_error_string(int err) {

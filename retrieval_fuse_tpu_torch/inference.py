@@ -42,7 +42,7 @@ from retrieval_fuse_tpu_torch.ops.fused_decoder import (
     DecomposedPackedDecoder, FusedFinalDecoder, PackedFinalDecoder)
 from retrieval_fuse_tpu_torch.ops.knn import iterative_topk, use_streaming_knn
 from retrieval_fuse_tpu_torch.ops.streaming_knn import knn_rows, streaming_knn_sims
-from retrieval_fuse_tpu_torch.ops.topk import topk
+from retrieval_fuse_tpu_torch.ops.topk import TOPK_MAX_K, topk
 
 #: attention paths: the plain modules, then the kernels' feeds
 ATTENTIONS = ("modules", "patches", "packedrows", "gathered", "gathered2", "phibank")
@@ -89,16 +89,20 @@ def engine_geometry(config: dict) -> EngineGeometry:
 
 
 def check_kernel_limits(config: dict, device, attention: str, decoder: str,
-                        compute_dtype: torch.dtype = torch.bfloat16) -> None:
+                        compute_dtype: torch.dtype = torch.bfloat16,
+                        topk_impl: str = "iterative") -> None:
     """Raise ValueError when an engine on `device` would launch a CUDA
-    kernel whose limits `config` breaks: the attention kernels of paths
-    `patches` / `packedrows` (patch_attention), `gathered` (v1) and
-    `gathered2` (v2) take F = nf·e³ features a row (one of the widths they
-    are built for), an F -> hidden -> hidden -> hidden -> C MLP, K
-    candidates, and the gathered ones T rows a tile; the decoder tail
-    (`compact`) takes nf and a coarse grid S. The limits are the constants
-    the kernel wrappers check. On the CPU every path runs the plain
-    versions, which take any width."""
+    kernel whose limits `config` breaks, naming the kernel and the value:
+    the attention kernels of paths `patches` / `packedrows`
+    (patch_attention), `gathered` (v1) and `gathered2` (v2) take F = nf·e³
+    in 1..1024 features a row, an F -> 128 -> 128 -> 128 -> 32 MLP, K in
+    1..32 candidates and, the gathered ones, T in 1..512 rows a tile; the
+    decoder tail (`compact`) takes nf in 1..64 and a coarse grid S <= 80;
+    the topk kernel (`single_pass`, the dense kNN's select) takes K in
+    1..32. Inside those limits every shape runs: the shipped ones on their
+    own kernel instances, the others on the general ones. The limits are
+    the constants the kernel wrappers check. On the CPU every path runs the
+    plain versions, which take any width."""
     if torch.device(device).type != "cuda":
         return
     token = dict((v, t) for t, v in ATTENTION_TOKENS + DECODER_TOKENS)
@@ -109,30 +113,32 @@ def check_kernel_limits(config: dict, device, attention: str, decoder: str,
         t = (geo.attn_num_patch // geo.n_fold) ** 3
         gathered = attention in ("gathered", "gathered2")
         f = nf * e ** 3
-        max_k = pa.KERNEL_MAX_K
-        if attention == "gathered" and compute_dtype == torch.float32:
-            max_k = pa.V1_F32_MAX_K.get(f, pa.KERNEL_MAX_K)
-        if (f not in pa.KERNEL_FEATURE_WIDTHS or not 1 <= k <= max_k
-                or (gathered and t != pa.KERNEL_ROWS)):
+        if (not 1 <= f <= pa.KERNEL_MAX_F or not 1 <= k <= pa.KERNEL_MAX_K
+                or (gathered and not 1 <= t <= pa.KERNEL_MAX_T)):
             kernel = {"patches": "patch_attention", "packedrows": "patch_attention",
                       "gathered": "gathered_attention_v1",
                       "gathered2": "gathered_attention"}[attention]
             raise ValueError(
                 f"variant token {token[attention]!r} (attention {attention!r}) runs the "
-                f"{kernel} kernel, which takes F in {pa.KERNEL_FEATURE_WIDTHS} features a "
-                f"row, hidden {pa.KERNEL_HIDDEN}, C = {pa.KERNEL_EMBED}, K <= {max_k}"
-                + (f", T = {pa.KERNEL_ROWS} rows a tile" if gathered else "")
+                f"{kernel} kernel, which takes F in 1..{pa.KERNEL_MAX_F} features a row, "
+                f"hidden {pa.KERNEL_HIDDEN}, C = {pa.KERNEL_EMBED}, K in 1..{pa.KERNEL_MAX_K}"
+                + (f", T in 1..{pa.KERNEL_MAX_T} rows a tile" if gathered else "")
                 + f"; this config gives F = nf·e³ = {f}, K = {k}"
                 + (f", T = {t}" if gathered else "")
                 + "; serve it with another attention path or on the CPU")
     if decoder == "compact":
         s = geo.coarse_grid
-        if nf not in dt.KERNEL_NF or s > dt.KERNEL_MAX_S:
+        if not 1 <= nf <= dt.KERNEL_MAX_NF or s > dt.KERNEL_MAX_S:
             raise ValueError(
                 f"variant token {token[decoder]!r} (decoder {decoder!r}) runs the "
-                f"decoder_tail kernel, which takes nf in {dt.KERNEL_NF} and S <= "
+                f"decoder_tail kernel, which takes nf in 1..{dt.KERNEL_MAX_NF} and S <= "
                 f"{dt.KERNEL_MAX_S}; this config gives nf = {nf}, S = {s}; serve it "
                 f"with another decoder or on the CPU")
+    if topk_impl == "single_pass" and not 1 <= k <= TOPK_MAX_K:
+        raise ValueError(
+            f"variant token 'topk1p' (topk_impl 'single_pass') runs the topk kernel, which "
+            f"takes k in 1..{TOPK_MAX_K}; this config gives K = {k}; serve it with another "
+            f"select or on the CPU")
 
 
 class RetrieveRefineEngine:
@@ -177,7 +183,7 @@ class RetrieveRefineEngine:
         """
         self.mesh = mesh
         self.device = mesh.device if mesh is not None else resolve_device(device)
-        check_kernel_limits(config, self.device, attention, decoder, compute_dtype)
+        check_kernel_limits(config, self.device, attention, decoder, compute_dtype, topk_impl)
         self.compute_dtype = cd = compute_dtype
         self.K = config["K"]
         dtr = config["dataset_train"]

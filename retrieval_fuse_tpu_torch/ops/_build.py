@@ -46,7 +46,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "--split-compile=0")
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_GATHERED_ARGS = [_i, _p, _p, _p, _i, _i, _i, _p, _p, _p, _p, _i, _f, _p, _p, _p]
+#: dtype, xt, bank, idx, q, k, f, t, general, the weights and biases, hard,
+#: sharpness, out, sel, stream
+_GATHERED_ARGS = [_i, _p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p, _p, _i, _f, _p, _p, _p]
 #: kernel name -> (source, C entry point, its argtypes; the stream comes last)
 KERNELS = {
     "topk": ("topk.cu", "rf_topk", [_p, _p, _p, _i, _i, _i, _p]),
@@ -55,9 +57,9 @@ KERNELS = {
     "gathered_attention_v1": ("gathered_attention_v1.cu", "rf_gathered_attention_v1",
                               _GATHERED_ARGS[:-1] + [_p, _p]),  # + its scratch
     "patch_attention": ("patch_attention.cu", "rf_patch_attention",
-                        [_i, _p, _p, _i, _i, _i, _p, _p, _p, _p, _i, _f, _p, _p, _p]),
+                        [_i, _p, _p, _i, _i, _i, _i, _p, _p, _p, _p, _i, _f, _p, _p, _p]),
     "decoder_tail": ("decoder_tail.cu", "rf_decoder_tail",
-                     [_i, _p, _p, _p, _f, _i, _i, _i, _p, _p]),
+                     [_i, _p, _p, _p, _f, _i, _i, _i, _i, _p, _p]),
     "chamfer": ("chamfer.cu", "rf_chamfer", [_p, _p, _p, _p, _p, _p, _i, _i, _i, _p]),
 }
 

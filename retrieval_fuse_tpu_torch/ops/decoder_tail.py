@@ -18,6 +18,15 @@ path of the last launch. Its bound on the H100 at batch 128 (S=32, nf=16)
 is 0.47 ms of bf16 tensor-core work (465 GFLOP) against 0.43 ms of bytes
 (1.42 GB); the tensor-core body is held by its conv loop of `mma.sync` and
 fragment loads, ~2.4x the bound (csrc/decoder_tail.cu; times in PERF.md).
+The kernel takes any nf in 1..KERNEL_MAX_NF (64) and S <= KERNEL_MAX_S:
+the shipped widths (KERNEL_NF) launch the instances above, every other nf
+a general instance: in bf16 up to nf 32 the tensor-core body at one or two
+groups of 16 channels (zero-padded, as nf 12 is) where its slab fits
+(general_tensor_core: nf <= 16 at any S, nf <= 32 at S <= 32), elsewhere
+the FMA body walking the input channels in chunks of 8 with its sums
+padded to a multiple of 8 channels (csrc/decoder_tail.cu says why the
+tensor-core body stops there).
+`decoder_tail.instance` names the instance of the last launch.
 
 `decoder_tail` launches the kernel on CUDA tensors and runs
 `decoder_tail_plain` on CPU tensors; it never falls back from one to the
@@ -42,16 +51,42 @@ import torch.nn.functional as F
 from retrieval_fuse_tpu_torch.ops import _build
 from retrieval_fuse_tpu_torch.ops.fused_decoder import FusedFinalDecoder, _groups, group_moments
 
-KERNEL_NF = (4, 8, 12, 16)  # the kernel's conv widths
+KERNEL_NF = (4, 8, 12, 16)  # the shipped conv widths, which have instances of their own
+KERNEL_MAX_NF = 64  # every other nf up to this runs the general instance
 KERNEL_MAX_S = 80  # the largest coarse grid whose slab fits a block's shared memory
 MMA_NF = (12, 16)  # the widths whose bf16 launch runs on the tensor cores
 
 
-def kernel_math(dtype: torch.dtype, nf: int) -> str:
-    """The instruction path of csrc/decoder_tail.cu for an input of `dtype`
-    and conv width nf: its dispatch sends bf16 at nf 12 and 16 to the
-    tensor-core body and everything else to the float32-FMA body."""
-    return "mma.bf16" if dtype == torch.bfloat16 and nf in MMA_NF else "fma.f32"
+def general_tensor_core(nf: int, s: int) -> bool:
+    """Whether the general tensor-core instance of csrc/decoder_tail.cu
+    takes conv width nf and coarse grid S: nf <= 32, in G = ceil(nf / 16)
+    groups of 16 channels, where the B fragments of every tap (27·G²·512
+    bytes), the head and one slab of 6 x 6 rows of (2S rounded up to 32) + 2
+    voxels of 32·G bytes fit a block's 232,448 bytes (the kernel's
+    `launch_mma_g`)."""
+    g = -(-nf // 16)
+    pitch = (2 * s + 31) // 32 * 32 + 2
+    return g <= 2 and 27 * g * g * 512 + 64 * g + 36 * pitch * 32 * g <= 232448
+
+
+def kernel_instance(dtype: torch.dtype, nf: int, s: int) -> int:
+    """The instance of csrc/decoder_tail.cu that the wrapper launches for an
+    input of `dtype`, conv width nf and coarse grid S: 0, the shipped ones
+    (nf in KERNEL_NF); 2, the general tensor-core body (bf16 where
+    general_tensor_core); 1, the general FMA body (everything else)."""
+    if nf in KERNEL_NF:
+        return 0
+    return 2 if dtype == torch.bfloat16 and general_tensor_core(nf, s) else 1
+
+
+def kernel_math(dtype: torch.dtype, nf: int, s: int = 32) -> str:
+    """The instruction path of csrc/decoder_tail.cu for an input of `dtype`,
+    conv width nf and coarse grid S: bf16 at nf 12 and 16 and on the
+    general tensor-core instance runs `mma.sync`, everything else a
+    float32-FMA body."""
+    instance = kernel_instance(dtype, nf, s)
+    tensor_core = instance == 2 or (instance == 0 and dtype == torch.bfloat16 and nf in MMA_NF)
+    return "mma.bf16" if tensor_core else "fma.f32"
 
 _YS = (-1, 0, 1, 2)  # 2x-grid tap offsets reachable from a packed position
 #: the JAX helper's im2col row-block order: y2-major, then y0, y1
@@ -134,8 +169,9 @@ def decoder_tail(hn_pad: torch.Tensor, w2: torch.Tensor, wh: torch.Tensor,
                          f"got {tuple(hn_pad.shape)}")
     b, s, c8 = hn_pad.shape[0], hn_pad.shape[1] - 2, hn_pad.shape[-1]
     nf = c8 // 8
-    if c8 % 8 or nf not in KERNEL_NF:
-        raise ValueError(f"decoder_tail: the kernel takes nf in {KERNEL_NF}, got {c8} channels")
+    if c8 % 8 or not 1 <= nf <= KERNEL_MAX_NF:
+        raise ValueError(f"decoder_tail: the kernel takes nf in 1..{KERNEL_MAX_NF}, got {c8} "
+                         f"channels")
     if s > KERNEL_MAX_S:
         raise ValueError(f"decoder_tail: the kernel takes S <= {KERNEL_MAX_S}, got S = {s}")
     if tuple(w2.shape) != (3, 3, 3, nf, nf) or tuple(wh.shape) != (nf,):
@@ -147,16 +183,19 @@ def decoder_tail(hn_pad: torch.Tensor, w2: torch.Tensor, wh: torch.Tensor,
     if b == 0:
         return out
     w2f, whf = w2.float().contiguous(), wh.float().contiguous()
+    instance = kernel_instance(hn_pad.dtype, nf, s)
     _build.launch("decoder_tail", dev, 0 if hn_pad.dtype == torch.float32 else 1,
                   hn_pad.data_ptr(), w2f.data_ptr(), whf.data_ptr(), float(bias), b, s, nf,
-                  out.data_ptr())
+                  instance, out.data_ptr())
     decoder_tail.launches += 1
-    decoder_tail.math = kernel_math(hn_pad.dtype, nf)
+    decoder_tail.math = kernel_math(hn_pad.dtype, nf, s)
+    decoder_tail.instance = "general" if instance else "shipped"
     return out
 
 
 decoder_tail.launches = 0
 decoder_tail.math = None  # the instruction path of the last launch
+decoder_tail.instance = None  # "shipped" or "general": the instance of the last launch
 
 
 class CompactPackedDecoder(FusedFinalDecoder):

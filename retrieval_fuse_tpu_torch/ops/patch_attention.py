@@ -39,39 +39,54 @@ and then turns theta's bytes into rings of candidate tiles that one thread
 a ring fills with `cp.async.bulk` ahead of the warps
 (csrc/gathered_attention_v1.cu). In float32 (TF32 would cost ~3 decimal
 digits) the body multiplies with float32 FMAs from shared memory; v1 then
-stages a tile's K candidates whole, which caps K at 4 (F = 128) or 5 (F =
-96); at F = 64 and 32 the wrappers' K <= 8 holds. Each wrapper's `.math`
+stages a tile's K candidates whole, which its shipped instance can do for K
+up to 4 (F = 128), 5 (F = 96) or 8 (F = 64 and 32). Each wrapper's `.math`
 names the path of its last launch. The TPU workarounds are not carried
 over: the 512-row padding of N, the flattened index operand, the padding of
 Q to a group multiple.
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 PyTorch version on CPU tensors; it never falls back from one to the other.
-The kernels take F in KERNEL_FEATURE_WIDTHS, hidden 128, C=32 (every
-shipped config), T=64 for the gathered ones, and raise on anything else;
-the plain versions take any.
+The kernels take hidden 128 and C = 32 (the attention module's own), any
+F in 1..KERNEL_MAX_F (1024), K in 1..KERNEL_MAX_K (32) and, the gathered
+ones, T in 1..KERNEL_MAX_T (512) rows a tile, and raise on anything else;
+the plain versions take any. The shipped shapes (F in SHIPPED_WIDTHS, K <=
+SHIPPED_MAX_K, T = KERNEL_ROWS; v1 in float32 also K <= V1_F32_MAX_K[F])
+launch the instances described above; every other shape launches each
+kernel's general instance (csrc/attention_general.cuh: layer 0 padded to a
+multiple of 32 with zero rows by `_pack` and read from global memory in
+fragment order, layers 1-3 resident, masked row loads, K and T sized at run
+time). `.instance` names the instance of a wrapper's last launch.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from retrieval_fuse_tpu_torch.ops import _build
 
-#: what the kernels take (the plain versions take any): T rows a tile (the
-#: gathered kernels), MLP hidden width, C embedding width, K candidates, and
-#: the widths F of a row they are built for (nf·e³ at e = 2: nf 4, 8, 12 and
-#: 16; csrc/attention.cuh `with_width`)
-KERNEL_ROWS, KERNEL_HIDDEN, KERNEL_EMBED = 64, 128, 32
-KERNEL_MAX_K = 8
-KERNEL_FEATURE_WIDTHS = (32, 64, 96, 128)
-#: shared memory for gathered_patch_attention_v1's float32 staging (K whole
-#: tiles), and the K it takes in float32 at each width (KERNEL_MAX_K at most)
+#: the MLP's hidden and embedding widths, which every kernel instance takes
+KERNEL_HIDDEN, KERNEL_EMBED = 128, 32
+#: what the kernels take (the plain versions take any): row width F, K
+#: candidates, T rows a tile of the gathered kernels
+KERNEL_MAX_F, KERNEL_MAX_K, KERNEL_MAX_T = 1024, 32, 512
+#: the shipped shapes, which launch instances of their own
+#: (csrc/attention.cuh): F = nf·e³ at e = 2 for nf 4, 8, 12 and 16
+#: (`with_width`), K <= 8, T = 64
+SHIPPED_WIDTHS = (32, 64, 96, 128)
+SHIPPED_MAX_K = 8
+KERNEL_ROWS = 64
+#: shared memory for gathered_patch_attention_v1's shipped float32 staging
+#: (K whole tiles), and the K it takes at each width (SHIPPED_MAX_K at
+#: most); a larger K launches v1's general instance
 V1_STAGE_BYTES = 128 * 1024
-V1_F32_MAX_K = {f: min(KERNEL_MAX_K, V1_STAGE_BYTES // (KERNEL_ROWS * f * 4))
-                for f in KERNEL_FEATURE_WIDTHS}
+V1_F32_MAX_K = {f: min(SHIPPED_MAX_K, V1_STAGE_BYTES // (KERNEL_ROWS * f * 4))
+                for f in SHIPPED_WIDTHS}
 _LAYERS = ("fc0", "fc1", "fc2", "out")
 
 
@@ -163,12 +178,57 @@ def gathered_patch_attention_plain(xt, bank_rows, top_idx, theta, phi, K: int,
 gathered_patch_attention_v1_plain = gathered_patch_attention_plain
 
 
-def _pack(w: nn.Module, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+@functools.lru_cache(maxsize=None)
+def _layer0_fragment_index(fp: int) -> torch.Tensor:
+    """Where each bf16 of layer 0's B-fragment order comes from in the
+    (fp, 128) row-major fc0: word i (lane (g, t), slot r of k16 step s and
+    n8-tile pair jp) holds W[k][n] and W[k+1][n], n = 8·(2jp + r/2) + g,
+    k = 32·(s/2) + 8t + 4·(s&1) + 2·(r&1): the order of csrc/attention.cuh's
+    `stage_fragments` for layer 0, whose k is permuted so that a lane's A
+    fragments of two k16 steps are one run of 8 columns of its row."""
+    i = np.arange(fp * KERNEL_HIDDEN // 2)
+    r, lane, sj = i & 3, (i >> 2) & 31, i >> 7
+    jp, s = sj % (KERNEL_HIDDEN // 16), sj // (KERNEL_HIDDEN // 16)
+    g, t = lane >> 2, lane & 3
+    n = 8 * (2 * jp + (r >> 1)) + g
+    k = 32 * (s >> 1) + 8 * t + 4 * (s & 1) + 2 * (r & 1)
+    return torch.from_numpy(np.stack([k * KERNEL_HIDDEN + n, (k + 1) * KERNEL_HIDDEN + n],
+                                     axis=1).reshape(-1))
+
+
+def _pack(w: nn.Module, dtype: torch.dtype,
+          general: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """An attention MLP -> (weights in (in, out) layout, concatenated, in
-    `dtype`; biases, concatenated, float32): the kernel's operand layout."""
-    weights = torch.cat([getattr(w, n).weight.T.reshape(-1) for n in _LAYERS])
+    `dtype`; biases, concatenated, float32): the kernel's operand layout.
+
+    `general` (the general instances): fc0 gets zero rows up to Fp, F
+    rounded up to 32, so that layer 0 runs in whole 32-column chunks (a zero
+    row times a zero input column adds an exact 0), and in bf16 it is laid
+    out in B-fragment order (_layer0_fragment_index), which the tensor-core
+    body reads from global memory."""
+    layers = [getattr(w, n).weight.T for n in _LAYERS]
+    if general:
+        f = layers[0].shape[0]
+        fp = -(-f // 32) * 32
+        w0 = F.pad(layers[0], (0, 0, 0, fp - f)).to(dtype)
+        if dtype == torch.bfloat16:
+            w0 = w0.reshape(-1)[_layer0_fragment_index(fp).to(w0.device)]
+        layers[0] = w0
+    weights = torch.cat([layer.reshape(-1).to(dtype) for layer in layers])
     biases = torch.cat([getattr(w, n).bias.reshape(-1) for n in _LAYERS])
-    return weights.to(dtype).contiguous(), biases.float().contiguous()
+    return weights.contiguous(), biases.float().contiguous()
+
+
+def is_shipped_shape(kernel: str, f: int, k: int, t: int | None = None,
+                     dtype: torch.dtype = torch.bfloat16) -> bool:
+    """True where attention kernel `kernel` (a `_build.KERNELS` name) runs
+    its shipped instance for rows of F = f, K = k, T = t rows a tile (the
+    gathered kernels) and `dtype`; every other shape in the kernels' domain
+    runs the general instance."""
+    shipped = f in SHIPPED_WIDTHS and 1 <= k <= SHIPPED_MAX_K and t in (None, KERNEL_ROWS)
+    if kernel == "gathered_attention_v1" and dtype == torch.float32 and shipped:
+        shipped = k <= V1_F32_MAX_K[f]
+    return shipped
 
 
 def kernel_math(kernel: str, dtype: torch.dtype) -> str:
@@ -197,8 +257,8 @@ def _check_kernel_operands(name: str, rows: torch.Tensor, cands: torch.Tensor, i
     if rows.data_ptr() % 16 or cands.data_ptr() % 16:
         raise ValueError(f"{name}: rows and candidates must be 16-byte aligned")
     f = rows.shape[-1]
-    if f not in KERNEL_FEATURE_WIDTHS:
-        raise ValueError(f"{name}: the kernel takes rows of F in {KERNEL_FEATURE_WIDTHS} "
+    if not 1 <= f <= KERNEL_MAX_F:
+        raise ValueError(f"{name}: the kernel takes rows of F in 1..{KERNEL_MAX_F} "
                          f"features, got F = {f}")
     for w in (theta, phi):
         h = KERNEL_HIDDEN
@@ -211,17 +271,17 @@ def _check_kernel_operands(name: str, rows: torch.Tensor, cands: torch.Tensor, i
     return f
 
 
-def _launch(kernel: str, rows: torch.Tensor, operands: tuple, theta, phi,
+def _launch(kernel: str, rows: torch.Tensor, operands: tuple, general: bool, theta, phi,
             retrieval_mode: bool, sharpness: float, out: torch.Tensor, sel,
             scratch: tuple = ()) -> str:
-    """Launch `kernel` (`scratch`: its scratch tensors, after the outputs);
-    returns the instruction path it took."""
-    w_theta, b_theta = _pack(theta, rows.dtype)
-    w_phi, b_phi = _pack(phi, rows.dtype)
+    """Launch `kernel`'s shipped or general instance (`scratch`: its scratch
+    tensors, after the outputs); returns the instruction path it took."""
+    w_theta, b_theta = _pack(theta, rows.dtype, general)
+    w_phi, b_phi = _pack(phi, rows.dtype, general)
     _build.launch(kernel, rows.device, 0 if rows.dtype == torch.float32 else 1, *operands,
-                  w_theta.data_ptr(), b_theta.data_ptr(), w_phi.data_ptr(), b_phi.data_ptr(),
-                  int(bool(retrieval_mode)), float(sharpness), out.data_ptr(),
-                  None if sel is None else sel.data_ptr(),
+                  int(general), w_theta.data_ptr(), b_theta.data_ptr(), w_phi.data_ptr(),
+                  b_phi.data_ptr(), int(bool(retrieval_mode)), float(sharpness),
+                  out.data_ptr(), None if sel is None else sel.data_ptr(),
                   *(None if t is None else t.data_ptr() for t in scratch))
     return kernel_math(kernel, rows.dtype)
 
@@ -246,9 +306,10 @@ def patch_attention(x: torch.Tensor, p: torch.Tensor, theta: nn.Module, phi: nn.
     out = torch.empty_like(x)
     sel = torch.empty((n,), dtype=torch.int32, device=x.device) if return_selection else None
     if n > 0:
-        patch_attention.math = _launch("patch_attention", x,
-                                       (x.data_ptr(), p.data_ptr(), n, K, f),
-                                       theta, phi, retrieval_mode, sharpness, out, sel)
+        general = not is_shipped_shape("patch_attention", f, K, dtype=x.dtype)
+        patch_attention.math = _launch("patch_attention", x, (x.data_ptr(), p.data_ptr(), n, K, f),
+                                       general, theta, phi, retrieval_mode, sharpness, out, sel)
+        patch_attention.instance = "general" if general else "shipped"
         patch_attention.launches += 1
     return (out, sel) if return_selection else out
 
@@ -260,31 +321,27 @@ def _gathered(wrapper, name: str, xt, bank_rows, top_idx, theta, phi, K, retriev
     the kernel is v1, whose float32 launch stages K whole tiles and whose
     bf16 launch takes a (Q, T, C) float32 scratch for theta's embeddings."""
     feats = _check_kernel_operands(name, xt, bank_rows, top_idx, theta, phi)
-    rows = KERNEL_ROWS
-    q = xt.shape[0]
-    if (xt.dim() != 3 or tuple(xt.shape[1:]) != (rows, feats) or bank_rows.dim() != 3
+    q, rows = xt.shape[0], xt.shape[1] if xt.dim() == 3 else 0
+    if (xt.dim() != 3 or not 1 <= rows <= KERNEL_MAX_T or bank_rows.dim() != 3
             or tuple(bank_rows.shape[1:]) != (rows, feats)):
-        raise ValueError(f"{name}: the kernel takes (·, {rows}, {feats}) rows, got "
-                         f"{tuple(xt.shape)} and {tuple(bank_rows.shape)}")
+        raise ValueError(f"{name}: the kernel takes (·, T, F) rows and bank tiles with T in "
+                         f"1..{KERNEL_MAX_T}, got {tuple(xt.shape)} and {tuple(bank_rows.shape)}")
     if (top_idx.dtype != torch.int32 or tuple(top_idx.shape) != (q, K)
             or not 1 <= K <= KERNEL_MAX_K):
         raise ValueError(f"{name}: top_idx must be int32 ({q}, {K}) with 1 <= K <= "
                          f"{KERNEL_MAX_K}, got {top_idx.dtype} {tuple(top_idx.shape)}")
+    general = not is_shipped_shape(name, feats, K, rows, xt.dtype)
     scratch = ()
-    if staged and xt.dtype == torch.float32:
-        if K > V1_F32_MAX_K[feats]:
-            raise ValueError(f"{name}: K={K} float32 candidate tiles of F = {feats} exceed the "
-                             f"{V1_STAGE_BYTES}-byte staging area (K <= {V1_F32_MAX_K[feats]} "
-                             f"in float32)")
-        scratch = (None,)
-    elif staged:
-        scratch = (torch.empty((q, rows, KERNEL_EMBED), dtype=torch.float32, device=xt.device),)
+    if staged:  # the shipped bf16 instance keeps theta's embeddings here
+        scratch = (torch.empty((q, rows, KERNEL_EMBED), dtype=torch.float32, device=xt.device)
+                   if xt.dtype == torch.bfloat16 and not general and q > 0 else None,)
     out = torch.empty_like(xt)
     sel = torch.empty((q, rows), dtype=torch.int32, device=xt.device) if return_selection else None
     if q > 0:
         wrapper.math = _launch(name, xt, (xt.data_ptr(), bank_rows.data_ptr(),
-                                          top_idx.data_ptr(), q, K, feats),
-                               theta, phi, retrieval_mode, sharpness, out, sel, scratch)
+                                          top_idx.data_ptr(), q, K, feats, rows),
+                               general, theta, phi, retrieval_mode, sharpness, out, sel, scratch)
+        wrapper.instance = "general" if general else "shipped"
         wrapper.launches += 1
     return (out, sel) if return_selection else out
 
@@ -313,8 +370,9 @@ def gathered_patch_attention_v1(xt: torch.Tensor, bank_rows: torch.Tensor,
                                 K: int, retrieval_mode: bool = True,
                                 sharpness: float = 1024.0, return_selection: bool = False):
     """gathered_patch_attention's function, through the kernel that stages
-    candidate tiles in shared memory with bulk asynchronous copies (bf16: a
-    ring, K <= 8; float32: a tile's K candidates whole, K <= V1_F32_MAX_K[F])."""
+    candidate rows in shared memory: at the shipped shapes whole tiles by
+    bulk asynchronous copies (bf16: a ring; float32: a tile's K candidates
+    whole, K <= V1_F32_MAX_K[F]), elsewhere in chunks by cp.async."""
     if xt.device.type == "cpu" and bank_rows.device.type == "cpu":
         out, sel = gathered_patch_attention_v1_plain(xt, bank_rows, top_idx, theta, phi, K,
                                                      retrieval_mode, sharpness)
@@ -327,3 +385,4 @@ def gathered_patch_attention_v1(xt: torch.Tensor, bank_rows: torch.Tensor,
 for _wrapper in (patch_attention, gathered_patch_attention, gathered_patch_attention_v1):
     _wrapper.launches = 0
     _wrapper.math = None  # the instruction path of the wrapper's last launch
+    _wrapper.instance = None  # "shipped" or "general": the instance of its last launch

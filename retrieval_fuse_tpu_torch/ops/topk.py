@@ -6,7 +6,11 @@ the score matrix once; its bound on the H100 is that read (bytes: Q·N·4 at
 3.35 TB/s, ~0.13 ms at Q=4096, N=27,132). One warp per row keeps a running
 top-k in registers and merges the lanes with shuffles, since CUDA blocks
 cannot carry state from one grid step to the next as the TPU grid did.
-Ties go to the lower column, exactly as in jax.lax.top_k.
+Ties go to the lower column, exactly as in jax.lax.top_k. It takes every k
+from 1 to 32 (TOPK_MAX_K), as the JAX select takes any k the engine is
+configured with: k <= 8 (every shipped config's K and `map`'s 2K) launches an
+instance of its own, 9 <= k <= 32 the general instance of 16 or 32 slots a
+lane, whose first k are the top k under the same tie order.
 
 `topk` launches the kernel on CUDA tensors and runs `topk_plain` on CPU
 tensors; it never falls back from one to the other.
@@ -19,7 +23,7 @@ import torch
 from retrieval_fuse_tpu_torch.ops import _build
 from retrieval_fuse_tpu_torch.ops.knn import iterative_topk
 
-TOPK_MAX_K = 8  # the largest k the kernel takes
+TOPK_MAX_K = 32  # the largest k the kernel takes
 
 
 def topk_plain(sims: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,6 +1,9 @@
 """The port's seven CUDA kernels against their plain PyTorch versions, on a
 CUDA card (skipped elsewhere: the kernels have no CPU mode), the attention
-kernels at F = 128, 96, 64 and 32 and the decoder tail at nf 4, 8, 12 and 16. This file imports
+kernels at F = 128, 96, 64 and 32 and the decoder tail at nf 4, 8, 12 and 16
+(their shipped instances), and the general instances at the widths past
+them (F up to 1024, K up to 32, T other than 64, nf up to 64, topk k up to
+32). This file imports
 neither JAX nor the JAX package, so it runs where only PyTorch is:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py
@@ -351,12 +354,20 @@ def test_gathered_attention_v1_kernel_matches_plain(cuda, retrieval_mode, dtype)
 
 
 def test_gathered_attention_v1_raises_past_its_staging_budget(cuda):
-    """K=5 float32 candidate tiles (160 KB) do not fit beside the activations;
-    bf16 stages candidate by candidate and takes every K the body does."""
+    """K=5 float32 candidate tiles (160 KB) do not fit beside the shipped
+    instance's activations: the wrapper sends them to the general instance,
+    which stages in chunks; bf16 stages candidate by candidate and takes
+    K = 8 on its shipped instance and K = 9 on the general one. Past K = 32
+    both raise, before any launch."""
     xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(13), 3, 9, 64, 128, 5)
     args = [torch.from_numpy(a).to(cuda) for a in (xt, bank, idx)]
-    with pytest.raises(ValueError, match="staging"):
-        pa.gathered_patch_attention_v1(*args, theta.to(cuda), phi.to(cuda), 5)
+    with torch.no_grad():
+        out, sel = pa.gathered_patch_attention_v1(*args, theta.to(cuda), phi.to(cuda), 5,
+                                                  return_selection=True)
+        want, want_sel = pa.gathered_patch_attention_v1_plain(*args, theta.to(cuda),
+                                                              phi.to(cuda), 5)
+    assert pa.gathered_patch_attention_v1.instance == "general"
+    _agree(out, sel, want, want_sel, 0.999, 1e-4)
     xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(13), 3, 9, 64, 128, 8)
     args = [torch.from_numpy(a).to(cuda).bfloat16() for a in (xt, bank)] + [
         torch.from_numpy(idx).to(cuda)]
@@ -365,10 +376,18 @@ def test_gathered_attention_v1_raises_past_its_staging_budget(cuda):
                                              phi.to(cuda).bfloat16(), 8)
         torch.cuda.synchronize()
     assert out.shape == (3, 64, 128) and pa.gathered_patch_attention_v1.math == "mma.bf16"
-    with pytest.raises(ValueError, match="K <= 8"):
-        pa.gathered_patch_attention_v1(*args[:2], torch.zeros((3, 9), dtype=torch.int32,
+    assert pa.gathered_patch_attention_v1.instance == "shipped"
+    idx9 = torch.from_numpy(np.random.default_rng(14).integers(0, 9, (3, 9)).astype(np.int32))
+    with torch.no_grad():
+        pa.gathered_patch_attention_v1(*args[:2], idx9.to(cuda), theta.to(cuda).bfloat16(),
+                                       phi.to(cuda).bfloat16(), 9)
+    assert pa.gathered_patch_attention_v1.instance == "general"
+    before = pa.gathered_patch_attention_v1.launches
+    with pytest.raises(ValueError, match="K <= 32"):
+        pa.gathered_patch_attention_v1(*args[:2], torch.zeros((3, 33), dtype=torch.int32,
                                                               device=cuda),
-                                       theta.to(cuda).bfloat16(), phi.to(cuda).bfloat16(), 9)
+                                       theta.to(cuda).bfloat16(), phi.to(cuda).bfloat16(), 33)
+    assert pa.gathered_patch_attention_v1.launches == before
 
 
 @pytest.mark.parametrize("nf, s", [(16, 5), (16, 33), (4, 7), (8, 3)])
@@ -499,16 +518,17 @@ def test_chamfer_kernel_rejects_what_it_does_not_take(cuda):
 # ------------------------------------------- the widths of nf 12 (F = 96)
 
 
-def _attention_at(dev, kernel, dtype, retrieval_mode, q, k, seed, f=96):
+def _attention_at(dev, kernel, dtype, retrieval_mode, q, k, seed, f=96, t=64):
     """One launch of attention kernel `kernel` ("v2", "v1" or "patch") at
-    F = f on seeded rows, and its plain version's output."""
-    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(seed), q, 50, 64, f, k)
+    F = f (T = t rows a tile) on seeded rows, and its plain version's
+    output."""
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(seed), q, 50, t, f, k)
     theta, phi = theta.to(dev, dtype), phi.to(dev, dtype)
     xt, bank = (torch.from_numpy(a).to(dev, dtype) for a in (xt, bank))
     idx = torch.from_numpy(idx).to(dev)
     if kernel == "patch":
-        n = q * 64 - 23
-        rows = torch.from_numpy(np.random.default_rng(seed + 1).integers(0, 50 * 64, (n, k)))
+        n = max(1, q * t - 23)
+        rows = torch.from_numpy(np.random.default_rng(seed + 1).integers(0, 50 * t, (n, k)))
         args = (xt.reshape(-1, f)[:n].contiguous(),
                 bank.reshape(-1, f)[rows.to(dev)].contiguous())
         fn, plain = pa.patch_attention, pa.patch_attention_plain
@@ -554,13 +574,16 @@ def test_attention_tensor_core_body_at_f96(cuda, kernel, q, k):
 
 
 def test_v1_float32_staging_at_f96(cuda):
-    """Float32 tiles of F = 96 take 24 KB: v1 stages K = 5 of them (one more
-    than at F = 128) and refuses K = 6."""
+    """Float32 tiles of F = 96 take 24 KB: v1's shipped instance stages
+    K = 5 of them (one more than at F = 128); K = 6 runs the general
+    instance."""
     assert pa.V1_F32_MAX_K[96] == 5
     out, sel, want, want_sel = _attention_at(cuda, "v1", torch.float32, True, 7, 5, 32)
+    assert pa.gathered_patch_attention_v1.instance == "shipped"
     _agree(out, sel, want, want_sel, 0.999, 1e-4)
-    with pytest.raises(ValueError, match="K <= 5"):
-        _attention_at(cuda, "v1", torch.float32, True, 7, 6, 32)
+    out, sel, want, want_sel = _attention_at(cuda, "v1", torch.float32, True, 7, 6, 32)
+    assert pa.gathered_patch_attention_v1.instance == "general"
+    _agree(out, sel, want, want_sel, 0.999, 1e-4)
 
 
 @pytest.mark.parametrize("f", [32, 64])
@@ -580,19 +603,19 @@ def test_attention_kernels_at_f32_and_f64_match_plain(cuda, kernel, dtype, retri
 def test_v1_float32_staging_at_f64(cuda):
     """Float32 tiles of F = 64 take 16 KB: v1 stages K = 8 of them, the
     wrappers' K limit."""
-    assert pa.V1_F32_MAX_K[64] == pa.V1_F32_MAX_K[32] == pa.KERNEL_MAX_K == 8
+    assert pa.V1_F32_MAX_K[64] == pa.V1_F32_MAX_K[32] == pa.SHIPPED_MAX_K == 8
     out, sel, want, want_sel = _attention_at(cuda, "v1", torch.float32, True, 7, 8, 36, 64)
     _agree(out, sel, want, want_sel, 0.999, 1e-4)
 
 
 def test_attention_kernels_refuse_other_widths(cuda):
-    """F = 80 (no multiple of 32) and F = 160 (past the hidden width) are
+    """F = 1025 (one past the general instance's 1024) and F = 2048 are
     refused by name, before any launch."""
-    for f in (80, 160):
-        xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(33), 3, 9, 64, f, 2)
+    for f in (1025, 2048):
+        xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(33), 3, 9, 8, f, 2)
         args = [torch.from_numpy(a).to(cuda) for a in (xt, bank, idx)]
         before = pa.gathered_patch_attention.launches
-        with pytest.raises(ValueError, match=r"F in \(32, 64, 96, 128\)"):
+        with pytest.raises(ValueError, match=r"F in 1\.\.1024"):
             pa.gathered_patch_attention(*args, theta.to(cuda), phi.to(cuda), 2)
         assert pa.gathered_patch_attention.launches == before
 
@@ -625,28 +648,43 @@ def test_decoder_tail_at_nf12_matches_plain(cuda, dtype, b, s):
 
 def test_kernel_limits_at_nf12_and_past_the_widths():
     """Runs on the CPU (a CUDA device is only named): the one set of
-    constants takes nf 4, 8, 12 and 16 (F = 32, 64, 96, 128; nf 12 is the
-    3DFront surface-reconstruction config) on every attention path; nf 20
-    (F = 160) is refused by the attention kernels and the decoder tail, each
-    named."""
-    from chip_smoke import surface_config
+    constants takes nf 4, 8, 12, 16 and 20 (F = 32 to 160; nf 12 is the
+    3DFront surface-reconstruction config, nf 20 the widest past the
+    shipped widths this test names) and the flagship at nf 24, K 12 on
+    every attention path with the decoder tail and the topk kernel; nf 65 is
+    refused by the decoder tail, F = 1025 (nf 1025 at e = 1), K = 33 and
+    T = 513 (9³ = 729 rows a tile past 512; 8³ = 512 is taken) by the
+    attention kernels, each named."""
+    from chip_smoke import WIDE_K, WIDE_NF, flagship_config, surface_config
     from retrieval_fuse_tpu_torch.inference import check_kernel_limits, variant_engine_kwargs
+    cuda_dev = torch.device("cuda")
     kw = variant_engine_kwargs("fused+pallasp+topk1p+cdec")
-    for nf, ok in ((4, True), (8, True), (12, True), (16, True), (20, False)):
-        cfg = dict(surface_config(), nf=nf)
-        if ok:
-            for attention in ("patches", "packedrows", "gathered", "gathered2"):
-                for dtype in (torch.bfloat16, torch.float32):
-                    check_kernel_limits(cfg, torch.device("cuda"), attention, kw["decoder"],
-                                        dtype)
-            continue
-        with pytest.raises(ValueError, match="patch_attention kernel.*F = nf·e³ = 160"):
-            check_kernel_limits(cfg, torch.device("cuda"), kw["attention"], kw["decoder"])
-        with pytest.raises(ValueError, match=r"decoder_tail kernel.*\(4, 8, 12, 16\).*nf = 20"):
-            check_kernel_limits(cfg, torch.device("cuda"), "modules", "compact")
-    assert pa.KERNEL_FEATURE_WIDTHS == (32, 64, 96, 128) and dt.KERNEL_NF == (4, 8, 12, 16)
+    wide = dict(flagship_config(), nf=WIDE_NF, K=WIDE_K)  # chip_smoke's phase 4h
+    for cfg in [dict(surface_config(), nf=nf) for nf in (4, 8, 12, 16, 20)] + [wide]:
+        for attention in ("patches", "packedrows", "gathered", "gathered2"):
+            for dtype in (torch.bfloat16, torch.float32):
+                check_kernel_limits(cfg, cuda_dev, attention, kw["decoder"], dtype,
+                                    "single_pass")
+    with pytest.raises(ValueError, match=r"decoder_tail kernel.*1\.\.64.*nf = 65"):
+        check_kernel_limits(dict(surface_config(), nf=65), cuda_dev, "modules", "compact")
+    with pytest.raises(ValueError, match="patch_attention kernel.*F = nf·e³ = 1025"):
+        check_kernel_limits(dict(surface_config(), nf=1025, attn_patch_extent=2), cuda_dev,
+                            kw["attention"], "modules")
+    with pytest.raises(ValueError, match="gathered_attention_v1 kernel.*K = 33"):
+        check_kernel_limits(dict(surface_config(), K=33), cuda_dev, "gathered", "modules",
+                            torch.float32)
+    check_kernel_limits(dict(surface_config(), attn_num_patch=32), cuda_dev, "gathered2",
+                        "modules")
+    with pytest.raises(ValueError, match=r"gathered_attention kernel.*T in 1\.\.512.*T = 729"):
+        check_kernel_limits(dict(surface_config(), attn_num_patch=36), cuda_dev, "gathered2",
+                            "modules")
+    assert (pa.KERNEL_MAX_F, pa.KERNEL_MAX_K, pa.KERNEL_MAX_T) == (1024, 32, 512)
+    assert pa.SHIPPED_WIDTHS == (32, 64, 96, 128) and dt.KERNEL_NF == (4, 8, 12, 16)
+    assert dt.KERNEL_MAX_NF == 64
     assert pa.V1_F32_MAX_K == {32: 8, 64: 8, 96: 5, 128: 4}
     assert dt.kernel_math(torch.bfloat16, 12) == "mma.bf16"
+    assert dt.kernel_math(torch.bfloat16, 24) == "mma.bf16"
+    assert dt.kernel_math(torch.bfloat16, 24, 33) == dt.kernel_math(torch.bfloat16, 33) == "fma.f32"
 
 
 # ------------------------------------------------------------ training
@@ -699,12 +737,14 @@ def test_batchnorm_encoder_train_mode_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("nf, variant, kernel", [
-    (4, "fused+pallasg2+topk1p", "gathered_attention"),
-    (20, "fused+pallasp+topk1p+cdec", "patch_attention"),
-    (20, "cdec", "decoder_tail")])
+    (129, "fused+pallasg2+topk1p", "gathered_attention"),
+    (129, "fused+pallasp+topk1p+cdec", "patch_attention"),
+    (65, "cdec", "decoder_tail")])
 def test_engine_build_refuses_kernel_limits_on_the_card(cuda, nf, variant, kernel):
     """An engine on the card whose kernel path breaks a kernel's limits
-    raises at construction, naming the kernel, before any launch."""
+    raises at construction, naming the kernel, before any launch: nf 129
+    gives F = 8·129 = 1032 rows, past the attention kernels' 1024; nf 65 is
+    past the decoder tail's 64."""
     from chip_smoke import flagship_config
     from retrieval_fuse_tpu_torch.inference import RetrieveRefineEngine, variant_engine_kwargs
     cfg = dict(flagship_config(), nf=nf)
@@ -716,3 +756,130 @@ def test_engine_build_refuses_kernel_limits_on_the_card(cuda, nf, variant, kerne
                              **variant_engine_kwargs(variant))
     assert launches == (pa.gathered_patch_attention.launches, pa.patch_attention.launches,
                         dt.decoder_tail.launches)
+
+
+# ------------------------------- the general instances, past the shipped shapes
+
+#: (F, K, T) of the general instances' card holds: the flagship at nf 24
+#: (F = 192, K = 12, T = 64: theta and phi no longer fit a block), the outer
+#: corner (nf 16 at attn_patch_extent 6: F = 432, K = 32, T = 27), a narrow
+#: unaligned case (F = 12: rows of 24 bytes, K = 1, T = 8), and nf 6 (F = 48,
+#: K = 12, T = 27)
+GENERAL_SHAPES = [(192, 12, 64), (432, 32, 27), (12, 1, 8), (48, 12, 27)]
+
+
+@pytest.mark.parametrize("retrieval_mode", [True, False], ids=["hard", "softmax"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["v2", "v1", "patch"])
+@pytest.mark.parametrize("f, k, t", GENERAL_SHAPES,
+                         ids=[f"F{f}-K{k}-T{t}" for f, k, t in GENERAL_SHAPES])
+def test_attention_general_instances_match_plain(cuda, kernel, dtype, retrieval_mode, f, k, t):
+    """Each attention kernel's general instance at the shapes past the
+    shipped ones: 9 queries (patch_attention: 9·T - 23 rows), the F = 128
+    tests' tolerances; selections compared in float32 too."""
+    out, sel, want, want_sel = _attention_at(cuda, kernel, dtype, retrieval_mode, 9, k, 40 + f,
+                                             f, t)
+    fn = {"v2": pa.gathered_patch_attention, "v1": pa.gathered_patch_attention_v1,
+          "patch": pa.patch_attention}[kernel]
+    assert fn.instance == "general"
+    assert int(sel.min()) >= 0 and int(sel.max()) < k
+    if dtype == torch.float32:
+        _agree(out, sel, want, want_sel, 0.999, 1e-4)
+    else:
+        _agree(out, sel, want, want_sel, 0.99, _BF16_TOL[retrieval_mode])
+        assert float((out.float() - want.float()).abs().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("kernel", ["v2", "v1", "patch"])
+def test_attention_general_instance_at_a_shipped_shape_matches_the_shipped(cuda, kernel):
+    """The general instance launched at a shipped shape (F = 128, K = 4,
+    T = 64, through the C entry's flag) computes what the shipped instance
+    computes: float32 selections equal, outputs within 1e-5."""
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(50), 5, 20, 64, 128, 4)
+    xt, bank = (torch.from_numpy(a).to(cuda) for a in (xt, bank))
+    idx = torch.from_numpy(idx).to(cuda)
+    theta, phi = theta.to(cuda), phi.to(cuda)
+    name = {"v2": "gathered_attention", "v1": "gathered_attention_v1",
+            "patch": "patch_attention"}[kernel]
+    if kernel == "patch":
+        x = xt.reshape(-1, 128)
+        p = bank[idx.long()].transpose(1, 2).reshape(-1, 4, 128).contiguous()
+        operands = (x.data_ptr(), p.data_ptr(), x.shape[0], 4, 128)
+        shipped, _ = pa.patch_attention(x, p, theta, phi, 4, return_selection=True)
+        rows = x
+    else:
+        operands = (xt.data_ptr(), bank.data_ptr(), idx.data_ptr(), 5, 4, 128, 64)
+        fn = pa.gathered_patch_attention if kernel == "v2" else pa.gathered_patch_attention_v1
+        shipped, _ = fn(xt, bank, idx, theta, phi, 4, return_selection=True)
+        rows = xt
+    assert (pa.patch_attention if kernel == "patch" else fn).instance == "shipped"
+    out = torch.empty_like(rows)
+    sel = torch.empty(rows.shape[:-1], dtype=torch.int32, device=cuda)
+    with torch.no_grad():
+        pa._launch(name, rows, operands, True, theta, phi, True, 1024.0, out, sel,
+                   (None,) if kernel == "v1" else ())
+        torch.cuda.synchronize()
+    assert float((out - shipped).abs().max()) <= 1e-5
+
+
+def test_topk_kernel_general_instances_match_plain(cuda):
+    """k = 9, 12, 16, 17 and 32 (the general instances of 16 and 32 slots)
+    on scores with ties inside and across lanes and at the ragged edge (N =
+    4,099: the scalar loop), on N = 4,096 and on rows as long as the
+    flagship database's (N = 27,132), where the float4 loop's warp-wide
+    thresholds filter the lanes (bf16-rounded, tie-rich, too), and a row
+    shorter than the list (N = k): values and indices equal, ties included."""
+    sims = torch.from_numpy(tied_scores(np.random.default_rng(51), 300, 4099)).to(cuda)
+    long = torch.from_numpy(tied_scores(np.random.default_rng(52), 70, 27132)).to(cuda)
+    cases = (sims, sims[:, :4096].contiguous(), sims[:, :4096].bfloat16().float(), long,
+             long.bfloat16().float())
+    for k in (9, 12, 16, 17, 32):
+        for s in (*cases, sims[:, :k].contiguous()):
+            before = topk.launches
+            v, i = topk(s, k)
+            torch.cuda.synchronize()
+            assert topk.launches == before + 1
+            pv, pi = topk_plain(s, k)
+            assert torch.equal(i, pi) and torch.equal(v, pv), k
+
+
+def test_topk_kernel_refuses_k33(cuda):
+    sims = torch.zeros((4, 100), device=cuda)
+    before = topk.launches
+    with pytest.raises(ValueError, match="1 <= k <= 32"):
+        topk(sims, 33)
+    assert topk.launches == before
+
+
+@pytest.mark.parametrize("nf, s", [(24, 5), (24, 33), (6, 4), (1, 3), (64, 2), (20, 80),
+                                   (30, 32), (13, 17)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decoder_tail_general_instance_matches_plain(cuda, nf, s, dtype):
+    """The general instance (any nf past the shipped 4, 8, 12, 16). bf16 on
+    the tensor cores: nf 24 at S = 5 and nf 30 at the serving S = 32 (two
+    groups of 16 channels, one slab; copies of 8 and 2 channels), nf 6, 13
+    and 1 (one group; copies of 2 channels, and of one for odd nf). On the
+    FMA body: every float32, and bf16 where the slab does not fit, nf 24 at
+    S = 33 (a block stages its chunks again for a second round of voxels),
+    nf 64 (eight chunks of input channels), nf 20 at the largest S, 80. The
+    shipped widths' tolerances."""
+    rng = np.random.default_rng(52 + nf)
+    b = 2 if s < 80 else 1
+    hn = torch.zeros((b, s + 2, s + 2, s + 2, 8 * nf))
+    hn[:, 1:-1, 1:-1, 1:-1] = torch.from_numpy(
+        rng.standard_normal((b, s, s, s, 8 * nf)).astype(np.float32))
+    hn = hn.to(cuda, dtype)
+    w2 = torch.from_numpy(rng.standard_normal((3, 3, 3, nf, nf)).astype(np.float32)
+                          / np.sqrt(27 * nf)).to(cuda, dtype)
+    wh = torch.from_numpy(rng.standard_normal(nf).astype(np.float32) / np.sqrt(nf)).to(cuda, dtype)
+    before = dt.decoder_tail.launches
+    out = dt.decoder_tail(hn, w2, wh, 0.2)
+    torch.cuda.synchronize()
+    assert dt.decoder_tail.launches == before + 1
+    assert dt.decoder_tail.instance == "general"
+    assert dt.decoder_tail.math == dt.kernel_math(dtype, nf, s)
+    on_fma = (nf, s) in ((24, 33), (64, 2), (20, 80))
+    assert (dt.decoder_tail.math == "mma.bf16") == (dtype == torch.bfloat16 and not on_fma)
+    want = dt.decoder_tail_plain(hn, w2, wh, 0.2)
+    assert out.shape == (b, s, s, s, 8) and out.dtype == torch.float32
+    assert float((out - want).abs().max()) <= (1e-5 if dtype == torch.float32 else 1e-2)

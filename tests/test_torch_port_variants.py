@@ -107,15 +107,18 @@ def test_kernel_paths_need_the_feature_bank(setup):
 
 
 @pytest.mark.parametrize("cfg_over, variant, dtype, names", [
-    ({"nf": 10}, "fused+pallasg2+topk1p", torch.bfloat16,
-     ("'pallasg2'", "gathered_attention kernel", "F in (32, 64, 96, 128)", "T = 64",
-      "F = nf·e³ = 80")),
-    ({"nf": 20}, "fused+pallasp+topk1p+cdec", torch.bfloat16,
-     ("'pallasp'", "patch_attention kernel", "F = nf·e³ = 160")),
-    ({"nf": 20}, "cdec", torch.bfloat16, ("'cdec'", "decoder_tail", "(4, 8, 12, 16)", "nf = 20")),
-    ({"nf": 16, "K": 5}, "fused+pallasg+topk1p", torch.float32,
-     ("'pallasg'", "gathered_attention_v1", "K <= 4", "K = 5")),
-    ({"nf": 16, "K": 9}, "fused+pallas", torch.bfloat16, ("'pallas'", "K <= 8", "K = 9")),
+    ({"nf": 129}, "fused+pallasg2+topk1p", torch.bfloat16,
+     ("'pallasg2'", "gathered_attention kernel", "F in 1..1024", "T in 1..512",
+      "F = nf·e³ = 1032")),
+    ({"nf": 16, "K": 33}, "fused+pallasp+topk1p+cdec", torch.bfloat16,
+     ("'pallasp'", "patch_attention kernel", "K in 1..32", "K = 33")),
+    ({"nf": 65}, "cdec", torch.bfloat16, ("'cdec'", "decoder_tail", "1..64", "nf = 65")),
+    ({"nf": 16, "K": 33}, "fused+pallasg+topk1p", torch.float32,
+     ("'pallasg'", "gathered_attention_v1", "K in 1..32", "K = 33")),
+    ({"nf": 16, "attn_patch_extent": 12}, "fused+pallas", torch.bfloat16,
+     ("'pallas'", "patch_attention kernel", "F = nf·e³ = 3456")),
+    ({"nf": 16, "K": 33}, "fused+topk1p", torch.bfloat16,
+     ("'topk1p'", "topk kernel", "k in 1..32", "K = 33")),
 ])
 def test_kernel_limits_raise_at_engine_build_on_cuda(cfg_over, variant, dtype, names):
     """On a CUDA device an engine whose kernel path breaks a kernel's
@@ -125,10 +128,12 @@ def test_kernel_limits_raise_at_engine_build_on_cuda(cfg_over, variant, dtype, n
     kw = variant_engine_kwargs(variant)
     cfg = {**CFG, **cfg_over}
     with pytest.raises(ValueError) as err:
-        check_kernel_limits(cfg, torch.device("cuda"), kw["attention"], kw["decoder"], dtype)
+        check_kernel_limits(cfg, torch.device("cuda"), kw["attention"], kw["decoder"], dtype,
+                            kw["topk_impl"])
     for name in names:
         assert name in str(err.value), (name, str(err.value))
-    check_kernel_limits(cfg, torch.device("cpu"), kw["attention"], kw["decoder"], dtype)
+    check_kernel_limits(cfg, torch.device("cpu"), kw["attention"], kw["decoder"], dtype,
+                        kw["topk_impl"])
 
 
 @pytest.mark.parametrize("variant", ["fused+pallasg2+topk1p", "fused+pallasp+topk1p+cdec",
