@@ -207,13 +207,15 @@ TRAIN_GRAD_TOL = {"16+8": 1e-3, "16+8N": 1e-2}
 #: 700.00 W), printed beside this run's
 FMA_BODY_ENGINE_MS = {"fused+pallasg2+topk1p": 53.80, CDEC_VARIANT: 69.09,
                       "fused+pallasg+topk1p+packed": 51.80}
-#: kernel ms before three kernels were redesigned (same card and limit),
+#: kernel ms before five kernels were redesigned (same card and limit),
 #: printed beside this run's: gathered attention v1 in bf16 on float32 FMAs
 #: with K tiles staged by cp.async; the chamfer kernel with one block per 512
 #: points walking the whole other set, per evaluate call and at 128 batched
-#: pairs; the streaming kNN kernel on float32 register FMAs, float32 rows
+#: pairs; the streaming kNN kernel on float32 register FMAs, float32 rows;
+#: gathered attention v2 and patch attention in bf16 on the mma.sync body,
+#: 16 rows a warp, before the wgmma body (PERF.md's kernel table)
 EARLIER_KERNEL_MS = {"attention_v1": 13.109, "chamfer": 1.288, "chamfer_batch": 3.457,
-                     "knn": 1.696}
+                     "knn": 1.696, "attention": 1.139, "patch_attention": 1.122}
 #: the engine's other serving paths, each run at STREAM_BATCH in bf16 and
 #: float32 -> the kernels it must launch there (the streaming kNN kernel is
 #: auto-selected at Q=8192: `knn` is its float32 launch, `knn_bf16` its bf16)
@@ -1633,6 +1635,62 @@ def hold_attention(label: str, kernel, plain, args32: tuple, args16: tuple,
     return err, shares["hard"], switch_open
 
 
+#: phase 4c-4e's edge holds of the shipped bf16 attention body (kernels 3
+#: and 4 at F = 128, hold_shipped_edges): N = 64·EDGE_TILES + 17 rows (a
+#: ragged last tile) and Q = EDGE_TILES + 1 tiles (no multiple of the
+#: persistent grid's warpgroups), at K 1 and K 8
+EDGE_TILES = 300
+#: the least share of an edge hold's rows whose switch is open (an H100 run
+#: read 33.6-33.9% at K 1 and 76-77% at K 8 on these seeded rows)
+EDGE_SWITCH_OPEN = 0.25
+
+
+def hold_shipped_edges(dev, seed: int, f: int = 128) -> list[str]:
+    """Kernels 3 and 4 against their plain versions on seeded rows and
+    weights at the shipped body's edges (EDGE_TILES): hold_attention in
+    float32 and in bf16 with hard and softmax selection, at K 1 and K 8,
+    each on rows whose switch is open on at least EDGE_SWITCH_OPEN of them
+    (at K 1 the selection is always candidate 0, so only the open rows
+    hold the kernel). Returns the labels held."""
+    import torch
+    from retrieval_fuse_tpu_torch.models.attention import AttentionFeatureEncoder
+    from retrieval_fuse_tpu_torch.ops import patch_attention as pa
+    rng = np.random.default_rng(seed)
+
+    def rows(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    mlps = []
+    for _ in range(2):
+        m = AttentionFeatureEncoder(f, 32)
+        for prm in m.parameters():
+            b = 1.0 / np.sqrt(prm.shape[-1]) if prm.dim() == 2 else 0.1
+            prm.data = torch.from_numpy(rng.uniform(-b, b, tuple(prm.shape)).astype(np.float32))
+        mlps.append(m.to(dev))
+    mlps16 = [copy.deepcopy(m).bfloat16() for m in mlps]
+    held = []
+    for k in (1, 8):
+        n = 64 * EDGE_TILES + 17
+        x, p = rows(n, f), rows(n, k, f)
+        label = f"patch attention N={n} K={k}"
+        opens = [hold_attention(label, pa.patch_attention, pa.patch_attention_plain,
+                                (x, p, *mlps, k), (x.bfloat16(), p.bfloat16(), *mlps16, k),
+                                pa.kernel_math("patch_attention", torch.bfloat16))[2]]
+        q = EDGE_TILES + 1
+        xt, bank = rows(q, 64, f), rows(50, 64, f)
+        idx = torch.from_numpy(rng.integers(0, 50, (q, k)).astype(np.int32)).to(dev)
+        label2 = f"gathered attention Q={q} K={k}"
+        opens.append(hold_attention(
+            label2, pa.gathered_patch_attention, pa.gathered_patch_attention_plain,
+            (xt, bank, idx, *mlps, k), (xt.bfloat16(), bank.bfloat16(), idx, *mlps16, k),
+            pa.kernel_math("gathered_attention", torch.bfloat16))[2])
+        for lab, share in zip((label, label2), opens):
+            check(share >= EDGE_SWITCH_OPEN, f"{lab}: the switch is open on only {share:.1%} "
+                                             f"of rows (at least {EDGE_SWITCH_OPEN:.0%})")
+        held += [label, label2]
+    return held
+
+
 def unit_rows(rng, n: int, d: int, dtype, device):
     """n random unit rows of width d from `rng`, in dtype on device."""
     import torch
@@ -1939,6 +1997,7 @@ def run_phase9(dev, rng, seed: int, kernels: dict, counters: dict, drive, card: 
         q, t_rows, f = xt16.shape
         check(f == 96, f"surface: attention rows of F = {f}")
         theta32, phi32 = [copy.deepcopy(m).float() for m in (att.theta, att.phi)]
+        pa.freeze_operands(theta32, phi32)  # timed below: packed once
         xt32, bank32, bank16 = xt16.float(), s_fast.feature_bank.float(), s_fast.feature_bank
         bound96 = attention_bound(q, t_rows, k, f)
         n_rows = q * t_rows
@@ -1958,13 +2017,14 @@ def run_phase9(dev, rng, seed: int, kernels: dict, counters: dict, drive, card: 
                      pa.patch_attention_plain,
                      (x16.float(), p16.float(), theta32, phi32, k),
                      (x16, p16, att.theta, att.phi, k))):
+                old = kernels[key.removesuffix("_f96")]
+                math16 = pa.kernel_math(Path(old["source"]).stem, torch.bfloat16)
                 err, share16, switch_open = hold_attention(f"{name} F=96 Q={q}", fn, plain,
-                                                           a32, a16, "mma.bf16")
+                                                           a32, a16, math16)
                 check(switch_open >= 0.5, f"{name} F=96: the switch is open on only "
                                           f"{switch_open:.1%} of the rows")
-                old = kernels[key.removesuffix("_f96")]
                 kernels[key] = dict(
-                    name=f"{name}@F96", route="cuda", math="mma.bf16",
+                    name=f"{name}@F96", route="cuda", math=math16,
                     source=old["source"], replaces=old["replaces"], max_abs_err=err,
                     ms=cuda_ms(lambda: fn(*a16, False), 5),
                     plain_ms=cuda_ms(lambda: plain(*a16, False), 2), library_ms=None,
@@ -2369,6 +2429,7 @@ def run_narrow_widths(dev, rng, seed: int, kernels: dict, counters: dict, drive,
         q, t_rows, f = xt16.shape
         check(f == 8 * nf, f"nf {nf}: attention rows of F = {f}")
         theta32, phi32 = [copy.deepcopy(m).float() for m in (att.theta, att.phi)]
+        pa.freeze_operands(theta32, phi32)  # timed below: packed once
         xt32, bank32, bank16 = xt16.float(), fast.feature_bank.float(), fast.feature_bank
         width_bound = attention_bound(q, t_rows, k, f)
         n_rows = q * t_rows
@@ -2389,14 +2450,15 @@ def run_narrow_widths(dev, rng, seed: int, kernels: dict, counters: dict, drive,
                      pa.patch_attention_plain,
                      (x16.float(), p16.float(), theta32, phi32, k),
                      (x16, p16, att.theta, att.phi, k))):
+                old = kernels[key]
+                math16 = pa.kernel_math(Path(old["source"]).stem, torch.bfloat16)
                 err, share16, switch_open = hold_attention(
-                    f"{name} F={f} Q={q}", fn, plain, a32, a16, "mma.bf16",
+                    f"{name} F={f} Q={q}", fn, plain, a32, a16, math16,
                     f32_modes=(True, False))
                 check(switch_open >= 0.5, f"{name} F={f}: the switch is open on only "
                                           f"{switch_open:.1%} of the rows")
-                old = kernels[key]
                 kernels[f"{key}_f{f}"] = dict(
-                    name=f"{name}@F{f}", route="cuda", math="mma.bf16",
+                    name=f"{name}@F{f}", route="cuda", math=math16,
                     source=old["source"], replaces=old["replaces"], max_abs_err=err,
                     launches=launches[variant_of[key]][key],
                     ms=cuda_ms(lambda: fn(*a16), 5), plain_ms=cuda_ms(lambda: plain(*a16), 2),
@@ -2406,7 +2468,7 @@ def run_narrow_widths(dev, rng, seed: int, kernels: dict, counters: dict, drive,
                     shape=f"{'N=' + str(n_rows) if key == 'patch_attention' else 'Q=' + str(q)}"
                           f" T={t_rows} F={f} K={k} bf16 hard")
                 kr = kernels[f"{key}_f{f}"]
-                log(f"{kr['name']} [mma.bf16]: kernel {kr['ms']:.3f} ms (at F = 128: "
+                log(f"{kr['name']} [{math16}]: kernel {kr['ms']:.3f} ms (at F = 128: "
                     f"{kr['f128_ms']:.3f} ms), plain {kr['plain_ms']:.3f} ms, library none, "
                     f"bound {kr['bound_ms']:.3f} ms ({kr['bound_by']}), float32 "
                     f"{kr['f32_ms']:.3f} ms; {kr['launches']} launches in 4g "
@@ -3752,7 +3814,11 @@ def main(argv=None) -> int:
             del z, qo, dbo
 
         # 4c-4e) the three attention kernels at batch 128 (Q = 8192 tiles of
-        # 64 rows), on the FAST_VARIANT engine's rows and retrievals
+        # 64 rows), on the FAST_VARIANT engine's rows and retrievals; kernels
+        # 3 and 4 run the wgmma body in bf16, v1 the mma.sync one
+        WGMMA = pa.kernel_math("gathered_attention", torch.bfloat16)
+        check(WGMMA == pa.kernel_math("patch_attention", torch.bfloat16) == "wgmma.bf16",
+              f"the shipped bf16 attention body is reported as {WGMMA}")
         with torch.inference_mode():
             top_idx = fast.retrieve(x128)
             x_back = fast.unet_backbone(((x128 - fast.in_mean) / fast.in_std).bfloat16())
@@ -3760,6 +3826,7 @@ def main(argv=None) -> int:
         att = fast.attention.attention_blocks_layer
         q, t_rows, f = xt16.shape
         theta32, phi32 = [copy.deepcopy(m).float() for m in (att.theta, att.phi)]
+        pa.freeze_operands(theta32, phi32)  # timed below: packed once, as the engine's
         xt32, bank32 = xt16.float(), fast.feature_bank.float()
         bank16 = fast.feature_bank
         attn_bound = attention_bound(q, t_rows, k, f)
@@ -3769,10 +3836,10 @@ def main(argv=None) -> int:
                 f"gathered attention Q={q}", pa.gathered_patch_attention,
                 pa.gathered_patch_attention_plain,
                 (xt32, bank32, top_idx, theta32, phi32, k),
-                (xt16, bank16, top_idx, att.theta, att.phi, k), "mma.bf16")
+                (xt16, bank16, top_idx, att.theta, att.phi, k), WGMMA)
             args16 = (xt16, bank16, top_idx, att.theta, att.phi, k)
             kernels["attention"] = dict(
-                name="gathered_patch_attention", route="cuda", math="mma.bf16",
+                name="gathered_patch_attention", route="cuda", math=WGMMA,
                 source="retrieval_fuse_tpu_torch/csrc/gathered_attention.cu",
                 replaces="retrieval_fuse_tpu/ops/pallas_attention.py:249", max_abs_err=err,
                 ms=cuda_ms(lambda: pa.gathered_patch_attention(*args16), 5),
@@ -3780,6 +3847,7 @@ def main(argv=None) -> int:
                 library_ms=None, bound_ms=attn_bound[0], bound_by=attn_bound[1],
                 f32_ms=cuda_ms(lambda: pa.gathered_patch_attention(
                     xt32, bank32, top_idx, theta32, phi32, k), 3),
+                earlier_ms=EARLIER_KERNEL_MS["attention"],
                 bf16_agreement=share16, shape=f"Q={q} T={t_rows} F={f} K={k} bf16")
 
             # gathered attention v1 (kernel 5): the same function and inputs
@@ -3807,10 +3875,10 @@ def main(argv=None) -> int:
             err, share16, _ = hold_attention(
                 f"patch attention N={n_rows}", pa.patch_attention, pa.patch_attention_plain,
                 (x16.float(), p16.float(), theta32, phi32, k),
-                (x16, p16, att.theta, att.phi, k), "mma.bf16")
+                (x16, p16, att.theta, att.phi, k), WGMMA)
             pargs16 = (x16, p16, att.theta, att.phi, k)
             kernels["patch_attention"] = dict(
-                name="patch_attention", route="cuda", math="mma.bf16",
+                name="patch_attention", route="cuda", math=WGMMA,
                 source="retrieval_fuse_tpu_torch/csrc/patch_attention.cu",
                 replaces="retrieval_fuse_tpu/ops/pallas_attention.py:46", max_abs_err=err,
                 ms=cuda_ms(lambda: pa.patch_attention(*pargs16), 5),
@@ -3818,8 +3886,13 @@ def main(argv=None) -> int:
                 library_ms=None, bound_ms=attn_bound[0], bound_by=attn_bound[1],
                 f32_ms=cuda_ms(lambda: pa.patch_attention(
                     x16.float(), p16.float(), theta32, phi32, k), 3),
+                earlier_ms=EARLIER_KERNEL_MS["patch_attention"],
                 bf16_agreement=share16, shape=f"N={n_rows} K={k} F={f} bf16")
             del xt32, bank32, p16
+            # the shipped body's edges: a ragged last tile, K 1 and K 8
+            t0 = time.perf_counter()
+            held = hold_shipped_edges(dev, args.seed + 3)
+            log(f"edge holds ({', '.join(held)}): {time.perf_counter() - t0:.2f} s")
 
         # 4f) the decoder tail (kernel 6) at batch 128 on the input the cdec
         # decoder makes from the FAST_VARIANT engine's fused features

@@ -18,45 +18,51 @@
 // activations are rounded back to bf16 between layers. Norms, scores,
 // selection and blend are float32.
 //
-// Two bodies compute this, chosen by a kernel from its element type. Both
-// are templates on F, built for the widths of `with_width` (32 to 128):
-// only layer 0's contraction, the row loads and the blend change with it;
-// hidden 128 and C 32 are the attention module's own and do not depend on
-// nf.
+// Three bodies compute this, chosen by a kernel from its element type and
+// instance. The shipped instances are templates on F, built for the widths
+// of `with_width` (32 to 128): only layer 0's contraction, the row loads and
+// the blend change with it; hidden 128 and C 32 are the attention module's
+// own and do not depend on nf.
 //
-// bf16 on the tensor cores (`attend_tiles_mma`; gathered_attention.cu and
-// patch_attention.cu; gathered_attention_v1.cu puts the same pieces together
-// around its staged candidates and keeps only phi resident): bf16 products
-// with float32 sums are what mma.sync.m16n8k16.bf16 computes, so only the
-// order of the sums differs from the plain version. The design answers what
-// bounds the body on an H100:
-//   - Weights stay in shared memory for the life of the block: theta and
-//     phi, 2 x 106,496 bytes of bf16 at F = 128 (2 x 98,304 at F = 96),
-//     laid out once in the order the B
-//     fragments are read (one 16-byte load a lane for a k16 step of two n8
-//     tiles), with the 2 x 416 float32 biases. That is one block per SM, so
-//     the launch is persistent: a grid of at most the SM count, each warp
-//     walking over 16-row slices of the tiles.
+// bf16, the shipped instances of gathered_attention.cu and
+// patch_attention.cu: attention_wgmma.cuh's body on Hopper's warpgroup MMA,
+// a warpgroup a 64-row tile, put together from the per-warp pieces below
+// (its header says what bounds it and what it measured).
+//
+// bf16 on mma.sync.m16n8k16, 16 rows a warp (the pieces below;
+// gathered_attention_v1.cu puts them together around its staged
+// candidates and keeps only phi resident, attention_general.cuh around
+// layer 0 read from L1/L2): bf16 products with float32 sums are what
+// mma.sync.m16n8k16.bf16 computes, so only the order of the sums differs
+// from the plain version. The pieces:
+//   - Weights in shared memory for the life of the block, laid out once in
+//     the order the B fragments are read (`stage_fragments`: one 16-byte
+//     load a lane for a k16 step of two n8 tiles), with the 2 x 416 float32
+//     biases; one block per SM, so the launches are persistent.
 //   - The layer chain stays in registers. A warp owns 16 rows. The float32
 //     C fragments of a layer (64 registers a thread), after bias, LeakyReLU
 //     and the round to bf16, are the A fragments of the next layer's k16
-//     steps (mma.cuh), so no activation goes through shared memory.
+//     steps (`hidden_to_fragments`, mma.cuh), so no activation goes through
+//     shared memory. wgmma's per-warp A fragments and accumulators have the
+//     same layouts, which is why the wgmma body reuses this.
 //   - The input rows need no staging either: a sum over k may take k in any
 //     order, so layer 0's weights are laid out for a permuted k, in which a
 //     lane's A fragments of two k16 steps are one 16-byte run of its row.
-//     A lane reads its rows from global memory with F/16 16-byte loads (8 at
-//     F = 128, 6 at F = 96: layer 0 is F/16 k16 steps), every 32-byte sector
-//     used in full, and candidate k+1's loads are started before candidate
-//     k's MLP, so they arrive under ~400 mma.
+//     A lane reads its rows from global memory with F/16 16-byte loads
+//     (`load_rows16`; 8 at F = 128, 6 at F = 96: layer 0 is F/16 k16
+//     steps), every 32-byte sector used in full, and candidate k+1's loads
+//     are started before candidate k's MLP, so they arrive under it.
 //   - A row's 32 embedding values lie in the four lanes of a quad: norms and
-//     scores are partial sums and two shuffles. Scores pass through 6.9 KB
-//     of shared memory to the lane that selects for a row; the blend is the
-//     float32 body's, per warp.
-//   What holds it is shared-memory reads beside the mma.sync rate: each B
-//   fragment feeds one m16 tile, so a hidden layer's 128 mma of a warp need
-//   64 16-byte loads (~2 shared-memory cycles per tensor cycle), and more
-//   warps change little (12 warps a block: 7% over 8). Measured times:
-//   PERF.md.
+//     scores are partial sums and two shuffles (`score_mma`). Scores pass
+//     through shared memory to the lane that selects for a row
+//     (`select_mma`); the blend is the float32 body's arithmetic, per warp,
+//     its row loads batched (`blend_mma`).
+//   What holds a 16-row warp is shared-memory reads beside the mma.sync
+//   rate: each B fragment feeds one m16 tile, so a hidden layer's 128 mma of
+//   a warp need 64 16-byte loads (~2 shared-memory cycles per tensor cycle),
+//   and more warps change little. The shipped instances ran on these pieces
+//   at 1.12-1.15 ms at F = 128, Q = 8192, K = 4 on an H100, 4x their bound;
+//   wgmma reads each B tile once for 64 rows.
 //
 // float32 FMAs (`attend_tile`; the float32 launches of the three kernels):
 // float32 on the tensor cores would be TF32 (~3 decimal digits). One block
@@ -368,8 +374,11 @@ __device__ __forceinline__ void attend_tile(const Rows& r, float* smem,
 
 // ---- bf16 on the tensor cores ----
 
-// threads of a persistent block: 12 warps, three on each scheduler (measured
-// on an H100: 8 warps 1.26 ms, 10 1.31, 12 1.17, 16 with 128 registers 1.38).
+// threads of a persistent block of the mma.sync bodies (v1, the general
+// instances) and of the wgmma body (kWgGroups = threads / 128 warpgroups):
+// 12 warps, three on each scheduler (the mma.sync body of the shipped
+// instances, measured on an H100 at F = 128: 8 warps 1.26 ms, 10 1.31, 12
+// 1.17, 16 with 128 registers 1.38; the wgmma body: attention_wgmma.cuh).
 // tools/torch_port_kernel_probe.py builds other sizes with
 // -DRF_PROBE_ATTN_THREADS=n.
 #ifndef RF_PROBE_ATTN_THREADS
@@ -629,119 +638,77 @@ __device__ __forceinline__ void select_mma(float* scores, int K, float sharpness
 }
 
 // out = x (1 - switch) + (sum_k w_k p_k) switch for rows [row0, row0 + 16) of
-// the tile of row source `r`, by one warp, 16 bytes of bf16 per step, from
-// the original rows (F values) in global memory and the weights `select_mma`
-// left
-template <int F, typename Rows>
+// the tile of row source `r`, by one warp, from the original rows (F values)
+// in global memory and the weights `select_mma` left. A lane takes 16-byte
+// runs of bf16, kBatch runs a round trip: with kHard (one weight is 1, the
+// others 0) x's run and the selected candidate's together, else x's, then
+// one load a candidate. On an H100 (700 W) at F = 128, Q = 8192, K = 4,
+// batching took the wgmma body from 0.785-0.799 ms to 0.719-0.739 (PERF.md).
+template <int F, bool kHard = false, typename Rows>
 __device__ __forceinline__ void blend_mma(const Rows& r, int row0, const float* scores, int lane,
                                           __nv_bfloat16* __restrict__ out) {
   using T = __nv_bfloat16;
-  constexpr int kE = 8;
+  constexpr int kE = 8, kRowRuns = F / kE, kRuns = kSlice * kRowRuns / 32;
+  constexpr int kBatch = kRuns % 4 == 0 ? 4 : kRuns % 3 == 0 ? 3 : kRuns;
+  static_assert(kSlice * kRowRuns % 32 == 0 && kRuns % kBatch == 0, "whole runs a lane");
   const int K = r.K;
-  for (int v = lane; v < kSlice * F / kE; v += 32) {
-    const int lrow = v / (F / kE), row = row0 + lrow, col = v % (F / kE) * kE;
-    if (row >= r.n) continue;
-    const float* ws = scores + lrow * kScoreLd;
-    const uint4 xraw = *reinterpret_cast<const uint4*>(r.x + row * F + col);
-    const T* xv = reinterpret_cast<const T*>(&xraw);
-    float acc[kE];
 #pragma unroll
-    for (int e = 0; e < kE; ++e) acc[e] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float wk = ws[k];
-      if (wk == 0.f) continue;  // exact: 0 * p adds nothing
-      const uint4 praw = *reinterpret_cast<const uint4*>(r.cand(k) + row * r.stride + col);
-      const T* pv = reinterpret_cast<const T*>(&praw);
+  for (int i0 = 0; i0 < kRuns; i0 += kBatch) {
+    int row[kBatch], col[kBatch];
+    const float* ws[kBatch];
+    uint4 xr[kBatch];
+    float acc[kBatch][kE];
 #pragma unroll
-      for (int e = 0; e < kE; ++e) acc[e] += wk * to_f32(pv[e]);
+    for (int i = 0; i < kBatch; ++i) {
+      const int v = lane + 32 * (i0 + i);
+      row[i] = row0 + v / kRowRuns;
+      col[i] = v % kRowRuns * kE;
+      ws[i] = scores + (v / kRowRuns) * kScoreLd;
+      xr[i] = row[i] < r.n ? __ldg(reinterpret_cast<const uint4*>(r.x + row[i] * F + col[i]))
+                           : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) acc[i][e] = 0.f;
     }
-    const float sw = ws[kMaxK];
-    uint4 oraw;
-    T* ov = reinterpret_cast<T*>(&oraw);
+    if constexpr (kHard) {
+      uint4 pr[kBatch];
 #pragma unroll
-    for (int e = 0; e < kE; ++e)
-      ov[e] = from_f32<T>(to_f32(xv[e]) * (1.f - sw) + acc[e] * sw);
-    *reinterpret_cast<uint4*>(out + row * F + col) = oraw;
-  }
-}
-
-struct MmaWeights {
-  const uint32_t* w_theta;
-  const float* b_theta;
-  const uint32_t* w_phi;
-  const float* b_phi;
-  float* scores;  // this warp's (kSlice, kScoreLd)
-};
-
-// Attention over rows [row0, row0 + 16) of the tile of row source `r`
-// (rows of F values), by one warp; writes its valid rows to out (rows F
-// apart) and, if sel_out is not null, each row's argmax candidate to
-// sel_out[i].
-template <int F, bool kHard, typename Rows>
-__device__ __forceinline__ void attend_slice_mma(const Rows& r, int row0, const MmaWeights& m,
-                                                 float sharpness,
-                                                 __nv_bfloat16* __restrict__ out,
-                                                 int* __restrict__ sel_out) {
-  const int lane = threadIdx.x & 31;
-  const int K = r.K;
-  RowLoads<F> ld;
-  uint32_t a[kHSteps][4];
-  float emb[kC / 8][4], xf[kC / 8][4];
-
-  load_rows16<F>(r.x, F, row0, r.n, lane, ld);
-  to_fragments<F>(ld, a);
-  load_rows16<F>(r.cand(0), r.stride, row0, r.n, lane, ld);  // in flight under theta
-  mlp_mma<F>(a, m.w_theta, m.b_theta, lane, xf);
-  normalise_mma(xf);
-
-  for (int k = 0; k < K; ++k) {
-    to_fragments<F>(ld, a);
-    if (k + 1 < K) load_rows16<F>(r.cand(k + 1), r.stride, row0, r.n, lane, ld);
-    mlp_mma<F>(a, m.w_phi, m.b_phi, lane, emb);
-    score_mma(xf, emb, m.scores, k, lane);
-  }
-  __syncwarp();
-  select_mma<kHard>(m.scores, K, sharpness, lane, row0, r.n, sel_out);
-  __syncwarp();
-  blend_mma<F>(r, row0, m.scores, lane, out);
-  __syncwarp();  // the scores are free for the warp's next slice
-}
-
-// The persistent body of a bf16 kernel: stage theta's and phi's fragments
-// and biases in shared memory once, then let each warp walk over the 16-row
-// slices of tiles [0, tiles): slice blockIdx.x·kWarps + warp, then every
-// gridDim.x·kWarps-th. `tile_rows(q)` is tile q's row source; its rows go to
-// out + q·kT·F and its selections to sel_out + q·kT.
-template <int F, bool kHard, typename TileRows>
-__device__ __forceinline__ void attend_tiles_mma(
-    TileRows tile_rows, int tiles, unsigned char* smem, const __nv_bfloat16* __restrict__ w_theta,
-    const float* __restrict__ b_theta, const __nv_bfloat16* __restrict__ w_phi,
-    const float* __restrict__ b_phi, float sharpness, __nv_bfloat16* __restrict__ out,
-    int* __restrict__ sel_out) {
-  uint32_t* wt = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* wp = wt + MmaWidth<F>::kMlpWords;
-  float* bt = reinterpret_cast<float*>(wp + MmaWidth<F>::kMlpWords);
-  float* bp = bt + kBiases;
-  float* scores = bp + kBiases;
-  stage_fragments<F>(w_theta, wt);
-  stage_fragments<F>(w_phi, wp);
-  for (int i = threadIdx.x; i < kBiases; i += kMmaThreads) {
-    bt[i] = b_theta[i];
-    bp[i] = b_phi[i];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const MmaWeights m{wt, bt, wp, bp, scores + warp * kSlice * kScoreLd};
-  const long long slices = static_cast<long long>(tiles) * kSlicesPerTile;
-  for (long long s = static_cast<long long>(blockIdx.x) * kWarps + warp; s < slices;
-       s += static_cast<long long>(gridDim.x) * kWarps) {
-    const size_t q = s / kSlicesPerTile;
-    const int row0 = static_cast<int>(s % kSlicesPerTile) * kSlice;
-    const auto r = tile_rows(q);
-    if (row0 >= r.n) continue;
-    attend_slice_mma<F, kHard>(r, row0, m, sharpness, out + q * kT * F,
-                            sel_out == nullptr ? nullptr : sel_out + q * kT);
+      for (int i = 0; i < kBatch; ++i) {
+        int best = 0;
+        for (int k = 1; k < K; ++k)
+          if (ws[i][k] != 0.f) best = k;
+        pr[i] = row[i] < r.n ? __ldg(reinterpret_cast<const uint4*>(
+                                   r.cand(best) + row[i] * r.stride + col[i]))
+                             : make_uint4(0u, 0u, 0u, 0u);
+        const T* pv = reinterpret_cast<const T*>(&pr[i]);
+#pragma unroll
+        for (int e = 0; e < kE; ++e) acc[i][e] += ws[i][best] * to_f32(pv[e]);
+      }
+    } else {
+      for (int k = 0; k < K; ++k) {
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const float wk = ws[i][k];
+          if (wk == 0.f || row[i] >= r.n) continue;  // exact: 0 * p adds nothing
+          const uint4 praw = __ldg(reinterpret_cast<const uint4*>(
+              r.cand(k) + row[i] * r.stride + col[i]));
+          const T* pv = reinterpret_cast<const T*>(&praw);
+#pragma unroll
+          for (int e = 0; e < kE; ++e) acc[i][e] += wk * to_f32(pv[e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (row[i] >= r.n) continue;
+      const float sw = ws[i][kMaxK];
+      const T* xv = reinterpret_cast<const T*>(&xr[i]);
+      uint4 oraw;
+      T* ov = reinterpret_cast<T*>(&oraw);
+#pragma unroll
+      for (int e = 0; e < kE; ++e)
+        ov[e] = from_f32<T>(to_f32(xv[e]) * (1.f - sw) + acc[i][e] * sw);
+      *reinterpret_cast<uint4*>(out + row[i] * F + col[i]) = oraw;
+    }
   }
 }
 
@@ -752,14 +719,6 @@ inline int sm_count(cudaError_t* err) {
   if (*err == cudaSuccess)
     *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return *err == cudaSuccess ? sms : 0;
-}
-
-// the persistent grid for `tiles` tiles: one block per SM, or fewer where
-// the slices do not fill them; 0 if the device cannot be asked
-inline int persistent_blocks(int tiles, cudaError_t* err) {
-  const int sms = sm_count(err);
-  const long long want = (static_cast<long long>(tiles) * kSlicesPerTile + kWarps - 1) / kWarps;
-  return static_cast<int>(want < sms ? want : sms);
 }
 
 struct NoWait {

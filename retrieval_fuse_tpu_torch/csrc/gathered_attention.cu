@@ -10,18 +10,18 @@
 // F = nf·e³ values, F one of attention.cuh's `with_width` (32, 64, 96 or
 // 128; the entry point takes f and dispatches).
 //
-// bf16 runs attention.cuh's tensor-core body as a persistent launch (one
-// block per SM with theta's and phi's weights resident in shared memory,
-// each warp walking over 16-row slices, reading candidate k+1's bank rows by
+// bf16 runs attention_wgmma.cuh's body as a persistent launch (one block per
+// SM with theta's and phi's shared-memory images resident, each warpgroup
+// walking over 64-row tiles on wgmma, reading candidate k+1's bank rows by
 // index while candidate k's MLP runs); float32 keeps the float32-FMA body,
 // one block per tile, two blocks on an SM (97 KB of shared memory each).
 //
 // Bound on the H100: at Q=8192 (batch 128) the MLPs are (Q T + Q K T) rows
-// x 106,496 flops = 279 GFLOP, ~0.28 ms at the 989 TFLOP/s bf16 tensor-core
+// x 106,496 flops = 279 GFLOP, 0.282 ms at the 989 TFLOP/s bf16 tensor-core
 // rate; the ~0.8 GB of bf16 rows it must move (x, the gathered candidates,
-// out) take ~0.24 ms at 3.35 TB/s. The tensor-core body is held by
-// shared-memory reads of the weight fragments (attention.cuh); measured
-// times: PERF.md.
+// out) take ~0.24 ms at 3.35 TB/s. Measured on an H100 (700 W), bf16, F =
+// 128, K = 4: 0.710-0.739 ms (the mma.sync body 1.14-1.15), 2.5-2.6x the
+// bound; attention_wgmma.cuh says what holds it, PERF.md has the readings.
 //
 // The TPU version's workarounds are not carried over: the flattened 1-D
 // index operand (SMEM lane padding), the GROUP-tile grid steps (grid
@@ -31,6 +31,7 @@
 #include <type_traits>
 
 #include "attention_general.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -52,20 +53,18 @@ gathered_attention(const T* __restrict__ xt, const T* __restrict__ bank,
 }
 
 template <int F, bool kHard>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-gathered_attention_mma(const __nv_bfloat16* __restrict__ xt,
-                       const __nv_bfloat16* __restrict__ bank, const int* __restrict__ idx,
-                       int Q, int K, const __nv_bfloat16* __restrict__ w_theta,
-                       const float* __restrict__ b_theta,
-                       const __nv_bfloat16* __restrict__ w_phi,
-                       const float* __restrict__ b_phi, float sharpness,
-                       __nv_bfloat16* __restrict__ out, int* __restrict__ sel_out) {
+__global__ void __launch_bounds__(kWgThreads, 1)
+gathered_attention_wgmma(const __nv_bfloat16* __restrict__ xt,
+                         const __nv_bfloat16* __restrict__ bank, const int* __restrict__ idx,
+                         int Q, int K, const __nv_bfloat16* __restrict__ img_theta,
+                         const __nv_bfloat16* __restrict__ img_phi, float sharpness,
+                         __nv_bfloat16* __restrict__ out, int* __restrict__ sel_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto tile_rows = [=](size_t q) {
     return BankRows<__nv_bfloat16, F>{xt + q * kT * F, bank, idx + q * K, kT, K};
   };
-  attend_tiles_mma<F, kHard>(tile_rows, Q, smem_raw, w_theta, b_theta, w_phi, b_phi,
-                             sharpness, out, sel_out);
+  attend_tiles_wgmma<F, kHard>(tile_rows, Q, smem_raw, img_theta, img_phi, sharpness, out,
+                               sel_out);
 }
 
 template <typename T, int F, bool kHard>
@@ -74,14 +73,13 @@ int launch(const void* xt, const void* bank, const int* idx, int q, int k,
            const float* b_phi, float sharpness, void* out, int* sel, cudaStream_t s) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     cudaError_t err;
-    const int blocks = persistent_blocks(q, &err);
+    const int blocks = wgmma_blocks(q, &err);
     if (err != cudaSuccess) return static_cast<int>(err);
-    return launch_blocks(gathered_attention_mma<F, kHard>, blocks, kMmaThreads,
-                         MmaWidth<F>::kSmemBytes, s,
-                         static_cast<const T*>(xt), static_cast<const T*>(bank), idx, q, k,
-                         static_cast<const T*>(w_theta), b_theta,
-                         static_cast<const T*>(w_phi), b_phi, sharpness, static_cast<T*>(out),
-                         sel);
+    return launch_blocks(gathered_attention_wgmma<F, kHard>, blocks, kWgThreads,
+                         WgImage<F>::kSmemBytes, s, static_cast<const T*>(xt),
+                         static_cast<const T*>(bank), idx, q, k,
+                         static_cast<const T*>(w_theta), static_cast<const T*>(w_phi),
+                         sharpness, static_cast<T*>(out), sel);
   } else {
     return launch_blocks(gathered_attention<T, F, kHard>, q, kThreads, kSmemBytes, s,
                          static_cast<const T*>(xt), static_cast<const T*>(bank), idx, k,
@@ -154,8 +152,10 @@ int launch_general(int dtype, const void* xt, const void* bank, const int* idx, 
 // xt (q, t, f), bank (n, t, f), idx (q, k) int32 in [0, n), b_* (128*3 +
 // 32) float32; sel (q, t) int32 or null (argmax candidate of each row);
 // q >= 1; xt, bank and out 16-byte aligned. general 0, the shipped
-// instances: f in {32, 64, 96, 128}, t = 64, 1 <= k <= 8, w_* packed
-// (f*128 + 128*128*2 + 128*32) in (in, out) layout. general 1
+// instances: f in {32, 64, 96, 128}, t = 64, 1 <= k <= 8; float32: w_*
+// packed (f*128 + 128*128*2 + 128*32) in (in, out) layout; bfloat16: w_*
+// each MLP's shared-memory image (attention_wgmma.cuh's WgImage<f>, its
+// biases inside; 16-byte aligned) and b_* unused. general 1
 // (attention_general.cuh): 1 <= f <= 1024, 1 <= t <= 512, 1 <= k <= 32, w_*
 // packed as rf_patch_attention's general operands. bfloat16 runs the
 // tensor-core bodies, float32 the FMA bodies. Returns a cudaError_t value.

@@ -217,6 +217,10 @@ class RetrieveRefineEngine:
             raise ValueError("phibank serving implements hard selection; the sharp-softmax "
                              "variant blends all K candidate rows")
         self.attention_path = attention
+        # the engine owns these weights (loaded above): the kernels' operands
+        # are packed at the first launch and kept
+        pa.freeze_operands(self.attention.attention_blocks_layer.theta,
+                           self.attention.attention_blocks_layer.phi)
         self.flat_gather = bool(flat_gather)
         if decoder not in DECODERS:
             raise ValueError(f"decoder {decoder!r}: one of {tuple(DECODERS)}")

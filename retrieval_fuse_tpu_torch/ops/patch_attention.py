@@ -18,32 +18,37 @@
                                `pallas_gathered_patch_attention` (:151
                                `_gathered_kernel`, :188); token `pallasg`.
 
-All three share one CUDA body (csrc/attention.cuh): theta MLP on x, phi MLP
+All three compute one function (csrc/attention.cuh): theta MLP on x, phi MLP
 on every candidate, normalised scores, ReLU-of-max switch, hard argmax(25 s)
 or softmax(sharpness s) selection, blend; only the (T, F) output rows are
 written. Rows are F = nf·e³ features: 128 at nf 16 (super-resolution),
 96 at nf 12 (surface reconstruction). Bound on the H100 at batch 128 (8192
 tiles of 64 rows, K=4, F = 128, bf16):
 279 GFLOP of MLP GEMMs, ~0.28 ms at the bf16 tensor-core rate, against
-~0.8 GB of rows, ~0.24 ms. In bf16 all three run the body on the tensor
-cores (`mma.sync.m16n8k16`, bf16 products, float32 sums): persistent blocks,
-one per SM, keep the MLP weights in shared memory in B-fragment order for
-all their tiles, a warp owns 16 rows, and the four-layer chain stays in
-registers (a layer's C fragments are the next layer's A fragments). What
-holds it then is shared-memory reads of the weight fragments, not the
-tensor rate (csrc/attention.cuh; times in PERF.md). `patch_attention` and
-`gathered_patch_attention` keep theta and phi resident and read rows from
-global memory; `gathered_patch_attention_v1` keeps phi resident, runs theta
-first on all of a block's tiles (the embeddings wait in a scratch tensor),
-and then turns theta's bytes into rings of candidate tiles that one thread
-a ring fills with `cp.async.bulk` ahead of the warps
-(csrc/gathered_attention_v1.cu). In float32 (TF32 would cost ~3 decimal
-digits) the body multiplies with float32 FMAs from shared memory; v1 then
-stages a tile's K candidates whole, which its shipped instance can do for K
-up to 4 (F = 128), 5 (F = 96) or 8 (F = 64 and 32). Each wrapper's `.math`
-names the path of its last launch. The TPU workarounds are not carried
-over: the 512-row padding of N, the flattened index operand, the padding of
-Q to a group multiple.
+~0.8 GB of rows, ~0.24 ms. In bf16 all three run on the tensor cores
+(bf16 products, float32 sums) in persistent blocks, one per SM, that keep
+the MLP weights in shared memory for all their tiles with the four-layer
+chain in registers (a layer's accumulators are the next layer's A
+fragments). `patch_attention` and `gathered_patch_attention` run their
+shipped instances on Hopper's warpgroup MMA (csrc/attention_wgmma.cuh): a
+warpgroup a 64-row tile, each B tile read from shared memory once for 64
+rows, theta's and phi's weights brought in as the exact shared-memory
+image that `_pack_wgmma` writes on the host (one bulk copy each), rows read
+from global memory. `gathered_patch_attention_v1` and every general
+instance run `mma.sync.m16n8k16`, a warp 16 rows (csrc/attention.cuh);
+v1 keeps phi resident, runs theta first on all of a block's tiles (the
+embeddings wait in a scratch tensor), and then turns theta's bytes into
+rings of candidate tiles that one thread a ring fills with
+`cp.async.bulk` ahead of the warps (csrc/gathered_attention_v1.cu). The
+weights are packed at every launch, or once on MLPs that a serving engine
+froze (`freeze_operands`). Times in PERF.md. In float32 (TF32 would cost
+~3 decimal digits) the body multiplies with float32 FMAs from shared
+memory; v1 then stages a tile's K candidates whole, which its shipped
+instance can do for K up to 4 (F = 128), 5 (F = 96) or 8 (F = 64 and
+32). Each wrapper's `.math` names the
+path of its last launch ("wgmma.bf16", "mma.bf16" or "fma.f32"). The TPU
+workarounds are not carried over: the 512-row padding of N, the flattened
+index operand, the padding of Q to a group multiple.
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 PyTorch version on CPU tensors; it never falls back from one to the other.
@@ -62,6 +67,7 @@ time). `.instance` names the instance of a wrapper's last launch.
 from __future__ import annotations
 
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -178,12 +184,22 @@ def gathered_patch_attention_plain(xt, bank_rows, top_idx, theta, phi, K: int,
 gathered_patch_attention_v1_plain = gathered_patch_attention_plain
 
 
+def layer0_row(kappa):
+    """The fc0 row (input feature) at logical k `kappa` of layer 0 in both
+    tensor-core bodies: `load_rows16`'s order, in which a lane's 16-byte run
+    of its row is its A fragments of two k16 steps: kappa = 16s + 8u + 2t +
+    e -> 32·(s/2) + 8t + 4·(s&1) + 2u + e (ints or numpy arrays)."""
+    s, kk = kappa // 16, kappa % 16
+    u, j = kk // 8, kk % 8
+    return 32 * (s // 2) + 8 * (j // 2) + 4 * (s % 2) + 2 * u + j % 2
+
+
 @functools.lru_cache(maxsize=None)
 def _layer0_fragment_index(fp: int) -> torch.Tensor:
     """Where each bf16 of layer 0's B-fragment order comes from in the
     (fp, 128) row-major fc0: word i (lane (g, t), slot r of k16 step s and
     n8-tile pair jp) holds W[k][n] and W[k+1][n], n = 8·(2jp + r/2) + g,
-    k = 32·(s/2) + 8t + 4·(s&1) + 2·(r&1): the order of csrc/attention.cuh's
+    k = layer0_row(16s + 8·(r&1) + 2t): the order of csrc/attention.cuh's
     `stage_fragments` for layer 0, whose k is permuted so that a lane's A
     fragments of two k16 steps are one run of 8 columns of its row."""
     i = np.arange(fp * KERNEL_HIDDEN // 2)
@@ -191,7 +207,7 @@ def _layer0_fragment_index(fp: int) -> torch.Tensor:
     jp, s = sj % (KERNEL_HIDDEN // 16), sj // (KERNEL_HIDDEN // 16)
     g, t = lane >> 2, lane & 3
     n = 8 * (2 * jp + (r >> 1)) + g
-    k = 32 * (s >> 1) + 8 * t + 4 * (s & 1) + 2 * (r & 1)
+    k = layer0_row(16 * s + 8 * (r & 1) + 2 * t)
     return torch.from_numpy(np.stack([k * KERNEL_HIDDEN + n, (k + 1) * KERNEL_HIDDEN + n],
                                      axis=1).reshape(-1))
 
@@ -219,6 +235,111 @@ def _pack(w: nn.Module, dtype: torch.dtype,
     return weights.contiguous(), biases.float().contiguous()
 
 
+#: csrc/attention_wgmma.cuh's shared-memory image of an MLP (no swizzle,
+#: K-major B): 8x8 bf16 core matrices of WGMMA_CORE_BYTES (`kCoreBytes`),
+#: rows of WGMMA_CORE_ROW_BYTES (`kCoreRowBytes`)
+WGMMA_CORE_BYTES, WGMMA_CORE_ROW_BYTES = 128, 16
+
+
+def wgmma_layers(f: int) -> list[tuple[int, int, int]]:
+    """(start byte, rows Kin, columns N) of each layer of the image at row
+    width f, as `WgImage<F>` lays them out (kL0..kL3); the float32 biases
+    follow at 2·(f·128 + 2·128² + 128·32) bytes (kBias)."""
+    h, c = KERNEL_HIDDEN, KERNEL_EMBED
+    sizes = [(f, h), (h, h), (h, h), (h, c)]
+    starts = np.cumsum([0] + [2 * kin * n for kin, n in sizes])
+    return [(int(st), kin, n) for st, (kin, n) in zip(starts, sizes)]
+
+
+def wgmma_step_descriptor(start: int, n: int, s: int) -> tuple[int, int, int]:
+    """(start address, LBO, SBO) in bytes of the descriptor of k16 step s of
+    a layer N wide whose image starts at `start`: `wg_layer`'s start +
+    s·kStepBytes(N), kLbo(N) = N·16 and kCoreBytes."""
+    return start + s * n * 32, n * 16, WGMMA_CORE_BYTES
+
+
+def wgmma_b_address(start: int, lbo: int, sbo: int, kk: int, n: int) -> int:
+    """The byte that wgmma reads B[kk][n] of a k16 step from (kk in 0..15),
+    for a no-swizzle K-major descriptor (start, LBO, SBO): core matrix
+    (kk // 8, n // 8) at start + (kk // 8)·LBO + (n // 8)·SBO, its row n % 8
+    WGMMA_CORE_ROW_BYTES on, element kk % 8 two bytes on."""
+    return (start + (kk // 8) * lbo + (n // 8) * sbo + (n % 8) * WGMMA_CORE_ROW_BYTES
+            + (kk % 8) * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_index(f: int) -> torch.Tensor:
+    """For each bf16 of the image's weights, its index in `_pack`'s (in,
+    out) concatenation: logical k `kap` and column n of a layer (Kin x N)
+    lie at element (kap // 8)·N·8 + (n // 8)·64 + (n % 8)·8 + kap % 8 of the
+    layer, and hold W[k][n], k = layer0_row(kap) in layer 0 and kap in the
+    others."""
+    total = sum(kin * n for _, kin, n in wgmma_layers(f))
+    idx = np.full(total, -1, dtype=np.int64)
+    for layer, (start, kin, n_out) in enumerate(wgmma_layers(f)):
+        kap, n = np.arange(kin)[:, None], np.arange(n_out)[None, :]
+        k = layer0_row(kap) if layer == 0 else kap
+        pos = (start // 2 + (kap // 8) * n_out * 8 + (n // 8) * 64 + (n % 8) * 8 + kap % 8)
+        idx[pos] = start // 2 + k * n_out + n
+    return torch.from_numpy(idx)
+
+
+def _pack_wgmma(w: nn.Module) -> torch.Tensor:
+    """An attention MLP -> the shared-memory image that csrc/attention_wgmma.cuh
+    copies into a block with one bulk copy: the bf16 weights in wgmma's
+    layout (_wgmma_index), then the float32 biases' bytes, as one bf16
+    tensor."""
+    weights, biases = _pack(w, torch.bfloat16)
+    img = weights[_wgmma_index(w.fc0.weight.shape[1]).to(weights.device)]
+    return torch.cat([img, biases.view(torch.bfloat16)]).contiguous()
+
+
+#: frozen MLP -> ([(detached alias, version) of each parameter at the
+#: freeze], {(dtype, layout): operands}). The alias keeps the storage, so
+#: no other tensor takes its address; inference tensors keep no version
+#: (None). A copy of a frozen MLP (copy.deepcopy, then .float()) is not
+#: frozen.
+_FROZEN: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def freeze_operands(*mlps: nn.Module) -> None:
+    """Declare the weights of attention MLPs fixed from now on, as a serving
+    engine does for the modules it loads from its own copy of the params:
+    their kernel operands are then packed at the first launch in each dtype
+    and layout and then kept, so that a serving call packs nothing.
+    An MLP that is not frozen packs at every launch, so that any update of
+    its weights, `p.data` writes included, reaches the kernel."""
+    for w in mlps:
+        _FROZEN[w] = ([(p.detach(), None if p.is_inference() else p._version)
+                       for p in w.parameters()], {})
+
+
+def packed(w: nn.Module, dtype: torch.dtype, layout: str):
+    """`w`'s kernel operands in `layout`: "in_out" or "general" (`_pack`'s
+    (weights, biases)) or "wgmma" (`_pack_wgmma`'s image, bf16); packed
+    anew, or once if `w` is frozen (`freeze_operands`). A frozen MLP whose
+    parameter has since been given new storage or updated in place (its
+    data_ptr or _version moved) raises rather than serve the old weights; a
+    write through `p.data` moves neither (PyTorch gives `.data` a version
+    counter of its own) and is not seen."""
+    with torch.no_grad():
+        make = lambda: (_pack_wgmma(w) if layout == "wgmma"  # noqa: E731
+                        else _pack(w, dtype, layout == "general"))
+        frozen = _FROZEN.get(w)
+        if frozen is None:
+            return make()
+        state, cache = frozen
+        params = list(w.parameters())
+        if len(params) != len(state) or any(
+                a.data_ptr() != p.data_ptr() or (v is not None and v != p._version)
+                for (a, v), p in zip(state, params)):
+            raise RuntimeError("packed: a weight of an MLP frozen by freeze_operands changed "
+                               "after the freeze; build its engine anew")
+        if (dtype, layout) not in cache:
+            cache[dtype, layout] = make()
+        return cache[dtype, layout]
+
+
 def is_shipped_shape(kernel: str, f: int, k: int, t: int | None = None,
                      dtype: torch.dtype = torch.bfloat16) -> bool:
     """True where attention kernel `kernel` (a `_build.KERNELS` name) runs
@@ -231,13 +352,17 @@ def is_shipped_shape(kernel: str, f: int, k: int, t: int | None = None,
     return shipped
 
 
-def kernel_math(kernel: str, dtype: torch.dtype) -> str:
+def kernel_math(kernel: str, dtype: torch.dtype, general: bool = False) -> str:
     """The instruction path of attention kernel `kernel` (a `_build.KERNELS`
-    name) for rows of `dtype`: the three kernels send bf16 to the tensor
-    cores and run float32 on FMAs."""
+    name) for rows of `dtype` on its shipped (or, `general`, its general)
+    instance: the three kernels send bf16 to the tensor cores, the shipped
+    instances of patch_attention and gathered_attention by `wgmma` and the
+    others by `mma.sync`, and run float32 on FMAs."""
     if kernel not in ("patch_attention", "gathered_attention", "gathered_attention_v1"):
         raise ValueError(f"kernel_math: {kernel!r} is no attention kernel")
-    return "mma.bf16" if dtype == torch.bfloat16 else "fma.f32"
+    if dtype != torch.bfloat16:
+        return "fma.f32"
+    return "mma.bf16" if general or kernel == "gathered_attention_v1" else "wgmma.bf16"
 
 
 def _check_kernel_operands(name: str, rows: torch.Tensor, cands: torch.Tensor, idx,
@@ -276,14 +401,18 @@ def _launch(kernel: str, rows: torch.Tensor, operands: tuple, general: bool, the
             scratch: tuple = ()) -> str:
     """Launch `kernel`'s shipped or general instance (`scratch`: its scratch
     tensors, after the outputs); returns the instruction path it took."""
-    w_theta, b_theta = _pack(theta, rows.dtype, general)
-    w_phi, b_phi = _pack(phi, rows.dtype, general)
+    math = kernel_math(kernel, rows.dtype, general)
+    if math == "wgmma.bf16":  # one image an MLP, its biases inside
+        mlps = [(packed(m, rows.dtype, "wgmma"), None) for m in (theta, phi)]
+    else:
+        mlps = [packed(m, rows.dtype, "general" if general else "in_out") for m in (theta, phi)]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    (w_theta, b_theta), (w_phi, b_phi) = mlps
     _build.launch(kernel, rows.device, 0 if rows.dtype == torch.float32 else 1, *operands,
-                  int(general), w_theta.data_ptr(), b_theta.data_ptr(), w_phi.data_ptr(),
-                  b_phi.data_ptr(), int(bool(retrieval_mode)), float(sharpness),
-                  out.data_ptr(), None if sel is None else sel.data_ptr(),
-                  *(None if t is None else t.data_ptr() for t in scratch))
-    return kernel_math(kernel, rows.dtype)
+                  int(general), ptr(w_theta), ptr(b_theta), ptr(w_phi), ptr(b_phi),
+                  int(bool(retrieval_mode)), float(sharpness), ptr(out), ptr(sel),
+                  *(ptr(t) for t in scratch))
+    return math
 
 
 def patch_attention(x: torch.Tensor, p: torch.Tensor, theta: nn.Module, phi: nn.Module,

@@ -234,10 +234,11 @@ _BF16_TOL = {True: 0.04, False: 0.15}
 @pytest.mark.parametrize("n, k", [(37, 4), (64 * 3 + 1, 1), (64 * 500 - 23, 8), (15, 8)],
                          ids=["under-a-tile", "K1", "past-the-grid-K8", "under-a-slice-K8"])
 def test_patch_attention_tensor_core_body(cuda, retrieval_mode, n, k):
-    """The bf16 body (persistent blocks, 16-row slices per warp): N smaller
-    than a 64-row tile and than a 16-row slice, N no multiple of 64, more
-    slices than one round of the persistent grid (12 warps on each of an
-    H100's 132 SMs: 396 tiles), K = 1 and K = 8."""
+    """The bf16 wgmma body (persistent blocks, a warpgroup a 64-row tile, a
+    warp 16 of its rows): N smaller than a tile and than a warp's 16 rows, N
+    no multiple of 64, more tiles than one round of the persistent grid
+    (three warpgroups on each of an H100's 132 SMs: 396 tiles), K = 1 and
+    K = 8."""
     q = -(-n // 64)
     xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(16), q, 50, 64, 128, k)
     x = torch.from_numpy(xt).reshape(-1, 128)[:n].to(cuda, torch.bfloat16).contiguous()
@@ -250,7 +251,7 @@ def test_patch_attention_tensor_core_body(cuda, retrieval_mode, n, k):
         out, sel = pa.patch_attention(x, p, theta, phi, k, retrieval_mode, return_selection=True)
         torch.cuda.synchronize()
         assert pa.patch_attention.launches == before + 1
-        assert pa.patch_attention.math == "mma.bf16"
+        assert pa.patch_attention.math == "wgmma.bf16"
         want, want_sel = pa.patch_attention_plain(x, p, theta, phi, k, retrieval_mode)
     assert out.shape == x.shape and out.dtype == torch.bfloat16 and sel.shape == (n,)
     assert int(sel.min()) >= 0 and int(sel.max()) < k
@@ -275,9 +276,46 @@ def test_gathered_attention_tensor_core_body(cuda, retrieval_mode, q, k):
                                                return_selection=True)
         torch.cuda.synchronize()
         assert pa.gathered_patch_attention.launches == before + 1
-        assert pa.gathered_patch_attention.math == "mma.bf16"
+        assert pa.gathered_patch_attention.math == "wgmma.bf16"
         want, want_sel = pa.gathered_patch_attention_plain(*args, theta, phi, k, retrieval_mode)
     assert out.shape == (q, 64, 128) and sel.shape == (q, 64)
+    _agree(out, sel, want, want_sel, 0.99, _BF16_TOL[retrieval_mode])
+    assert float((out.float() - want.float()).abs().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("retrieval_mode", [True, False], ids=["hard", "softmax"])
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("f", pa.SHIPPED_WIDTHS)
+@pytest.mark.parametrize("kernel", ["patch", "gathered"])
+def test_wgmma_body_matches_plain_at_every_shipped_shape(cuda, kernel, f, k, retrieval_mode):
+    """The wgmma body of both kernels at each shipped F, K 1, 4 and 8, hard
+    and softmax: patch_attention at N = 64·401 + 17 (a ragged last tile),
+    gathered_attention at Q = 401 tiles (no multiple of the persistent
+    grid's warpgroups); one launch each, reported as wgmma.bf16, against the
+    plain version under the F = 128 tests' tolerances."""
+    q = 401
+    xt, bank, idx, theta, phi = attention_inputs(np.random.default_rng(40 + f + k), q, 50, 64,
+                                                 f, k)
+    theta, phi = theta.to(cuda, torch.bfloat16), phi.to(cuda, torch.bfloat16)
+    xt, bank = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in (xt, bank))
+    if kernel == "patch":
+        n = 64 * q + 17
+        rows = torch.from_numpy(np.random.default_rng(41 + f).integers(0, 50 * 64, (n, k)))
+        x = torch.cat([xt.reshape(-1, f), xt[0, :17]]).contiguous()
+        args = (x, bank.reshape(-1, f)[rows.to(cuda)].contiguous())
+        fn, plain = pa.patch_attention, pa.patch_attention_plain
+    else:
+        args = (xt, bank, torch.from_numpy(idx).to(cuda))
+        fn, plain = pa.gathered_patch_attention, pa.gathered_patch_attention_plain
+    with torch.no_grad():
+        before = fn.launches
+        out, sel = fn(*args, theta, phi, k, retrieval_mode, return_selection=True)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert fn.math == "wgmma.bf16" and fn.instance == "shipped"
+        want, want_sel = plain(*args, theta, phi, k, retrieval_mode)
+    assert out.shape == args[0].shape and out.dtype == torch.bfloat16
+    assert int(sel.min()) >= 0 and int(sel.max()) < k
     _agree(out, sel, want, want_sel, 0.99, _BF16_TOL[retrieval_mode])
     assert float((out.float() - want.float()).abs().mean()) <= 1e-3
 
@@ -542,7 +580,10 @@ def _attention_at(dev, kernel, dtype, retrieval_mode, q, k, seed, f=96, t=64):
         out, sel = fn(*args, theta, phi, k, retrieval_mode, return_selection=True)
         torch.cuda.synchronize()
         assert fn.launches == before + 1
-        assert fn.math == ("mma.bf16" if dtype == torch.bfloat16 else "fma.f32")
+        name = {"v2": "gathered_attention", "v1": "gathered_attention_v1",
+                "patch": "patch_attention"}[kernel]
+        general = not pa.is_shipped_shape(name, f, k, None if kernel == "patch" else t, dtype)
+        assert fn.math == pa.kernel_math(name, dtype, general)
         want, want_sel = plain(*args, theta, phi, k, retrieval_mode)
     assert out.shape == args[0].shape and out.dtype == dtype
     return out, sel, want, want_sel

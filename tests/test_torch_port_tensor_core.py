@@ -1,5 +1,6 @@
 """The host side of the tensor-core kernels (csrc/decoder_tail.cu, the
-bf16 body of csrc/attention.cuh and csrc/knn.cu), on the CPU: which
+bf16 bodies of csrc/attention.cuh and csrc/attention_wgmma.cuh and
+csrc/knn.cu), on the CPU: which
 instruction path a launch is reported to take, and that CPU tensors take
 none. The kernels
 themselves run in tests/test_torch_port_cuda.py, on a CUDA card.
@@ -30,17 +31,28 @@ def test_decoder_tail_math_follows_the_dispatch(dtype, nf, want):
 
 
 @pytest.mark.parametrize("kernel, dtype, want", [
-    ("patch_attention", torch.bfloat16, "mma.bf16"),
-    ("gathered_attention", torch.bfloat16, "mma.bf16"),
+    ("patch_attention", torch.bfloat16, "wgmma.bf16"),
+    ("gathered_attention", torch.bfloat16, "wgmma.bf16"),
     ("gathered_attention_v1", torch.bfloat16, "mma.bf16"),
     ("patch_attention", torch.float32, "fma.f32"),
     ("gathered_attention", torch.float32, "fma.f32"),
     ("gathered_attention_v1", torch.float32, "fma.f32")])
 def test_attention_math_follows_the_dispatch(kernel, dtype, want):
-    """The three attention kernels send bf16 to the tensor cores and keep
-    float32 on the FMA body."""
+    """The three attention kernels send bf16 to the tensor cores (the
+    shipped instances of patch_attention and gathered_attention by wgmma, v1
+    by mma.sync) and keep float32 on the FMA body."""
     assert kernel in _build.KERNELS
     assert pa.kernel_math(kernel, dtype) == want
+
+
+@pytest.mark.parametrize("kernel", ["patch_attention", "gathered_attention",
+                                    "gathered_attention_v1"])
+@pytest.mark.parametrize("dtype, want", [(torch.bfloat16, "mma.bf16"), (torch.float32, "fma.f32")],
+                         ids=["bf16", "f32"])
+def test_general_attention_math_keeps_mma_sync(kernel, dtype, want):
+    """The general instances (attention_general.cuh) keep the mma.sync body
+    in bf16 and the FMA body in float32."""
+    assert pa.kernel_math(kernel, dtype, general=True) == want
 
 
 def test_attention_math_knows_only_the_attention_kernels():

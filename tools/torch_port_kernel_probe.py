@@ -11,9 +11,10 @@ At the batch-128 serving shapes (seeded random rows and weights):
     both: the time of each half alone beside the whole. Where the whole is
     near the sum, copies and conv do not overlap; where it is near the
     larger, they do. The probes' outputs are meaningless and are not checked.
-  - csrc/gathered_attention.cu (bf16) with persistent blocks of 8, 10, 12 and
-    16 warps (-DRF_PROBE_ATTN_THREADS=n), with ptxas's registers and spills
-    and the selection agreement with the plain version beside each time.
+  - csrc/gathered_attention.cu (bf16, the wgmma body) with persistent blocks
+    of 2, 3 and 4 warpgroups (-DRF_PROBE_ATTN_THREADS=128·G), with ptxas's
+    registers, spills and wgmma serialization warnings and the selection
+    agreement with the plain version beside each time.
   - csrc/gathered_attention_v1.cu (bf16) with rings of 2 slots and of 1
     (-DRF_PROBE_V1_SLOTS=1: a candidate's copy starts when the one before it
     has been taken), beside csrc/gathered_attention.cu on the same rows.
@@ -43,6 +44,7 @@ kernels the port loads afterwards are the unflagged ones. Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import sys
 import time
@@ -90,7 +92,17 @@ def main(argv=None) -> int:
         lines = rep.splitlines()
         regs = {ln.split("Used ")[1].split(",")[0] for ln in lines if "Used " in ln}
         spills = {ln.strip() for ln in lines if "spill" in ln and "0 bytes spill" not in ln}
-        return "; ".join([", ".join(sorted(regs)), *sorted(spills)])
+        serialized = {ln.strip()[:160] for ln in lines if "serialized" in ln}
+        wgmma = {}  # the wgmma entry points' registers and spills, by (F, hard)
+        for i, ln in enumerate(lines):
+            m = re.search(r"Compiling entry function '\S*_wgmmaILi(\d+)ELb(\d)", ln)
+            if m:
+                stats = " ".join(x.strip().replace("ptxas info    : ", "")
+                                 for x in lines[i + 1:i + 5] if "spill" in x or "Used" in x)
+                wgmma[f"F{m.group(1)}{' hard' if m.group(2) == '1' else ''}"] = stats
+        per_entry = [f"wgmma {k}: {v}" for k, v in sorted(wgmma.items())]
+        return "; ".join([", ".join(sorted(regs)), *sorted(spills), *sorted(serialized),
+                          *per_entry])
 
     def probe_tail():
         hn = torch.zeros((128, 34, 34, 34, 128), device=dev, dtype=torch.bfloat16)
@@ -111,6 +123,7 @@ def main(argv=None) -> int:
         version's selections."""
         torch.manual_seed(args.seed)
         theta, phi = (AttentionFeatureEncoder(128, 32).to(dev).bfloat16() for _ in range(2))
+        pa.freeze_operands(theta, phi)  # packed once, as the engine's
         bank = torch.randn((SEED_BANK_ROWS, 64, 128), generator=gen, device=dev).bfloat16()
         xt = torch.randn((8192, 64, 128), generator=gen, device=dev).bfloat16()
         idx = torch.randint(0, SEED_BANK_ROWS, (8192, 4), generator=gen, device=dev,
@@ -126,9 +139,9 @@ def main(argv=None) -> int:
 
     def probe_attention():
         ops, want_sel = attention_operands()
-        for threads in (256, 320, 384, 512):
+        for threads in (256, 384, 512, 256, 384):
             ptxas = rebuilt("gathered_attention", (f"-DRF_PROBE_ATTN_THREADS={threads}",))
-            print(f"gathered_patch_attention bf16 Q=8192 K=4, {threads // 32} warps a block: "
+            print(f"gathered_patch_attention bf16 Q=8192 K=4, {threads // 128} warpgroups a block: "
                   f"{attention_line(pa.gathered_patch_attention, ops, want_sel)}; "
                   f"ptxas {ptxas} [{card}]", flush=True)
 

@@ -247,6 +247,7 @@ def main(argv=None) -> int:
                                           for _ in range(2))}
             for m16, m32 in zip(mlps[torch.bfloat16], (theta, phi)):
                 m16.load_state_dict({n: v.bfloat16() for n, v in m32.state_dict().items()})
+            pa.freeze_operands(*mlps[torch.float32], *mlps[torch.bfloat16])  # packed once
             bank = torch.randn((SEED_BANK_ROWS, t, f), generator=gen, device=dev).bfloat16()
             xt = torch.randn((q, t, f), generator=gen, device=dev).bfloat16()
             # candidates near their query row, so that scores are spread and the switch opens

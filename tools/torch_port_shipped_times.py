@@ -74,6 +74,8 @@ def main(argv=None) -> int:
     for f in (128, 96, 64, 32):
         torch.manual_seed(args.seed + f)
         theta, phi = (AttentionFeatureEncoder(f, 32).to(dev, torch.bfloat16) for _ in range(2))
+        if hasattr(pa, "freeze_operands"):  # as an engine does; older trees pack every call
+            pa.freeze_operands(theta, phi)
         xt = torch.randn((q, t, f), generator=gen, device=dev).bfloat16()
         bank = torch.randn((n_bank, t, f), generator=gen, device=dev).bfloat16()
         idx = torch.randint(0, n_bank, (q, k), generator=gen, device=dev, dtype=torch.int32)
